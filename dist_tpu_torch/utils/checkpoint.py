@@ -1,0 +1,78 @@
+"""Checkpoint loading for evaluation and serving: the torch-checkpoint side
+of ``dist_tpu/utils/checkpoint.py::load_test_checkpoint``.
+
+Orbax checkpoints written by the JAX package (directories under
+``OUTPUT_DIR/checkpoints``) are not read by the port yet; meeting one is
+an error that names the ROADMAP item, never a silent random model.
+"""
+
+import os
+import pickle
+import re
+
+import torch
+
+from dist_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+_ORBAX_TODO = ("reading the JAX package's Orbax checkpoints is not ported "
+               "yet (ROADMAP.md queue A, 'eval run-list'); convert it to a "
+               "torch state dict or point TEST.CHECKPOINT_FILE_PATH at a "
+               ".pyth/.pt file")
+
+
+def _is_torch_ckpt(path):
+    return path.endswith((".pyth", ".pt", ".pth"))
+
+
+def get_last_checkpoint(cfg):
+    """Latest ``checkpoint_epoch_*`` entry under OUTPUT_DIR/checkpoints, or
+    None."""
+    d = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+    if not os.path.isdir(d):
+        return None
+    names = sorted(n for n in os.listdir(d)
+                   if re.match(r"checkpoint_epoch_\d+(_iter_\d+)?$", n))
+    return os.path.abspath(os.path.join(d, names[-1])) if names else None
+
+
+def load_torch_weights(model, path):
+    """Load a torch checkpoint into ``model.module`` where names and shapes
+    match (the reference's ``load_state_dict(strict=False)``); logs what
+    did not match."""
+    from dist_tpu_torch.models.clip.convert import load_torch_state_dict
+
+    sd = load_torch_state_dict(path)
+    own = model.module.state_dict()
+    take = {k: v for k, v in sd.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    missing = sorted(set(own) - set(take))
+    unexpected = sorted(set(sd) - set(take))
+    model.module.load_state_dict(take, strict=False)
+    if missing:
+        logger.info("Keys in model not matched: %s", missing[:20])
+    if unexpected:
+        logger.info("Keys in checkpoint not matched: %s", unexpected[:20])
+    return model
+
+
+def load_test_checkpoint(cfg, model):
+    """Priority TEST.CHECKPOINT_FILE_PATH > last checkpoint >
+    TRAIN.CHECKPOINT_FILE_PATH; random weights when none is configured."""
+    for path in (cfg.TEST.CHECKPOINT_FILE_PATH, get_last_checkpoint(cfg),
+                 cfg.TRAIN.CHECKPOINT_FILE_PATH):
+        if not path:
+            continue
+        if not _is_torch_ckpt(path):
+            raise NotImplementedError(f"{path}: {_ORBAX_TODO}")
+        try:
+            load_torch_weights(model, path)
+        except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+            # a corrupt or mismatched file falls through to the next one
+            logger.warning("could not load torch checkpoint %s (%s)", path, e)
+            continue
+        logger.info("Loaded test checkpoint %s", path)
+        return model
+    logger.warning("Testing with random initialization (no checkpoint found).")
+    return model

@@ -6,11 +6,12 @@
 1. Card: prints the card's name and power limit, builds the hand-written
    CUDA kernels from ``dist_tpu_torch/csrc`` with nvcc (in parallel).
 2. Kernels: calls each kernel on the card at the shapes the serving path
-   gives it and holds it against its plain PyTorch version on the same
-   inputs (TF32 off), with the tolerance stated beside each check; times
-   the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call (``library_ms``), with CUDA events after
-   warm-up.
+   and the train step give it (K3, the TemporalNet backward, in fp32 and
+   bf16, twice, to show that two launches agree bit for bit) and holds it
+   against its plain PyTorch version on the same inputs (TF32 off), with
+   the tolerance stated beside each check; times the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (``library_ms``), with CUDA events after warm-up.
 3. Serving: builds ``InferenceEngine`` for the DiST ViT-B/16 8+16f SSV2
    config at full width (174 classes, ``TPU.FUSED_TEMPORAL_NET true``,
    batch size 8, weights made from ``RANDOM_SEED``), warms it up and
@@ -23,13 +24,30 @@
    (both bf16, as served), and the card against the CPU with both in
    fp32, held to ``AGREEMENT_LIMITS``; controls (the unfused model with
    one of K2's spatial taps dropped) must break those limits.
+5. Train: the same config's train step at full width (batch 32,
+   bf16, AdamW with the DiST groups, cosine LR with warmup, mixup/cutmix,
+   label smoothing, ``TPU.FUSED_TEMPORAL_NET true``): 2 warm-up and 5
+   timed steps on seeded uint8 clips. Checks finite losses, that every
+   dist_net parameter with a gradient moved and every frozen one did not,
+   and the launches per step (K1 12 in the frozen vision tower, K2 12,
+   K3 12); K1's 12 text-tower launches at set-up are counted apart. Then
+   times 3 steps with the unfused TemporalNet beside them.
+6. Train agreement: for three weight seeds, one step's dist_net gradients
+   and loss (mixup off) of the fused path against the unfused path (cuDNN
+   convs), both bf16 on the card at batch 32, and of the card against the
+   CPU plain versions, both fp32 at batch 2, held to
+   ``TRAIN_AGREEMENT_LIMITS``; a control with one spatial tap of the first
+   block dropped must break them.
 
-Prints one JSON line per check and phase, then ``{"kernels": [...]}``,
-the card line, and last ``{"ok": true, "device": {...}}``. Any failure,
-or no CUDA card, exits non-zero without the last line.
+Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
+numbers of each kernel at the train step's shapes, launches from the train
+phase, the serving shapes' numbers beside them), the card line, and last
+``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
+non-zero without the last line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,6 +86,33 @@ AGREEMENT_LIMITS = {
     "fp32_card_vs_cpu": {"max_abs_score_diff": 1.1e-8,
                          "max_abs_logit_diff": 3.2e-6,
                          "min_embedding_cosine": 1 - 5e-13},
+}
+
+# the schedule's epoch length: SSV2's 168,913 training clips at batch 32
+TRAIN_STEPS_PER_EPOCH = 5279
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 5
+TRAIN_AGREEMENT_CPU_CLIPS = 2       # batch of the card-against-CPU reading
+# the control: the unfused model with the (0, 0) tap of the 3x3 spatial
+# conv dropped in the first TemporalNet; it must break the limits of both
+# comparisons
+TRAIN_CONTROL_BLOCKS = 1
+# Limits on one step's dist_net gradients: the worst relative L2 error
+# ||a - b|| / ||b|| and the least cosine over the 381 parameter tensors
+# with a gradient, and the loss's relative difference. 3 times the worst
+# reading of seeds 0-2 on an H100 (grad error, 1 - cosine, loss):
+#   unfused_card_bf16  0.0340   5.76e-4  3.96e-5
+#   cpu_fp32           6.58e-6  2.09e-11 1.90e-7
+#   control, bf16      0.326 - 0.332, 0.052 - 0.057, 6.4e-6 - 2.9e-5
+#   control, fp32      0.279 - 0.393, 0.039 - 0.077, 8.4e-6 - 4.5e-5
+# The bf16 control breaks the gradient limits by 3.2 times or more; its
+# loss lies inside the bf16 noise.
+TRAIN_AGREEMENT_LIMITS = {
+    "unfused_card_bf16": {"max_grad_rel_err": 0.102,
+                          "min_grad_cosine": 1 - 1.73e-3,
+                          "loss_rel_diff": 1.2e-4},
+    "cpu_fp32": {"max_grad_rel_err": 2e-5, "min_grad_cosine": 1 - 6.3e-11,
+                 "loss_rel_diff": 5.8e-7},
 }
 
 
@@ -214,6 +259,72 @@ def check_temporal_net(name, shape, dtype, seed):
     return rec
 
 
+def check_temporal_net_bwd(name, shape, dtype, seed):
+    """K3 against its plain version on seeded inputs and cotangent: all 7
+    outputs, each with its tolerance; and two launches bit for bit."""
+    import torch
+    from dist_tpu_torch.ops import temporal_net as tn
+
+    b, t, h, w, c = shape
+    f, k = c, 3
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device="cuda") * scale
+
+    x = rnd(*shape).to(dtype)
+    g = rnd(*shape).to(dtype)
+    params = (1.0 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+              rnd(k, 1, 1, c, f, scale=(k * c) ** -0.5), rnd(f, scale=0.1),
+              rnd(1, 3, 3, f, c, scale=(9 * f) ** -0.5), rnd(c, scale=0.1))
+    got = tn.fused_temporal_net_bwd(x, g, *params)
+    again = tn.fused_temporal_net_bwd(x, g, *params)
+    want = tn.temporal_net_bwd_plain(x, g, *params)
+    torch.cuda.synchronize()
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    outputs, ok = {}, True
+    for i, (nm, gi, wi) in enumerate(zip(names, got, want)):
+        scale = float(wi.float().abs().max())
+        if i == 0 and dtype == torch.bfloat16:
+            # fp32 inside both; dx's rounding to bf16 may fall one step apart
+            atol, rtol, why = 1e-4 + 1e-5 * scale, 2 ** -7, "bf16 rounding of dx"
+        else:
+            # fp32 sums in another order: the weight grads over N positions
+            # in 32 chunks here, in cuBLAS's blocking in the plain version
+            atol, rtol, why = 1e-5 * scale + 1e-6, 1e-5, "fp32 summation order"
+        err, good = compare(gi, wi, atol, rtol)
+        outputs[nm] = {"max_abs_err": err, "max_abs_ref": scale,
+                       "atol": atol, "rtol": rtol, "tolerance": why,
+                       "pass": good}
+        ok = ok and good
+    repeatable = all(bool(torch.equal(a1, a2)) for a1, a2 in zip(got, again))
+    n = b * t * h * w
+    param_bytes = 4 * (k * c * f + 9 * f * c + 3 * c + f)
+    # reads x and the cotangent, the parameters; writes dx and the 7 grads'
+    # fp32 weights; the arithmetic is fp32: the forward again and two
+    # gradient products per tap, 6 N C F (k + 9)
+    b_ms, b_by = bound(3 * x.numel() * x.element_size() + 2 * param_bytes,
+                       6 * n * c * f * (k + 9), "float32")
+    dtname = str(dtype).split(".")[-1]
+    rec = {
+        "check": name, "kernel": "temporal_net_bwd", "shape": list(shape),
+        "k": k, "dtype": dtname,
+        "max_abs_err": max(o["max_abs_err"] for o in outputs.values()),
+        "outputs": outputs, "bitwise_repeatable": repeatable,
+        "ms": time_ms(lambda: tn.fused_temporal_net_bwd(x, g, *params), 10),
+        "plain_ms": time_ms(
+            lambda: tn.temporal_net_bwd_plain(x, g, *params), 3),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "pass": ok and repeatable,
+    }
+    emit(rec)
+    if not rec["pass"]:
+        raise AssertionError(f"{name}: kernel and plain version disagree or "
+                             f"two launches differ ({outputs}, repeatable "
+                             f"{repeatable})")
+    return rec
+
+
 def kernel_checks():
     import torch
 
@@ -229,8 +340,21 @@ def kernel_checks():
         check_temporal_net("temporal_net fp32", (8, 16, 14, 14, 96), f32, 5),
         check_temporal_net("temporal_net bf16", (8, 16, 14, 14, 96), bf16, 6),
     ]
-    # the shapes and type of the served model's main path
-    return {"attention_qkv": att[1], "temporal_net_fwd": tnet[1]}
+    # the shapes of the train step: batch 32, 8 sparse frames in the vision
+    # tower, 16 dense frames in the ladder
+    train = {
+        "attention_qkv": check_attention("attention vision train bf16", 256,
+                                         197, 12, 64, False, bf16, 7),
+        "temporal_net_fwd": check_temporal_net(
+            "temporal_net train bf16", (32, 16, 14, 14, 96), bf16, 8),
+    }
+    check_temporal_net_bwd("temporal_net_bwd train fp32",
+                           (32, 16, 14, 14, 96), f32, 9)
+    train["temporal_net_bwd"] = check_temporal_net_bwd(
+        "temporal_net_bwd train bf16", (32, 16, 14, 14, 96), bf16, 10)
+    # the shapes and type of the served model's main path, and the train
+    # step's
+    return {"attention_qkv": att[1], "temporal_net_fwd": tnet[1]}, train
 
 
 def serve(repo):
@@ -252,6 +376,8 @@ def serve(repo):
 
     fused_attention_qkv.launches = 0
     fused_temporal_net.launches = 0
+    # the kernel checks at the train shapes ran before; count from here
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = InferenceEngine(cfg, batch_size=8)
     torch.cuda.synchronize()
@@ -442,6 +568,279 @@ def agreement(repo, engine):
         raise AssertionError("agreement: " + "; ".join(problems))
 
 
+def _train_cfg(repo, *opts):
+    from dist_tpu_torch.config import load_config
+
+    return load_config(os.path.join(repo, FLAGSHIP),
+                       ["TPU.FUSED_TEMPORAL_NET", "true", *opts],
+                       make_output_dir=False)
+
+
+def _train_batches(cfg, n, seed, clips=None):
+    """``n`` seeded batches of uint8 clips (B, 16, 224, 224, 3) and labels,
+    made on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = int(clips or cfg.TRAIN.BATCH_SIZE)
+    t, crop = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
+    classes = int(cfg.VIDEO.HEAD.NUM_CLASSES)
+    return [{"video": torch.randint(0, 256, (b, t, crop, crop, 3),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32).to(torch.uint8),
+             "labels": torch.randint(0, classes, (b,), generator=gen,
+                                     device="cuda")} for _ in range(n)]
+
+
+def _zero_counts():
+    from dist_tpu_torch.ops.attention import fused_attention_qkv
+    from dist_tpu_torch.ops.temporal_net import (
+        fused_temporal_net,
+        fused_temporal_net_bwd,
+    )
+
+    fns = {"attention_qkv": fused_attention_qkv,
+           "temporal_net_fwd": fused_temporal_net,
+           "temporal_net_bwd": fused_temporal_net_bwd}
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in fns.items()}
+
+
+def train(repo):
+    """The flagship's train step at full width: set-up (weights from
+    RANDOM_SEED, label-text features once), then warm-up and timed steps
+    with mixup/cutmix and label smoothing as configured."""
+    import torch
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import (
+        compute_text_features,
+        create_train_state,
+        ema_decay,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(repo)
+    classes = int(cfg.VIDEO.HEAD.NUM_CLASSES)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    _, tokens = resolve_label_texts(cfg, classes)
+    counts = _zero_counts()
+    text = compute_text_features(model, tokens)
+    torch.cuda.synchronize()
+    setup = counts()
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    build_s = time.perf_counter() - t0
+    params = dict(model.module.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = _train_batches(cfg, steps, int(cfg.RANDOM_SEED))
+    gen = torch.Generator().manual_seed(int(cfg.RANDOM_SEED))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(state, {**batch, "text_features": text}, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    arch = model.module.arch
+    ladder = len(model.module.dist.selected_layers)
+    want = {"attention_qkv": arch.vision_layers * steps,
+            "temporal_net_fwd": ladder * steps,
+            "temporal_net_bwd": ladder * steps}
+    losses = [float(v) for v in losses]
+    problems = []
+    if setup != {"attention_qkv": arch.transformer_layers,
+                 "temporal_net_fwd": 0, "temporal_net_bwd": 0}:
+        problems.append(f"set-up launches {setup}")
+    if launches != want:
+        problems.append(f"launches {launches} != expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        problems.append(f"losses {losses}")
+    unmoved, zero_grad = [], []
+    for k, p in params.items():
+        if not p.requires_grad:
+            if not torch.equal(p, before[k]):
+                problems.append(f"frozen {k} changed")
+        elif not bool(p.grad.abs().max() > 0):
+            zero_grad.append(k)
+        elif torch.equal(p, before[k]):
+            unmoved.append(k)
+    if unmoved:
+        problems.append(f"trainable parameters that did not move: {unmoved}")
+    if not any(k.startswith("dist_net.") for k, p in params.items()
+               if p.requires_grad) or any(
+            p.requires_grad for k, p in params.items()
+            if not k.startswith("dist_net.")):
+        problems.append("the trainable parameters are not dist_net's")
+    # the same step with the unfused TemporalNet (cuDNN convs and autograd),
+    # timed beside it on the same card after the checks above
+    _set_fused(model, False)
+    unfused = []
+    for batch in batches[:TRAIN_WARMUP_STEPS + 3]:
+        t0 = time.perf_counter()
+        step(state, {**batch, "text_features": text}, gen)
+        torch.cuda.synchronize()
+        unfused.append((time.perf_counter() - t0) * 1e3)
+    unfused = sorted(unfused[TRAIN_WARMUP_STEPS:])
+    timed = sorted(times[TRAIN_WARMUP_STEPS:])
+    b = int(cfg.TRAIN.BATCH_SIZE)
+    rec = {
+        "phase": "train", "config": FLAGSHIP,
+        "overrides": ["TPU.FUSED_TEMPORAL_NET", "true"], "batch_size": b,
+        "dtype": str(model.module.dtype), "classes": classes,
+        "optimizer": cfg.OPTIMIZER.OPTIM_METHOD,
+        "param_groups": {g["group"]: len(g["params"])
+                         for g in optimizer.param_groups},
+        "trainable_params": sum(p.numel() for p in params.values()
+                                if p.requires_grad),
+        "frozen_params": sum(p.numel() for p in params.values()
+                             if not p.requires_grad),
+        "build_s": build_s, "step_ms": times, "losses": losses,
+        "lr_last": lr_fn(steps - 1),
+        "step_ms_median": timed[len(timed) // 2], "step_ms_min": timed[0],
+        "clips_per_s": b * 1e3 / timed[len(timed) // 2],
+        "unfused_step_ms": unfused,
+        "unfused_step_ms_median": unfused[len(unfused) // 2],
+        "peak_mem_gb": peak, "launches": launches,
+        "expected_launches": want, "setup_launches": setup,
+        "zero_grad_params": zero_grad, "pass": not problems,
+    }
+    emit(rec)
+    if problems:
+        raise AssertionError("train: " + "; ".join(problems))
+    return launches, tokens
+
+
+def _step_grads(model, cfg, batch, text):
+    """One train step's loss and trainable gradients (fp64 on the CPU),
+    with the LR at 0 so that the weights stay as they are."""
+    import torch
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    optimizer, _ = construct_optimizer(cfg, model.module,
+                                       TRAIN_STEPS_PER_EPOCH)
+    step = make_train_step(model, cfg, optimizer, lambda _: 0.0)
+    metrics = step(create_train_state(model, optimizer),
+                   {**batch, "text_features": text}, None)
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in model.module.named_parameters() if p.requires_grad}
+    return float(metrics["loss"]), grads
+
+
+def _grad_diff(ref, other):
+    """Loss and per-tensor gradient agreement of ``other`` with ``ref``;
+    tensors whose gradient is zero on both sides are counted apart."""
+    (loss_r, g_r), (loss_o, g_o) = ref, other
+    rel, cos, zero = {}, {}, []
+    for k, b in g_r.items():
+        a = g_o[k]
+        na, nb = float(a.norm()), float(b.norm())
+        if na == 0.0 and nb == 0.0:
+            zero.append(k)
+            continue
+        rel[k] = float((a - b).norm()) / max(nb, 1e-300)
+        cos[k] = float((a * b).sum()) / max(na * nb, 1e-300)
+    worst_rel = max(rel, key=rel.get)
+    worst_cos = min(cos, key=cos.get)
+    return {"max_grad_rel_err": rel[worst_rel], "worst_rel_param": worst_rel,
+            "min_grad_cosine": cos[worst_cos], "worst_cos_param": worst_cos,
+            "loss_rel_diff": abs(loss_o - loss_r) / abs(loss_r),
+            "tensors": len(rel), "zero_grad_tensors": len(zero),
+            # the per-tensor readings of the five worst tensors
+            "worst_tensors": [[k, rel[k], cos[k]] for k in sorted(
+                rel, key=rel.get, reverse=True)[:5]]}
+
+
+def _set_fused(model, fused):
+    for net in model.module.dist_net.temporal_nets:
+        net.fused = fused
+
+
+def _train_agree_one_seed(repo, tokens, seed):
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.tasks.state import compute_text_features
+
+    nomix = ("AUGMENTATION.MIXUP.ENABLE", "false",
+             "AUGMENTATION.CUTMIX.ENABLE", "false")
+    cfg16 = _train_cfg(repo, *nomix)
+    cfg32 = _train_cfg(repo, *nomix, "TRAIN.MIXED_PRECISION", "false")
+    batch = _train_batches(cfg16, 1, seed)[0]
+    small = {k: v[:TRAIN_AGREEMENT_CPU_CLIPS] for k, v in batch.items()}
+    model = build_model(cfg16, seed=seed)
+    text = compute_text_features(model, tokens)
+    rec = {"seed": seed}
+
+    fused16 = _step_grads(model, cfg16, batch, text)
+    _set_fused(model, False)
+    rec["unfused_card_bf16"] = _grad_diff(
+        fused16, _step_grads(model, cfg16, batch, text))
+    # the control, in bf16 at batch 32 and in fp32 at batch 2 (the weights
+    # are fp32 either way; the activations follow the module's dtype)
+    saved = [net.temporal_net["c_fc2"].weight.detach().clone()
+             for net in model.module.dist_net.temporal_nets]
+    _drop_spatial_tap(model, TRAIN_CONTROL_BLOCKS)
+    ctrl16 = _step_grads(model, cfg16, batch, text)
+    model.module.dtype = torch.float32
+    ctrl32 = _step_grads(model, cfg32, small, text)
+    with torch.no_grad():
+        for net, w in zip(model.module.dist_net.temporal_nets, saved):
+            net.temporal_net["c_fc2"].weight.copy_(w)
+    _set_fused(model, True)
+    card32 = _step_grads(model, cfg32, small, text)
+    rec["control_bf16"] = _grad_diff(fused16, ctrl16)
+    rec["control_fp32"] = _grad_diff(card32, ctrl32)
+    del model
+    torch.cuda.empty_cache()
+
+    cpu = build_model(cfg32, device="cpu", seed=seed)
+    rec["cpu_fp32"] = _grad_diff(card32, _step_grads(
+        cpu, cfg32, {k: v.cpu() for k, v in small.items()}, text.cpu()))
+    return rec
+
+
+def train_agreement(repo, tokens):
+    """One step's dist_net gradients and loss, mixup off, for three weight
+    seeds: the fused path against the unfused one (bf16 on the card, batch
+    32) and the card against the CPU (fp32, batch 2), held to
+    ``TRAIN_AGREEMENT_LIMITS``; the control must break both."""
+    import torch
+
+    base = int(_train_cfg(repo).RANDOM_SEED)
+    runs = [_train_agree_one_seed(repo, tokens, base + i)
+            for i in range(AGREEMENT_SEEDS)]
+    problems = []
+    for run in runs:
+        for key, limits in TRAIN_AGREEMENT_LIMITS.items():
+            for metric, worst in _breaches(run[key], limits):
+                problems.append(f"seed {run['seed']} {key}: {metric} {worst}")
+        for key, ctrl in (("unfused_card_bf16", "control_bf16"),
+                          ("cpu_fp32", "control_fp32")):
+            if not _breaches(run[ctrl], TRAIN_AGREEMENT_LIMITS[key]):
+                problems.append(f"seed {run['seed']} {ctrl} passes the "
+                                f"{key} limits")
+    torch.cuda.empty_cache()
+    emit({"phase": "train_agreement", "runs": runs,
+          "cpu_clips": TRAIN_AGREEMENT_CPU_CLIPS,
+          "limits": TRAIN_AGREEMENT_LIMITS, "pass": not problems})
+    if problems:
+        raise AssertionError("train_agreement: " + "; ".join(problems))
+
+
 def _breaches(reading, limits):
     """[(metric, reading)] of the limits a comparison's reading breaks;
     a ``min_`` limit is a floor, the others are ceilings. A control has no
@@ -491,23 +890,36 @@ def main():
                             if "registers" in ln or "spill" in ln][:12]
                         for n in names}})
 
-        main_path = kernel_checks()
-        engine, launches = serve(repo)
+        serve_path, train_path = kernel_checks()
+        engine, serve_launches = serve(repo)
         agreement(repo, engine)
+        del engine
+        torch.cuda.empty_cache()
+        train_launches, tokens = train(repo)
+        train_agreement(repo, tokens)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
                    "temporal_net_fwd": ("dist_tpu_torch/csrc/temporal_net.cu",
-                                        "dist_tpu/ops/temporal_net.py:161")}
+                                        "dist_tpu/ops/temporal_net.py:161"),
+                   "temporal_net_bwd": ("dist_tpu_torch/csrc/temporal_net.cu",
+                                        "dist_tpu/ops/temporal_net.py:171")}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
         kernels = []
-        for name, rec in main_path.items():
-            kernels.append({
-                "name": name, "route": "cuda", "source": sources[name][0],
-                "replaces": sources[name][1], "launches": launches[name],
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "shape": rec["shape"], "dtype": rec["dtype"]})
+        for name, rec in train_path.items():
+            entry = {"name": name, "route": "cuda",
+                     "source": sources[name][0],
+                     "replaces": sources[name][1],
+                     "launches": train_launches[name],
+                     **{k: rec[k] for k in keys},
+                     "shape": rec["shape"], "dtype": rec["dtype"]}
+            if name in serve_path:
+                srv = serve_path[name]
+                entry["serving"] = {"launches": serve_launches[name],
+                                    "shape": srv["shape"],
+                                    **{k: srv[k] for k in keys}}
+            kernels.append(entry)
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -59,7 +59,8 @@ class VideoModel:
         return next(self.module.parameters()).device
 
     def apply(self, inputs, train=False):
-        """``preds, logits`` for ``inputs = {"video", "text_features"}``."""
+        """``preds, logits`` for ``inputs = {"video", "text_features"}``;
+        ``train=True`` gives the head's training output (no softmax)."""
         out = self.module(inputs["video"], inputs.get("text_features"))
         if self.head is None:
             return out, out

@@ -1,9 +1,11 @@
 """CLIP + DiST video model (port of ``dist_tpu/models/clip/clip_video.py``).
 
 Label-text features are computed once by :meth:`CLIPDiSTModel.encode_text`
-and passed into every forward, as in the JAX package. Freezing the towers
-detaches their outputs (the JAX package's ``stop_gradient``). Video is
-(B, T, H, W, 3) channels-last throughout.
+and passed into every forward, as in the JAX package. A frozen tower runs
+under ``torch.no_grad()`` (the JAX package's ``stop_gradient``): nothing of
+it enters the autograd graph, so the attention kernel, which has no
+backward, serves it in a train step too. Video is (B, T, H, W, 3)
+channels-last throughout.
 """
 
 from typing import Optional
@@ -62,10 +64,20 @@ class CLIPDiSTModel(TextTransformer):
         super().init_own(generator)
         self.logit_scale.fill_(float(torch.log(torch.tensor(1.0 / 0.07))))
 
+    @staticmethod
+    def is_text_param(name):
+        """Whether ``name`` (of ``named_parameters``) is the text tower's:
+        those sit at the root, beside ``visual``, ``dist_net`` and
+        ``logit_scale``."""
+        return (not name.startswith(("visual.", "dist_net."))
+                and name != "logit_scale")
+
     def encode_text(self, tokens):
         """Label-prompt features (num_classes, embed_dim); run once."""
-        feats, _ = TextTransformer.forward(self, tokens, dtype=self.dtype)
-        return feats.detach() if self.freeze_text else feats
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_text):
+            feats, _ = TextTransformer.forward(self, tokens, dtype=self.dtype)
+        return feats
 
     def encode_video(self, video):
         """video (B, T, H, W, 3) -> (per-video embedding (B, embed_dim),
@@ -75,10 +87,10 @@ class CLIPDiSTModel(TextTransformer):
                 f"NUM_INPUT_FRAMES ({video.shape[1]}) must be divisible by "
                 f"SPARSE_SAMPLE_ALPHA ({self.sparse_alpha})")
         video = video.to(self.dtype)
-        cls_x, _, taps = self.visual(video, collect_taps=self.dist is not None)
-        if self.freeze_visual:
-            cls_x = cls_x.detach()
-            taps = None if taps is None else taps.detach()
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_visual):
+            cls_x, _, taps = self.visual(video,
+                                         collect_taps=self.dist is not None)
         if self.dist is None:
             t = self.num_frames // self.sparse_alpha
             return cls_x.reshape(-1, t, cls_x.shape[-1]).mean(dim=1), cls_x

@@ -29,7 +29,11 @@ from dist_tpu_torch.models.base.blocks import (
     MLP,
     quick_gelu,
 )
-from dist_tpu_torch.ops.temporal_net import fused_temporal_net, pack_weights
+from dist_tpu_torch.ops.temporal_net import (
+    fused_temporal_net,
+    pack_weights,
+    temporal_net,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,11 +112,14 @@ class TemporalNet(nn.Module):
     """Residual temporal conv block on (B, T, H, W, C):
     qgelu(x + conv(1,3,3)(qgelu(conv(k,1,1)(LN(x))))).
 
-    ``fused``: run the whole block as the hand-written kernel
-    (``ops/temporal_net.py``); the parameters are the same either way. The
-    kernel's packed weights are made once and again only after the
-    parameters change (in place, as ``load_state_dict`` does, or by a
-    move to another device or type)."""
+    ``fused``: run the whole block as the hand-written kernels
+    (``ops/temporal_net.py``; K2 forward, K3 backward when grad is on);
+    the parameters are the same either way. Under ``torch.no_grad()`` the
+    forward kernel's packed weights are made once and again only after the
+    parameters change (in place, as ``load_state_dict`` does, or by a move
+    to another device or type). With grad on, the weights are packed on
+    every call and the cached pack is dropped: an optimizer's in-place
+    update need not bump the version counter the cache keys on."""
 
     def __init__(self, cfg, fused=False):
         super().__init__()
@@ -148,6 +155,9 @@ class TemporalNet(nn.Module):
     def forward(self, x):
         if self.fused:
             params = self._raw_params()
+            if torch.is_grad_enabled():
+                self._packed, self._packed_key = None, None
+                return temporal_net(x.contiguous(), *params)
             packed = (self._packed_weights(params)
                       if x.device.type == "cuda" else None)
             return fused_temporal_net(x.contiguous(), *params, packed=packed)

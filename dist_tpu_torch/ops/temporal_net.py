@@ -1,7 +1,6 @@
-"""Fused DiST TemporalNet block, forward.
+"""Fused DiST TemporalNet block, forward and backward.
 
-Port of ``dist_tpu/ops/temporal_net.py`` (forward only; the backward
-kernel comes with the training slice). The ladder's temporal block
+Port of ``dist_tpu/ops/temporal_net.py``. The ladder's temporal block
 
     out = qgelu(x + conv(1,3,3)(qgelu(conv(k,1,1)(LN(x)) + b1)) + b2)
 
@@ -9,12 +8,17 @@ runs on channels-last x (B, T, H, W, C) with LayerNorm eps 1e-5, fp32
 inside and the output in x's dtype. The signature and weight layouts are
 the JAX package's: raw kernels ``w1 (k,1,1,C,F)`` and ``w2 (1,3,3,F,C)``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/temporal_net.cu`` (two launches through an fp32 scratch the
-wrapper allocates; one call, one count), or raises. On a CPU tensor it
-runs :func:`temporal_net_plain`, which mirrors ``_reference`` /
-``_chain_fwd``: each conv tap is a shifted view of the zero-padded
-activations times one (C, F) weight block.
+Forward: on a CUDA tensor :func:`fused_temporal_net` launches the
+hand-written kernel K2 of ``csrc/temporal_net.cu`` (two launches through
+an fp32 scratch the wrapper allocates; one call, one count), or raises. On
+a CPU tensor it runs :func:`temporal_net_plain`, which mirrors
+``_reference`` / ``_chain_fwd``: each conv tap is a shifted view of the
+zero-padded activations times one (C, F) weight block.
+
+Backward: :func:`fused_temporal_net_bwd` launches K3 (the same source; it
+recomputes the forward, as ``_bwd_kernel`` does) or, on a CPU tensor,
+runs :func:`temporal_net_bwd_plain`. :func:`temporal_net` joins the two
+in a ``torch.autograd.Function`` that saves only x and the parameters.
 """
 
 import ctypes
@@ -30,12 +34,23 @@ MAX_CHANNELS = 128
 _SIGNATURES = {
     "dtt_temporal_net_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p],
+    "dtt_temporal_net_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
+                            + [ctypes.c_void_p],
     "dtt_temporal_net_error_string": [ctypes.c_int],
 }
+# K3 sums its weight-gradient partials over this many fixed chunks of
+# positions (csrc/temporal_net.cu, kBwdChunks)
+BWD_CHUNKS = 32
+BWD_TILE = 64
 
 
 def _qgelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+def _qgelu_grad(x):
+    s = torch.sigmoid(1.702 * x)
+    return s * (1.0 + 1.702 * x * (1.0 - s))
 
 
 def check_shapes(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
@@ -59,9 +74,10 @@ def check_shapes(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
     return k, c, f
 
 
-def temporal_net_plain(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
-    """Plain PyTorch version of the block; the CPU path and the kernel's
-    yardstick."""
+def _chain_fwd(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
+    """The block's forward in fp32 (``_chain_fwd`` of the JAX package):
+    -> (r, g, hb, xlp, z, rstd) with out = qgelu(r), g = qgelu(hb) and
+    xlp = LN(x) with k // 2 zero frames on each side."""
     k, c, f = check_shapes(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2)
     t, h, w = x.shape[1:4]
     pad = k // 2
@@ -69,20 +85,88 @@ def temporal_net_plain(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
     mu = xf.mean(dim=-1, keepdim=True)
     xc = xf - mu
     rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + EPS)
-    xl = xc * rstd * ln_s.float() + ln_b.float()
+    z = xc * rstd
+    xl = z * ln_s.float() + ln_b.float()
     w1 = w1_raw.float().reshape(k, c, f)
     xlp = F.pad(xl, (0, 0, 0, 0, 0, 0, pad, pad))       # zero frames outside T
     hb = xlp[:, 0:t] @ w1[0]
     for d in range(1, k):
         hb = hb + xlp[:, d:d + t] @ w1[d]
-    g = _qgelu(hb + b1.float())
+    hb = hb + b1.float()
+    g = _qgelu(hb)
     w2 = w2_raw.float().reshape(3, 3, f, c)
     gp = F.pad(g, (0, 0, 1, 1, 1, 1))                    # zero pixels outside
     acc = gp[:, :, 0:h, 0:w] @ w2[0, 0]
     for tap in range(1, 9):
         dy, dx = divmod(tap, 3)
         acc = acc + gp[:, :, dy:dy + h, dx:dx + w] @ w2[dy, dx]
-    return _qgelu(xf + acc + b2.float()).to(x.dtype)
+    return xf + acc + b2.float(), g, hb, xlp, z, rstd
+
+
+def temporal_net_plain(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
+    """Plain PyTorch version of the block; the CPU path and K2's
+    yardstick."""
+    r = _chain_fwd(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2)[0]
+    return _qgelu(r).to(x.dtype)
+
+
+def temporal_net_bwd_plain(x, g, ln_s, ln_b, w1_raw, b1, w2_raw, b2):
+    """Plain PyTorch version of the block's gradient for the cotangent
+    ``g`` of its output; the CPU path and K3's yardstick. Follows
+    ``_bwd_kernel`` step by step in fp32 and returns (dx in x's dtype,
+    d ln_scale, d ln_bias, dw1 (k,1,1,C,F), db1, dw2 (1,3,3,F,C), db2),
+    each weight gradient summed in fp32 and cast to its parameter's
+    dtype."""
+    k, c, f = check_shapes(x, ln_s, ln_b, w1_raw, b1, w2_raw, b2)
+    if tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"the cotangent {tuple(g.shape)} must have x's "
+                         f"shape {tuple(x.shape)}")
+    t, h, w = x.shape[1:4]
+    pad = k // 2
+    # 1. recompute the forward
+    r, gg, hb, xlp, z, rstd = _chain_fwd(x, ln_s, ln_b, w1_raw, b1, w2_raw,
+                                         b2)
+    # 2. through the output's qgelu; the spatial conv's bias and taps
+    dr = _qgelu_grad(r) * g.float()
+    db2 = dr.sum(dim=(0, 1, 2, 3))
+    gp = F.pad(gg, (0, 0, 1, 1, 1, 1))
+    dr2 = dr.reshape(-1, c)
+    dw2 = torch.stack([
+        gp[:, :, dy:dy + h, dx:dx + w].reshape(-1, f).T @ dr2
+        for dy in range(3) for dx in range(3)]).reshape(1, 3, 3, f, c)
+    # 3. dg through the transposed 3x3 taps: each tap's product lands at
+    #    the pixel it was read from (zero-padded image, cropped after)
+    w2 = w2_raw.float().reshape(3, 3, f, c)
+    dgp = torch.zeros_like(gp)
+    for dy in range(3):
+        for dx in range(3):
+            dgp[:, :, dy:dy + h, dx:dx + w] += dr @ w2[dy, dx].T
+    dg = dgp[:, :, 1:h + 1, 1:w + 1]
+    # 4. through g = qgelu(hb); the temporal conv's bias and taps
+    dhb = _qgelu_grad(hb) * dg
+    db1 = dhb.sum(dim=(0, 1, 2, 3))
+    dhb2 = dhb.reshape(-1, f)
+    dw1 = torch.stack([xlp[:, d:d + t].reshape(-1, c).T @ dhb2
+                       for d in range(k)]).reshape(k, 1, 1, c, f)
+    # 5. dxl through the transposed temporal taps; the zero frames outside
+    #    T take no gradient
+    w1 = w1_raw.float().reshape(k, c, f)
+    dxlp = torch.zeros_like(xlp)
+    for d in range(k):
+        dxlp[:, d:d + t] += dhb @ w1[d].T
+    dxl = dxlp[:, pad:pad + t]
+    # 6. LayerNorm backward
+    dlns = (dxl * z).sum(dim=(0, 1, 2, 3))
+    dlnb = dxl.sum(dim=(0, 1, 2, 3))
+    dz = dxl * ln_s.float()
+    mean_dz = dz.mean(dim=-1, keepdim=True)
+    mean_dzz = (dz * z).mean(dim=-1, keepdim=True)
+    dx_ln = rstd * (dz - mean_dz - z * mean_dzz)
+    # 7. both paths to x
+    dx = (dr + dx_ln).to(x.dtype)
+    return (dx, dlns.to(ln_s.dtype), dlnb.to(ln_b.dtype),
+            dw1.to(w1_raw.dtype), db1.to(b1.dtype), dw2.to(w2_raw.dtype),
+            db2.to(b2.dtype))
 
 
 def pack_weights(ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
@@ -98,34 +182,36 @@ def pack_weights(ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
                 b2.float().contiguous())
 
 
-def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
-                       packed=None):
-    """TemporalNet block on x (B, T, H, W, C). CUDA tensor: the
-    hand-written kernel, on ``packed`` (:func:`pack_weights` of the same
-    parameters) or on weights packed for this call; CPU tensor:
-    :func:`temporal_net_plain`."""
-    k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
-    if x.device.type == "cpu":
-        return temporal_net_plain(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+def _check_cuda(x, params, c, f):
+    """Entry checks of the kernels on a CUDA tensor x; returns N."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    params = (ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
     if any(p.device != x.device for p in params):
         raise ValueError("the block's parameters must be on x's device")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            p.requires_grad for p in params)):
-        raise RuntimeError("the TemporalNet kernel has no backward yet; run "
-                           "it under torch.no_grad()")
     if c > MAX_CHANNELS or f > MAX_CHANNELS:
         raise ValueError(f"C={c} and F={f} must be <= {MAX_CHANNELS}")
-    b, t, h, w, _ = x.shape
-    n = b * t * h * w
+    n = x.numel() // c
     if n > (2 ** 31 - 1) // MAX_CHANNELS:
         raise ValueError(f"{n} positions are too many for one launch")
+    return n
+
+
+def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
+                       packed=None):
+    """TemporalNet block on x (B, T, H, W, C). CUDA tensor: the
+    hand-written kernel K2, on ``packed`` (:func:`pack_weights` of the same
+    parameters) or on weights packed for this call; CPU tensor:
+    :func:`temporal_net_plain`. Not differentiable itself: see
+    :func:`temporal_net`."""
+    k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    if x.device.type == "cpu":
+        return temporal_net_plain(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    params = (ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    _check_cuda(x, params, c, f)
     if packed is None:
         packed = pack_weights(*params)
     shapes = [(c,), (c,), (k * c, f), (f,), (9 * f, c), (c,)]
@@ -135,8 +221,10 @@ def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
         raise ValueError("packed weights must be pack_weights() of the "
                          "block's parameters, on x's device")
     ln_s, ln_b, w1p, b1f, w2p, b2f = packed
+    b, t, h, w, _ = x.shape
     lib = _build.load("temporal_net", _SIGNATURES)
-    scratch = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((b * t * h * w, f), dtype=torch.float32,
+                          device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -152,3 +240,90 @@ def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
 
 
 fused_temporal_net.launches = 0
+
+
+def bwd_scratch_floats(n, c, f, k):
+    """fp32 scratch of one K3 call on n positions: hb, g, dr, dhb, the
+    weight-gradient partials of BWD_CHUNKS chunks and the LayerNorm
+    partials of each 64-position tile (csrc/temporal_net.cu, bwd_layout)."""
+    tiles = -(-n // BWD_TILE)
+    return (n * (3 * f + c) + BWD_CHUNKS * (k * c * f + 9 * f * c + f + c)
+            + 2 * tiles * c)
+
+
+def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
+    """The block's gradient for the cotangent ``g`` of its output, in the
+    order and layouts of :func:`temporal_net_bwd_plain`. CUDA tensor: the
+    hand-written kernel K3 (a few launches behind one count); CPU tensor:
+    :func:`temporal_net_bwd_plain`."""
+    k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    if x.device.type == "cpu":
+        return temporal_net_bwd_plain(x, g, ln_scale, ln_bias, w1_raw, b1,
+                                      w2_raw, b2)
+    params = (ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    n = _check_cuda(x, params, c, f)
+    if (tuple(g.shape) != tuple(x.shape) or g.dtype != x.dtype
+            or g.device != x.device or not g.is_contiguous()):
+        raise ValueError("the cotangent must be contiguous, with x's shape, "
+                         "type and device")
+    ln_s, ln_b, w1p, b1f, w2p, b2f = pack_weights(*params)
+    with torch.no_grad():
+        w1t = w1p.reshape(k, c, f).transpose(1, 2).reshape(k * f, c)
+        w2t = w2p.reshape(9, f, c).transpose(1, 2).reshape(9 * c, f)
+        w1t, w2t = w1t.contiguous(), w2t.contiguous()
+    b, t, h, w, _ = x.shape
+    lib = _build.load("temporal_net", _SIGNATURES)
+    nscratch = bwd_scratch_floats(n, c, f, k)
+    if nscratch > 2 ** 31 - 1:
+        raise ValueError(f"{n} positions are too many for one launch")
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dlns, dlnb, db2 = (torch.empty(c, **f32) for _ in range(3))
+    db1 = torch.empty(f, **f32)
+    dw1 = torch.empty((k * c, f), **f32)
+    dw2 = torch.empty((9 * f, c), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dtt_temporal_net_bwd(
+            x.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+            w1p.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2p.data_ptr(),
+            w2t.data_ptr(), b2f.data_ptr(), scratch.data_ptr(),
+            dx.data_ptr(), dlns.data_ptr(), dlnb.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            b, t, h, w, c, f, k, int(x.dtype == torch.bfloat16), nscratch,
+            stream)
+    _build.check(lib, "dtt_temporal_net_error_string", err,
+                 "TemporalNet backward kernel")
+    fused_temporal_net_bwd.launches += 1
+    return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype),
+            dw1.reshape(k, 1, 1, c, f).to(w1_raw.dtype), db1.to(b1.dtype),
+            dw2.reshape(1, 3, 3, f, c).to(w2_raw.dtype), db2.to(b2.dtype))
+
+
+fused_temporal_net_bwd.launches = 0
+
+
+class _TemporalNetFunction(torch.autograd.Function):
+    """Forward through K2, backward through K3. Saves x and the parameters
+    only: K3 recomputes the activations, as the TPU kernel does."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+        return fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw,
+                                  b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        return fused_temporal_net_bwd(x, g.to(x.dtype).contiguous(), *params)
+
+
+def temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
+    """The differentiable block: :func:`fused_temporal_net` forward and
+    :func:`fused_temporal_net_bwd` backward. The gradients come back in the
+    raw layouts, so autograd carries them through any view (such as the
+    ``permute`` of a torch conv weight) the parameters were passed as."""
+    return _TemporalNetFunction.apply(x, ln_scale, ln_bias, w1_raw, b1,
+                                      w2_raw, b2)

@@ -1,13 +1,23 @@
-"""Eval-step pieces of ``dist_tpu/tasks/state.py``: video preparation, the
-once-per-engine label-text features and the eval step's predictions.
-The train step comes with the training slice."""
+"""Train state and steps (port of ``dist_tpu/tasks/state.py``): video
+preparation, the once-per-engine label-text features, the eval step's
+predictions and the supervised train step.
 
+The JAX package's step is one jitted function; here it is eager PyTorch
+that queues its work on the card and returns its metrics as 0-d device
+tensors, so that the host runs ahead and reads them a step later."""
+
+import dataclasses
 import os
+from typing import Any, Optional
 
 import torch
 
+from dist_tpu_torch.data import mixup
 from dist_tpu_torch.data.transforms import normalize_device
+from dist_tpu_torch.optim.losses import calculate_loss
+from dist_tpu_torch.optim.optimizer import set_lr
 from dist_tpu_torch.utils.logging import get_logger
+from dist_tpu_torch.utils.metrics import topks_correct
 
 logger = get_logger(__name__)
 
@@ -52,3 +62,101 @@ def make_eval_step(model, cfg):
         return {"preds": preds}
 
     return step
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train step changes: the model (its module's parameters), the
+    optimizer (its moments), the step count and an optional EMA copy of the
+    module's ``state_dict``; what a checkpoint will hold."""
+
+    model: Any
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    ema: Optional[dict] = None
+
+
+def ema_decay(cfg):
+    """``MODEL.EMA.DECAY`` when ``MODEL.EMA.ENABLE``, else None."""
+    ema = cfg.MODEL.get("EMA")
+    return float(ema.DECAY) if ema and ema.ENABLE else None
+
+
+def create_train_state(model, optimizer, ema_decay=None):
+    """A state at step 0; with ``ema_decay``, a real copy of the module's
+    state dict to average into."""
+    ema = None
+    if ema_decay:
+        ema = {k: v.detach().clone()
+               for k, v in model.module.state_dict().items()}
+    return TrainState(model=model, optimizer=optimizer, ema=ema)
+
+
+_DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
+               "ported yet (ROADMAP.md queue A, item 1)")
+
+
+def make_train_step(model, cfg, optimizer, lr_fn):
+    """The supervised train step.
+
+    ``step(state, batch, generator) -> metrics``, with ``batch`` =
+    {"video": (B, T, H, W, 3) uint8 or float, "labels": (B,) int,
+    "text_features": optional}, all on the model's device, and
+    ``generator`` a CPU ``torch.Generator`` for the mixup draws. It
+    normalises the video, mixes it, runs the forward with ``train=True``
+    and the loss, back-propagates, sets each group's LR from
+    ``lr_fn(state.step)``, steps the optimizer, updates the EMA copy and
+    returns {"loss", "top1_err", "top5_err", "lr"} as 0-d device tensors
+    (the loss parts, if any, beside them). After it, each trainable
+    parameter's ``.grad`` holds this step's gradient."""
+    if cfg.AUGMENTATION.get("USE_GPU", False):
+        raise NotImplementedError(_DEVICE_AUG)
+    mixup_on = bool(cfg.AUGMENTATION.MIXUP.ENABLE
+                    or cfg.AUGMENTATION.CUTMIX.ENABLE)
+    mc = mixup.MixupConfig.from_cfg(cfg) if mixup_on else None
+    decay = ema_decay(cfg)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(state, batch, generator):
+        model.module.train()
+        video = _prep_video(cfg, batch["video"])
+        labels = {"supervised": batch["labels"]}
+        if mc is not None and mc.enabled:
+            d = mixup.draw(mc, generator, video.shape[2], video.shape[3])
+            video, labels["supervised_mixup"] = mixup.apply(
+                video, batch["labels"], d, mc)
+        inputs = {"video": video, "text_features": batch.get("text_features")}
+        preds, logits = model.apply(inputs, train=True)
+        loss, parts = calculate_loss(cfg, preds, logits, labels,
+                                     cur_epoch=state.step)
+
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in params:
+            # a parameter that did not reach the loss has a zero gradient,
+            # as in JAX: Adam's moments and the decay still step
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        lr = lr_fn(state.step)
+        set_lr(optimizer, lr)
+        optimizer.step()
+
+        if decay is not None and state.ema is not None:
+            with torch.no_grad():
+                for k, v in model.module.state_dict().items():
+                    if v.is_floating_point():
+                        state.ema[k].mul_(decay).add_(v, alpha=1.0 - decay)
+
+        with torch.no_grad():
+            c1, c5 = topks_correct(preds.detach(), batch["labels"], (1, 5))
+            n = preds.shape[0]
+            metrics = {"loss": loss.detach(),
+                       "top1_err": (1.0 - c1 / n) * 100.0,
+                       "top5_err": (1.0 - c5 / n) * 100.0,
+                       "lr": torch.full((), lr, device=preds.device),
+                       **{k: v.detach() for k, v in parts.items()}}
+        state.step += 1
+        return metrics
+
+    return step
+

@@ -105,6 +105,12 @@ def test_temporal_net_kernel_refuses_what_it_cannot_take():
     x = torch.zeros((1, 2, 3, 3, 8), device="cuda")
     with pytest.raises(ValueError):                        # params on the CPU
         tn.fused_temporal_net(x, *(p.cpu() for p in _tn_params(8, 8, 3, 1)))
+    params = _tn_params(8, 8, 3, 1)
+    for g in (x.to(torch.bfloat16),                        # not x's dtype
+              torch.zeros((1, 2, 3, 8, 3), device="cuda").transpose(3, 4),
+              torch.zeros((1, 2, 3, 3, 8))):               # on the CPU
+        with pytest.raises(ValueError):
+            tn.fused_temporal_net_bwd(x, g, *params)
 
 
 def test_fused_module_repacks_after_new_weights():
@@ -163,3 +169,144 @@ def test_served_tiny_model_runs_through_both_kernels():
             "video": _prep_video(cfg, torch.from_numpy(clips)),
             "text_features": engine.text_features.cpu()})
     np.testing.assert_allclose(got, want.numpy(), atol=1e-5, rtol=0)
+
+
+def _bwd_tolerances(dtype, want):
+    """Per-output (atol, rtol) of K3 against the plain version. Both sum in
+    fp32, in another order (the weight grads over up to 10^5 positions in
+    32 chunks on the card); bf16 rounds only dx, where the two may land one
+    bf16 step (2^-7 relative) apart."""
+    tols = []
+    for i, w in enumerate(want):
+        scale = float(w.float().abs().max())
+        if i == 0 and dtype == torch.bfloat16:
+            tols.append((1e-4 + 1e-5 * scale, 2 ** -7))
+        else:
+            tols.append((1e-5 * scale + 1e-6, 1e-5))
+    return tols
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,f,k", [((2, 16, 14, 14, 96), 96, 3),
+                                       ((2, 5, 7, 9, 16), 16, 3),
+                                       ((1, 5, 3, 7, 40), 24, 5),
+                                       ((3, 2, 14, 14, 128), 128, 1)])
+def test_temporal_net_bwd_kernel_matches_plain(shape, f, k, dtype):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, g = x.to("cuda", dt), g.to("cuda", dt)
+    params = _tn_params(shape[-1], f, k, seed=12)
+    before = tn.fused_temporal_net_bwd.launches
+    got = tn.fused_temporal_net_bwd(x, g, *params)
+    torch.cuda.synchronize()
+    assert tn.fused_temporal_net_bwd.launches == before + 1
+    want = tn.temporal_net_bwd_plain(x, g, *params)
+    assert got[0].dtype == dt
+    for gi, wi, (atol, rtol) in zip(got, want, _bwd_tolerances(dt, want)):
+        assert gi.shape == wi.shape
+        _within(gi, wi, atol, rtol)
+    again = tn.fused_temporal_net_bwd(x, g, *params)
+    for a, b in zip(got, again):                       # no atomics
+        assert torch.equal(a, b)
+
+
+def _tn_module(fused, seed, c=8):
+    from dist_tpu_torch.models.dist.dist_net import DiSTConfig, TemporalNet
+
+    cfg = DiSTConfig(selected_layers=(0,), temporal_dim=c, num_frames=4)
+    mod = TemporalNet(cfg, fused=fused).cuda()
+    p = _tn_params(c, c, 3, seed)
+    mod.load_state_dict({
+        "ln.weight": p[0], "ln.bias": p[1],
+        "temporal_net.c_fc1.weight": p[2].permute(4, 3, 0, 1, 2),
+        "temporal_net.c_fc1.bias": p[3],
+        "temporal_net.c_fc2.weight": p[4].permute(4, 3, 0, 1, 2),
+        "temporal_net.c_fc2.bias": p[5]})
+    return mod
+
+
+def test_function_grads_match_unfused_module():
+    """Autograd through K2/K3 gives the unfused module's (cuDNN convs)
+    gradients for x and every parameter, fp32."""
+    rng = np.random.default_rng(5)
+    x0 = torch.from_numpy(rng.standard_normal((2, 4, 5, 6, 8)).astype(
+        np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((2, 4, 5, 6, 8)).astype(
+        np.float32)).cuda()
+    grads = []
+    for fused in (True, False):
+        mod = _tn_module(fused, seed=3)
+        x = x0.clone().requires_grad_()
+        before = tn.fused_temporal_net_bwd.launches
+        mod(x).backward(g)
+        assert tn.fused_temporal_net_bwd.launches == before + int(fused)
+        grads.append([x.grad] + [p.grad for _, p in sorted(
+            mod.named_parameters())])
+    for a, b in zip(*grads):
+        _within(a, b, 1e-5 * float(b.abs().max()) + 1e-6, 1e-5)
+
+
+def test_fused_forward_after_adamw_step_uses_new_weights():
+    """The no-grad forward's cached pack is not reused after a training
+    step changes the parameters in place (AdamW, the default foreach
+    implementation on the card)."""
+    mod = _tn_module(True, seed=4)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 4, 5, 6, 8)).astype(np.float32)).cuda()
+    opt = torch.optim.AdamW(mod.parameters(), lr=1e-2, weight_decay=1e-4)
+    with torch.no_grad():
+        before = mod(x)
+    mod(x).square().mean().backward()
+    opt.step()
+    with torch.no_grad():
+        after = mod(x)
+        want = tn.temporal_net_plain(x, *mod._raw_params())
+    assert not torch.equal(after, before)
+    _within(after, want, 1e-4, 1e-5)
+
+
+def test_tiny_train_step_runs_through_all_kernels():
+    """One train step of the tiny config on the card: 2 K1 (frozen vision
+    tower), 2 K2 and 2 K3 launches; frozen parameters unchanged bit for
+    bit, every dist_net parameter with a gradient moved, a finite loss."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import (
+        compute_text_features,
+        create_train_state,
+        make_train_step,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true"], make_output_dir=False)
+    model = build_model(cfg)
+    tokens = np.random.default_rng(1).integers(1, 100, (12, 77))
+    text = compute_text_features(model, tokens)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    before = {k: v.clone() for k, v in model.module.state_dict().items()}
+    rng = np.random.default_rng(2)
+    batch = {"video": torch.from_numpy(rng.integers(
+                 0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.tensor([3, 7]).cuda(), "text_features": text}
+    att.fused_attention_qkv.launches = 0
+    tn.fused_temporal_net.launches = 0
+    tn.fused_temporal_net_bwd.launches = 0
+    metrics = step(state, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert (att.fused_attention_qkv.launches, tn.fused_temporal_net.launches,
+            tn.fused_temporal_net_bwd.launches) == (2, 2, 2)
+    assert bool(torch.isfinite(metrics["loss"]))
+    for k, p in model.module.named_parameters():
+        if not k.startswith("dist_net."):
+            assert p.grad is None and torch.equal(p, before[k]), k
+        elif bool(p.grad.abs().max() > 0):
+            assert not torch.equal(p, before[k]), k

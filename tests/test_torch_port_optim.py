@@ -1,0 +1,277 @@
+"""The port's optimizer pieces against the JAX package's, on the CPU: the
+LR policies, the supervised losses, ``topks_correct``, the parameter
+groups of ``param_labels`` and the optimizer's updates (``optax`` against
+``torch.optim``) on the same fixed gradients."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dist_tpu.config import load_config as jax_load_config
+from dist_tpu.models.base.models import build_model as jax_build_model
+from dist_tpu.optim import losses as jlosses
+from dist_tpu.optim import lr_policy as jlr
+from dist_tpu.optim import optimizer as jopt
+from dist_tpu.tasks.state import init_variables
+from dist_tpu.utils import metrics as jmetrics
+from dist_tpu_torch.config import load_config
+from dist_tpu_torch.models.base.models import build_model
+from dist_tpu_torch.models.clip.convert import state_dict_from_jax, to_torch
+from dist_tpu_torch.optim import losses, lr_policy, optimizer
+from dist_tpu_torch.utils import metrics
+
+FLAGSHIP = "configs/projects/dist/ssv2/vit-b16-8+16f.yaml"
+TINY = "configs/projects/dist/test/tiny_synth.yaml"
+STEPS = ["OPTIMIZER.LR_POLICY", "steps_with_relative_lrs",
+         "OPTIMIZER.LR_MILESTONES", "[0, 10, 20]",
+         "OPTIMIZER.LRS", "[1, 0.1, 0.01]"]
+
+
+def _cfgs(repo_root, path, opts=()):
+    path = os.path.join(repo_root, path)
+    return (load_config(path, list(opts), make_output_dir=False),
+            jax_load_config(path, list(opts), make_output_dir=False))
+
+
+@pytest.mark.parametrize("opts", [[], STEPS], ids=["cosine", "steps"])
+def test_lr_at_epoch_matches_jax(repo_root, opts):
+    """Cosine with 6 warmup epochs over 36 (the flagship), and steps with
+    relative LRs, on a grid of fractional epochs through the warmup edge.
+    The JAX package evaluates in float32: rtol 1e-6, and an absolute
+    1e-7 * BASE_LR for its cos term's rounding (~6e-8) where cos + 1
+    cancels near the end of the schedule."""
+    cfg, jcfg = _cfgs(repo_root, FLAGSHIP, opts)
+    tol = dict(rtol=1e-6, atol=1e-7 * float(cfg.OPTIMIZER.BASE_LR))
+    epochs = np.concatenate([np.linspace(0, 36, 73), [5.99, 6.0, 6.01, 9.99,
+                                                      10.0, 19.99, 20.0]])
+    got = [lr_policy.get_lr_at_epoch(cfg, float(e)) for e in epochs]
+    want = [float(jlr.get_lr_at_epoch(jcfg, float(e))) for e in epochs]
+    np.testing.assert_allclose(got, want, **tol)
+    sched = lr_policy.lr_schedule_by_step(cfg, steps_per_epoch=7)
+    jsched = jlr.lr_schedule_by_step(jcfg, steps_per_epoch=7)
+    np.testing.assert_allclose([sched(k) for k in range(0, 200, 3)],
+                               [float(jsched(k)) for k in range(0, 200, 3)],
+                               **tol)
+
+
+@pytest.mark.parametrize("name", ["soft_target", "cross_entropy", "bce",
+                                  "bce_logit", "mse"])
+def test_losses_match_jax(name):
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((6, 11)).astype(np.float32)
+    labels = rng.integers(0, 11, 6)
+    soft = jlosses.label_smoothing(jnp.asarray(labels), 11, 0.1)
+    if name == "cross_entropy":
+        target, jtarget = torch.from_numpy(labels), jnp.asarray(labels)
+    else:
+        target, jtarget = torch.from_numpy(np.array(soft)), soft
+    x = 1 / (1 + np.exp(-logits)) if name == "bce" else logits
+    got = losses.get_loss_func(name)(torch.from_numpy(x), target)
+    want = jlosses.get_loss_func(name)(jnp.asarray(x), jtarget)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def test_label_smoothing_and_calculate_loss_match_jax(repo_root):
+    """The flagship's supervised loss (label smoothing 0.1, soft-target CE)
+    and the mixup path, against the JAX dispatch."""
+    cfg, jcfg = _cfgs(repo_root, FLAGSHIP)
+    rng = np.random.default_rng(4)
+    preds = rng.standard_normal((5, 174)).astype(np.float32)
+    labels = rng.integers(0, 174, 5)
+    np.testing.assert_array_equal(
+        losses.label_smoothing(torch.from_numpy(labels), 174, 0.1).numpy(),
+        np.asarray(jlosses.label_smoothing(jnp.asarray(labels), 174, 0.1)))
+    mix = rng.dirichlet(np.ones(174), 5).astype(np.float32)
+    for lab in ({"supervised": labels},
+                {"supervised": labels, "supervised_mixup": mix}):
+        got, _ = losses.calculate_loss(
+            cfg, torch.from_numpy(preds), None,
+            {k: torch.from_numpy(v) for k, v in lab.items()})
+        want, _ = jlosses.calculate_loss(
+            jcfg, jnp.asarray(preds), None,
+            {k: jnp.asarray(v) for k, v in lab.items()})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    # dict targets (EPIC verb/noun heads) sum per-key losses
+    heads = {"verb_class": preds[:, :97], "noun_class": preds[:, 97:]}
+    targets = {k: rng.integers(0, v.shape[1], 5) for k, v in heads.items()}
+    for key in ("supervised", "supervised_mixup"):
+        lab = {"supervised": targets}
+        if key == "supervised_mixup":
+            lab[key] = {k: rng.dirichlet(np.ones(v.shape[1]), 5).astype(
+                np.float32) for k, v in heads.items()}
+        got, parts = losses.calculate_loss(
+            cfg, {k: torch.from_numpy(v) for k, v in heads.items()}, None,
+            {k: {kk: torch.from_numpy(vv) for kk, vv in v.items()}
+             for k, v in lab.items()})
+        want, jparts = jlosses.calculate_loss(
+            jcfg, {k: jnp.asarray(v) for k, v in heads.items()}, None,
+            {k: {kk: jnp.asarray(vv) for kk, vv in v.items()}
+             for k, v in lab.items()})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+        assert sorted(parts) == sorted(jparts)
+
+
+def test_unported_losses_raise(repo_root):
+    for key in ("PRETRAIN.ENABLE", "LOCALIZATION.ENABLE"):
+        cfg, _ = _cfgs(repo_root, FLAGSHIP, [key, "true"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            losses.calculate_loss(cfg, torch.zeros(2, 3), None,
+                                  {"supervised": torch.zeros(2).long()})
+
+
+def test_topks_correct_matches_jax_with_k_clamped():
+    rng = np.random.default_rng(5)
+    preds = rng.standard_normal((9, 3)).astype(np.float32)
+    labels = rng.integers(0, 3, 9)
+    weights = (rng.random(9) > 0.3).astype(np.float32)
+    for w in (None, weights):
+        got = metrics.topks_correct(torch.from_numpy(preds),
+                                    torch.from_numpy(labels), (1, 2, 5),
+                                    None if w is None else torch.from_numpy(w))
+        want = jmetrics.topks_correct(jnp.asarray(preds), jnp.asarray(labels),
+                                      (1, 2, 5), None if w is None
+                                      else jnp.asarray(w))
+        assert [float(g) for g in got] == [float(v) for v in want]
+    assert float(got[2]) == float(weights.sum())             # k=5 -> all 3
+
+
+_CODES = {jopt.FROZEN: 0, jopt.NO_WD: 1, jopt.TRAINABLE: 2, jopt.BODY: 3,
+          jopt.BN: 4}
+# stacked on the ladder's axis in the JAX package, so 2-D to its "ndim <= 1"
+# rule there; one 1-D tensor per ladder step in the port (optimizer.py)
+LADDER_LN = ("dist_net.temporal_nets.", "dist_net.integration_nets.")
+
+
+def _is_ladder_ln_scale(name):
+    return name.startswith(LADDER_LN) and ".ln" in name and name.endswith(
+        ".weight")
+
+
+@pytest.fixture(scope="module")
+def tiny(repo_root):
+    """The tiny config on both sides with the JAX package's initial
+    weights."""
+    cfg, jcfg = _cfgs(repo_root, TINY, ["TRAIN.MIXED_PRECISION", "false"])
+    jmodel = jax_build_model(jcfg)
+    variables = jax.device_get(init_variables(jcfg, jmodel, (4, 64, 64, 3)))
+    return cfg, jcfg, variables
+
+
+def _port_module(cfg, variables):
+    model = build_model(cfg, device="cpu")
+    model.module.load_state_dict(to_torch(state_dict_from_jax(
+        variables["params"])))
+    return model.module
+
+
+def _port_codes(tree):
+    """A JAX-layout tree of per-leaf label codes, under the port's names."""
+    return {k: int(np.unique(v).item()) for k, v in
+            state_dict_from_jax(tree).items()}
+
+
+@pytest.mark.parametrize("opts", [[], ["VIDEO.BACKBONE.DIST.ENABLE", "false",
+                                        "VIDEO.BACKBONE.FREEZE_VISUAL", "false",
+                                        "TRAIN.LR_REDUCE", "true",
+                                        "TRAIN.FINE_TUNE", "true"]],
+                         ids=["dist", "standard"])
+def test_param_groups_match_jax_labels(repo_root, tiny, opts):
+    """Every port parameter's group equals the JAX package's label of the
+    same weight (mapped through ``state_dict_from_jax``), but for the
+    ladder's LayerNorm scales under the DiST grouping (see LADDER_LN). The
+    standard grouping (no DiST, trainable vision tower, frozen text tower,
+    body LR reduced) labels the towers' weights only."""
+    cfg, jcfg = _cfgs(repo_root, TINY, opts)
+    _, _, variables = tiny
+    labels = jopt.param_labels(jcfg, variables)["params"]
+    codes = jax.tree_util.tree_map(
+        lambda lab, leaf: np.full(np.shape(leaf), _CODES[lab]), labels,
+        variables["params"])
+    want = _port_codes(codes)
+    module = build_model(cfg, device="cpu").module
+    got = {k: _CODES[v] for k, v in
+           optimizer.param_labels(cfg, module).items()}
+    dist = not opts
+    if dist:
+        assert sorted(got) == sorted(want)
+    else:
+        assert not any(k.startswith("dist_net.") for k in got)
+        want = {k: want[k] for k in got}
+    moved = {k for k in got if got[k] != want[k]}
+    if dist:
+        assert moved == {k for k in got if _is_ladder_ln_scale(k)}
+        assert all(want[k] == _CODES[jopt.TRAINABLE] and
+                   got[k] == _CODES[jopt.NO_WD] for k in moved)
+    else:
+        assert not moved
+    assert len(set(got.values())) == 3
+
+
+@pytest.mark.parametrize("method", ["adamw", "adam", "sgd"])
+def test_updates_match_optax(repo_root, tiny, method):
+    """Three steps on the same fixed gradients (JAX layout, mapped to the
+    port's): every parameter equals the optax result within 1e-6; the
+    frozen ones do not move. Under the DiST grouping the ladder's
+    LayerNorm scales decay in the JAX package only (LADDER_LN):
+    3 * lr * mult * wd * |w| < 1e-7 here."""
+    cfg, jcfg = _cfgs(repo_root, TINY, ["OPTIMIZER.OPTIM_METHOD", method])
+    _, _, variables = tiny
+    rng = np.random.default_rng(6)
+    grads = jax.tree_util.tree_map(
+        lambda p: rng.standard_normal(np.shape(p)).astype(np.float32),
+        variables)
+    tx, jlr_fn = jopt.construct_optimizer(jcfg, variables, 4)
+    params, state = variables, tx.init(variables)
+    for _ in range(3):
+        updates, state = tx.update(grads, state, params)
+        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+    want = state_dict_from_jax(jax.device_get(params)["params"])
+
+    module = _port_module(cfg, variables)
+    start = {k: v.clone() for k, v in module.state_dict().items()}
+    opt, lr_fn = optimizer.construct_optimizer(cfg, module, 4)
+    tgrads = to_torch(state_dict_from_jax(grads["params"]))
+    for step in range(3):
+        for k, p in module.named_parameters():
+            if p.requires_grad:
+                p.grad = tgrads[k].clone()
+        assert lr_fn(step) == pytest.approx(float(jlr_fn(step)), rel=1e-6)
+        optimizer.set_lr(opt, lr_fn(step))
+        opt.step()
+    labels = optimizer.param_labels(cfg, module)
+    for k, p in module.named_parameters():
+        if labels[k] == optimizer.FROZEN:
+            assert not p.requires_grad and torch.equal(p, start[k]), k
+        np.testing.assert_allclose(p.detach().numpy(), want[k], atol=1e-6,
+                                   rtol=0, err_msg=k)
+    assert any(not torch.equal(p, start[k])
+               for k, p in module.named_parameters())
+
+
+def test_adjust_lr_scales_by_the_one_card_batch(repo_root, tiny):
+    """ADJUST_LR scales BASE_LR by the global batch / 256; on one card
+    the global batch is TRAIN.BATCH_SIZE, the JAX package's rule with a
+    data axis of one device."""
+    from dist_tpu.parallel.mesh import config_data_axis_size
+
+    opts = ["OPTIMIZER.ADJUST_LR", "true", "TRAIN.BATCH_SIZE", "64"]
+    cfg, jcfg = _cfgs(repo_root, TINY, opts)
+    module = _port_module(cfg, tiny[2])
+    _, lr_fn = optimizer.construct_optimizer(cfg, module, 4)
+    want = jopt.base_lr(jcfg) / config_data_axis_size(jcfg)
+    assert optimizer.base_lr(cfg) == pytest.approx(want, rel=1e-12)
+    assert lr_fn(0) == pytest.approx(float(cfg.OPTIMIZER.BASE_LR) * 64 / 256,
+                                     rel=1e-6)
+
+
+def test_lars_raises(repo_root):
+    cfg, _ = _cfgs(repo_root, TINY, ["OPTIMIZER.OPTIM_METHOD", "lars"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        optimizer.construct_optimizer(cfg, build_model(cfg, device="cpu")
+                                      .module, 4)

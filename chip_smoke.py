@@ -38,10 +38,27 @@
    CPU plain versions, both fp32 at batch 2, held to
    ``TRAIN_AGREEMENT_LIMITS``; a control with one spatial tap of the first
    block dropped must break them.
+7. Tools, at full width (launch counts zeroed just before, read just
+   after the in-process part): ``microbench attn`` in this process (REPS
+   small, stdout captured): every variant has ``ms`` and no ``error``, and
+   K4 (``attn_rows{2,4,8}``) lies within the bf16 tolerance of K1; an HTTP
+   round trip through ``VideoClassifierServer`` (flagship, batch 8, port
+   0): 3 clips POSTed from 3 threads, health and stats read, every
+   returned top-k score within ``HTTP_SCORE_LIMIT`` of the engine's own
+   ``predict`` of the clip, a bad payload answered 400. Then, each as a
+   subprocess with its own timeout, its exit code checked and every JSON
+   line parsed: ``microbench conv33``, ``tools.bench`` (eval and train
+   clips/s), ``tools.bench_serving`` and ``tools.profile_eval full_eval
+   attn_kernel``.
+
+The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
+and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
+bit, K1's time on the same input beside it, and ``B % nb != 0`` refused.
 
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
-phase, the serving shapes' numbers beside them), the card line, and last
+phase, the serving shapes' numbers beside them; K4's from the tools phase
+at nb = 8, each nb's beside them), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
 non-zero without the last line.
 """
@@ -116,6 +133,16 @@ TRAIN_AGREEMENT_LIMITS = {
 }
 
 
+# the tools phase: microbench repetitions, each tool subprocess's time
+# limit, and the HTTP round trip's limit on a returned score against the
+# engine's own predict of the clip (the serving agreement's score limit)
+TOOLS_REPS = 3
+TOOL_TIMEOUT_S = 300
+HTTP_CLIPS = 3
+HTTP_SCORE_LIMIT = AGREEMENT_LIMITS["unfused_card"]["max_abs_score_diff"]
+K4_ROWS = (2, 4, 8)
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -177,15 +204,7 @@ def check_attention(name, b, l, heads, hd, causal, dtype, seed):
     got = att.fused_attention_qkv(qkv, heads, causal)
     want = att.attention_qkv_plain(qkv, heads, causal)
     torch.cuda.synchronize()
-    if dtype == torch.float32:
-        # fp32 on both sides; sums of <= 257 terms in another order
-        atol, rtol, why = 2e-5, 1e-5, "fp32 summation order"
-    else:
-        # P is rounded to bf16 on both sides from fp32 values that may
-        # differ in the last bit: a flip moves O by <= 2^-8 * max|V|; O
-        # itself is rounded to bf16, one step <= 2^-7 relative
-        vmax = float(qkv[..., 2 * d:].float().abs().max())
-        atol, rtol, why = 2 ** -8 * vmax, 2 ** -7, "bf16 rounding of P and O"
+    atol, rtol, why = _attention_tolerance(qkv, d, dtype)
     err, ok = compare(got, want, atol, rtol)
     q, k, v = (qkv.view(b, l, 3, heads, hd)[:, :, i].transpose(1, 2)
                for i in range(3))
@@ -209,6 +228,76 @@ def check_attention(name, b, l, heads, hd, causal, dtype, seed):
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree "
                              f"(max abs err {err})")
+    return rec
+
+
+def _attention_tolerance(qkv, d, dtype):
+    """(atol, rtol, why) of an attention kernel against its plain
+    version."""
+    import torch
+
+    if dtype == torch.float32:
+        # fp32 on both sides; sums of <= 257 terms in another order
+        return 2e-5, 1e-5, "fp32 summation order"
+    # P is rounded to bf16 on both sides from fp32 values that may differ
+    # in the last bit: a flip moves O by <= 2^-8 * max|V|; O itself is
+    # rounded to bf16, one step <= 2^-7 relative
+    vmax = float(qkv[..., 2 * d:].float().abs().max())
+    return 2 ** -8 * vmax, 2 ** -7, "bf16 rounding of P and O"
+
+
+def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
+    """K4 against its plain version: two launches bit for bit, K1's time
+    on the same input beside it, and ``B % nb != 0`` refused."""
+    import torch
+    import torch.nn.functional as F
+    from dist_tpu_torch.ops import attention as att
+
+    d = heads * hd
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, l, 3 * d), generator=gen, device="cuda").to(dtype)
+    got = att.attention_qkv_rows(qkv, heads, nb)
+    again = att.attention_qkv_rows(qkv, heads, nb)
+    want = att.attention_qkv_rows_plain(qkv, heads, nb)
+    k1 = att.fused_attention_qkv(qkv, heads, False)
+    torch.cuda.synchronize()
+    atol, rtol, why = _attention_tolerance(qkv, d, dtype)
+    err, ok = compare(got, want, atol, rtol)
+    repeatable = bool(torch.equal(got, again))
+    try:
+        att.attention_qkv_rows(qkv[:b - 1], heads, nb)
+        refused = False
+    except ValueError:
+        refused = True
+    q, k, v = (qkv.view(b, l, 3, heads, hd)[:, :, i].transpose(1, 2)
+               for i in range(3))
+    dtname = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(qkv.numel() * qkv.element_size()
+                       + got.numel() * got.element_size(),
+                       4 * b * heads * hd * l * l, dtname)
+    rec = {
+        "check": name, "kernel": "attention_qkv_rows", "shape": [b, l, 3 * d],
+        "heads": heads, "nb": nb, "dtype": dtname,
+        "blocks": -(-l // 64) * heads * (b // nb),
+        "smem_bytes_per_block": att.rows_smem_bytes(l, hd, dtype),
+        "max_abs_err": err, "atol": atol, "rtol": rtol, "tolerance": why,
+        "bitwise_repeatable": repeatable,
+        "equal_to_k1": bool(torch.equal(got, k1)),
+        "refuses_b_mod_nb": refused,
+        "ms": time_ms(lambda: att.attention_qkv_rows(qkv, heads, nb), 20),
+        "k1_ms": time_ms(lambda: att.fused_attention_qkv(qkv, heads, False),
+                         20),
+        "plain_ms": time_ms(
+            lambda: att.attention_qkv_rows_plain(qkv, heads, nb), 5),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "pass": ok and repeatable and refused,
+    }
+    emit(rec)
+    if not rec["pass"]:
+        raise AssertionError(f"{name}: max abs err {err}, repeatable "
+                             f"{repeatable}, B % nb refused {refused}")
     return rec
 
 
@@ -352,9 +441,16 @@ def kernel_checks():
                            (32, 16, 14, 14, 96), f32, 9)
     train["temporal_net_bwd"] = check_temporal_net_bwd(
         "temporal_net_bwd train bf16", (32, 16, 14, 14, 96), bf16, 10)
-    # the shapes and type of the served model's main path, and the train
-    # step's
-    return {"attention_qkv": att[1], "temporal_net_fwd": tnet[1]}, train
+    # K4 at the microbenchmark's shape, each nb of its attn command
+    rows = {nb: check_attention_rows(f"attention_rows nb={nb} bf16", 64, 197,
+                                     12, 64, nb, bf16, 10 + nb)
+            for nb in K4_ROWS}
+    check_attention_rows("attention_rows nb=8 fp32", 64, 197, 12, 64, 8,
+                         f32, 19)
+    # the shapes and type of the served model's main path, the train
+    # step's, and the tools'
+    return ({"attention_qkv": att[1], "temporal_net_fwd": tnet[1]}, train,
+            rows)
 
 
 def serve(repo):
@@ -593,13 +689,17 @@ def _train_batches(cfg, n, seed, clips=None):
 
 
 def _zero_counts():
-    from dist_tpu_torch.ops.attention import fused_attention_qkv
+    from dist_tpu_torch.ops.attention import (
+        attention_qkv_rows,
+        fused_attention_qkv,
+    )
     from dist_tpu_torch.ops.temporal_net import (
         fused_temporal_net,
         fused_temporal_net_bwd,
     )
 
     fns = {"attention_qkv": fused_attention_qkv,
+           "attention_qkv_rows": attention_qkv_rows,
            "temporal_net_fwd": fused_temporal_net,
            "temporal_net_bwd": fused_temporal_net_bwd}
     for fn in fns.values():
@@ -658,12 +758,14 @@ def train(repo):
     arch = model.module.arch
     ladder = len(model.module.dist.selected_layers)
     want = {"attention_qkv": arch.vision_layers * steps,
+            "attention_qkv_rows": 0,
             "temporal_net_fwd": ladder * steps,
             "temporal_net_bwd": ladder * steps}
     losses = [float(v) for v in losses]
     problems = []
     if setup != {"attention_qkv": arch.transformer_layers,
-                 "temporal_net_fwd": 0, "temporal_net_bwd": 0}:
+                 "attention_qkv_rows": 0, "temporal_net_fwd": 0,
+                 "temporal_net_bwd": 0}:
         problems.append(f"set-up launches {setup}")
     if launches != want:
         problems.append(f"launches {launches} != expected {want}")
@@ -841,6 +943,182 @@ def train_agreement(repo, tokens):
         raise AssertionError("train_agreement: " + "; ".join(problems))
 
 
+def _http(port, path, body=None):
+    """(status, JSON reply) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def http_round_trip(repo):
+    """The flagship served over HTTP at batch 8: HTTP_CLIPS clips POSTed
+    from as many threads, health and stats, every top-k score against the
+    engine's own predict of the clip, and a bad payload."""
+    import io
+    import threading
+
+    import numpy as np
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.server import VideoClassifierServer
+
+    cfg = load_config(os.path.join(repo, FLAGSHIP),
+                      ["TPU.FUSED_TEMPORAL_NET", "true"],
+                      make_output_dir=False)
+    t0 = time.perf_counter()
+    server = VideoClassifierServer(cfg, host="127.0.0.1", port=0,
+                                   batch_size=8, max_delay_ms=20.0)
+    build_s = time.perf_counter() - t0
+    engine = server.engine
+    rng = np.random.default_rng(int(cfg.RANDOM_SEED) + 7)
+    clips = rng.integers(0, 256, (HTTP_CLIPS, engine.num_frames, engine.crop,
+                                  engine.crop, 3), dtype=np.uint8)
+    replies = [None] * HTTP_CLIPS
+
+    def post(i):
+        buf = io.BytesIO()
+        np.save(buf, clips[i])
+        replies[i] = _http(server.port, "/v1/predict?topk=5", buf.getvalue())
+
+    with server:
+        health = _http(server.port, "/v1/health")
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(HTTP_CLIPS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        stats = _http(server.port, "/v1/stats")
+        bad = io.BytesIO()
+        np.save(bad, np.zeros((2, 2), np.uint8))
+        bad_status, _ = _http(server.port, "/v1/predict", bad.getvalue())
+        direct = [engine.predict(c[None])[0] for c in clips]
+    problems, worst = [], 0.0
+    if health != (200, {"status": "ok", "classes": engine.num_classes,
+                        "frames": engine.num_frames, "crop": engine.crop,
+                        "batch_size": 8}):
+        problems.append(f"health {health}")
+    for i, reply in enumerate(replies):
+        if reply is None or reply[0] != 200 or len(reply[1]["topk"]) != 5:
+            problems.append(f"clip {i}: reply {reply}")
+            continue
+        for row in reply[1]["topk"]:
+            worst = max(worst, abs(row["score"] - float(direct[i][row["class"]])))
+    if worst > HTTP_SCORE_LIMIT:
+        problems.append(f"top-k score off the engine's predict by {worst}")
+    if stats[0] != 200 or stats[1]["requests"] != HTTP_CLIPS:
+        problems.append(f"stats {stats}")
+    if bad_status != 400:
+        problems.append(f"bad payload answered {bad_status}")
+    return {"build_s": build_s, "health": health[1], "stats": stats[1],
+            "max_abs_score_diff": worst, "limit": HTTP_SCORE_LIMIT,
+            "bad_payload_status": bad_status}, problems
+
+
+def _run_tool(repo, args, env=None):
+    """Run ``python -m dist_tpu_torch.tools.<args>`` from the checkout:
+    (seconds, every stdout line parsed as JSON); raises on a non-zero exit
+    or a line that does not parse."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=repo,
+                         env={**os.environ, **(env or {})},
+                         capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    return seconds, [json.loads(ln) for ln in out.stdout.splitlines()
+                     if ln.strip()]
+
+
+def tools(repo):
+    """The port's tools at full width. In this process, with the launch
+    counts zeroed just before and read just after: ``microbench attn`` and
+    the HTTP round trip. Then the other tools as subprocesses."""
+    import contextlib
+    import io
+
+    import torch
+    from dist_tpu_torch.tools import microbench
+
+    t0 = time.perf_counter()
+    counts = _zero_counts()
+    bench = microbench.Bench(torch.device("cuda"), reps=TOOLS_REPS)
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        microbench.cmd_attn(bench, [])
+    attn = [json.loads(ln) for ln in captured.getvalue().splitlines()]
+    http, problems = http_round_trip(repo)
+    launches = counts()
+
+    names = {r["variant"] for r in attn}
+    expected = {"attn_shipped", "attn_plain", "attn_sdpa",
+                *(f"attn_rows{nb}" for nb in K4_ROWS)}
+    if names != expected:
+        problems.append(f"microbench attn variants {sorted(names)}")
+    for r in attn:
+        if "error" in r or "ms" not in r:
+            problems.append(f"microbench attn: {r}")
+        elif r["variant"].startswith("attn_rows") and (
+                r["max_abs_diff"] > 2 ** -8 * r["max_abs_ref"]):
+            # within the bf16 tolerance of K1 (2^-8 max|V| + 2^-7 |O|)
+            # everywhere: max|O| <= max|V|, since O is a convex sum of V
+            problems.append(f"K4 off K1: {r}")
+    for name in ("attention_qkv", "attention_qkv_rows", "temporal_net_fwd"):
+        if launches[name] == 0:
+            problems.append(f"{name} not launched in the tools phase")
+
+    runs = {}
+    runs["microbench conv33"] = _run_tool(
+        repo, ["dist_tpu_torch.tools.microbench", "conv33"],
+        {"REPS": str(TOOLS_REPS)})
+    runs["bench"] = _run_tool(
+        repo, ["dist_tpu_torch.tools.bench"],
+        {"BENCH_ITERS": "5", "BENCH_OPTS": "TPU.FUSED_TEMPORAL_NET true"})
+    runs["bench_serving"] = _run_tool(
+        repo, ["dist_tpu_torch.tools.bench_serving", "--iters", "10",
+               "--load-seconds", "2", "TPU.FUSED_TEMPORAL_NET", "true"])
+    runs["profile_eval"] = _run_tool(
+        repo, ["dist_tpu_torch.tools.profile_eval", "full_eval",
+               "attn_kernel"], {"BENCH_ITERS": "10"})
+    for name, (_, lines) in runs.items():
+        if any("error" in r for r in lines):
+            problems.append(f"{name}: {lines}")
+    conv33 = runs["microbench conv33"][1]
+    if [r.get("check") or r.get("variant") for r in conv33] != [
+            "max_abs_diff", "conv33_fwd_bwd", "mm33_fwd_bwd"]:
+        problems.append(f"microbench conv33: {conv33}")
+    metrics = {r.get("metric"): r.get("value") for r in runs["bench"][1]}
+    if set(metrics) != {"clips_per_sec_per_chip",
+                        "train_clips_per_sec_per_chip"} or not all(
+            v > 0 for v in metrics.values()):
+        problems.append(f"bench: {runs['bench'][1]}")
+    serving = runs["bench_serving"][1]
+    if len(serving) != 1 or not serving[0]["sustained_load"][
+            "clips_per_sec"] > 0:
+        problems.append(f"bench_serving: {serving}")
+    components = [r.get("component") for r in runs["profile_eval"][1]]
+    if components != ["full_eval", "attn_kernel_x1"]:
+        problems.append(f"profile_eval components {components}")
+
+    rec = {"phase": "tools", "microbench_attn": attn, "http": http,
+           "launches": launches,
+           "runs": {name: {"seconds": sec, "lines": lines}
+                    for name, (sec, lines) in runs.items()},
+           "seconds": time.perf_counter() - t0, "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("tools: " + "; ".join(problems))
+    return launches
+
+
 def _breaches(reading, limits):
     """[(metric, reading)] of the limits a comparison's reading breaks;
     a ``min_`` limit is a floor, the others are ceilings. A control has no
@@ -887,16 +1165,18 @@ def main():
         _build.build(names)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                            if "registers" in ln or "spill" in ln][:12]
+                            if "registers" in ln or "spill" in ln][:40]
                         for n in names}})
 
-        serve_path, train_path = kernel_checks()
+        serve_path, train_path, rows = kernel_checks()
         engine, serve_launches = serve(repo)
         agreement(repo, engine)
         del engine
         torch.cuda.empty_cache()
         train_launches, tokens = train(repo)
         train_agreement(repo, tokens)
+        torch.cuda.empty_cache()
+        tools_launches = tools(repo)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -919,7 +1199,20 @@ def main():
                 entry["serving"] = {"launches": serve_launches[name],
                                     "shape": srv["shape"],
                                     **{k: srv[k] for k in keys}}
+            entry["tools_launches"] = tools_launches[name]
             kernels.append(entry)
+        # K4 runs only on the tools path: its launches are the tools
+        # phase's, its numbers nb = 8's, each nb's beside them
+        kernels.append({
+            "name": "attention_qkv_rows", "route": "cuda",
+            "source": "dist_tpu_torch/csrc/attention.cu",
+            "replaces": "tools/microbench.py:154",
+            "launches": tools_launches["attention_qkv_rows"],
+            **{k: rows[8][k] for k in keys},
+            "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
+            "per_nb": {str(nb): {k: rec[k] for k in (
+                *keys, "k1_ms", "blocks", "smem_bytes_per_block")}
+                for nb, rec in rows.items()}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,11 @@ On a CUDA tensor the wrapper launches the hand-written kernel of
 :func:`attention_qkv_plain`, the plain PyTorch version that mirrors the
 JAX package's ``_reference_attention_qkv``. There is no backward kernel
 yet, so the CUDA path refuses inputs that need a gradient.
+
+:func:`attention_qkv_rows` is the port of the microbenchmark's
+multi-row variant (``tools/microbench.py::kernel_nb``): the same function
+without the causal mask, with ``nb`` batch rows per block of the kernel;
+its plain version is :func:`attention_qkv_rows_plain`.
 """
 
 import ctypes
@@ -31,6 +36,12 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p],
+    "dtt_attention_qkv_rows": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                               ctypes.c_void_p],
+    "dtt_attention_rows_smem_bytes": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int],
     "dtt_attention_error_string": [ctypes.c_int],
 }
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -64,13 +75,9 @@ def _check(qkv, num_heads):
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
 
 
-def fused_attention_qkv(qkv, num_heads, causal=False):
-    """O (B, L, D) = multi-head softmax attention of the fused projection
-    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel; CPU tensor:
-    :func:`attention_qkv_plain`."""
-    _check(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return attention_qkv_plain(qkv, num_heads, causal)
+def _check_cuda(qkv, num_heads):
+    """The kernels' refusals for a tensor that is not on the CPU; returns
+    (B, L, D, head dim)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
@@ -87,18 +94,85 @@ def fused_attention_qkv(qkv, num_heads, causal=False):
     hd = d // num_heads
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
-    if b > 65535 or num_heads > 65535:
-        raise ValueError(f"grid too large: B={b}, heads={num_heads}")
+    if num_heads > 65535:
+        raise ValueError(f"grid too large: heads={num_heads}")
+    return b, l, d, hd
+
+
+def _launch(fn, qkv, *args):
+    """Allocate the output and run the C entry ``fn`` of the attention
+    library on qkv's stream; raises on a CUDA error."""
     lib = _build.load("attention", _SIGNATURES)
-    out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+    b, l, d3 = qkv.shape
+    out = torch.empty((b, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dtt_attention_qkv(
-            qkv.data_ptr(), out.data_ptr(), b, l, d, num_heads, int(causal),
-            hd ** -0.5, int(qkv.dtype == torch.bfloat16), stream)
+        err = getattr(lib, fn)(
+            qkv.data_ptr(), out.data_ptr(), b, l, d3 // 3, *args,
+            int(qkv.dtype == torch.bfloat16), stream)
     _build.check(lib, "dtt_attention_error_string", err, "attention kernel")
+    return out
+
+
+def fused_attention_qkv(qkv, num_heads, causal=False):
+    """O (B, L, D) = multi-head softmax attention of the fused projection
+    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel; CPU tensor:
+    :func:`attention_qkv_plain`."""
+    _check(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, causal)
+    b, _, _, hd = _check_cuda(qkv, num_heads)
+    if b > 65535:
+        raise ValueError(f"grid too large: B={b}")
+    out = _launch("dtt_attention_qkv", qkv, num_heads, int(causal), hd ** -0.5)
     fused_attention_qkv.launches += 1
     return out
 
 
 fused_attention_qkv.launches = 0
+
+
+def _check_rows(qkv, num_heads, nb):
+    _check(qkv, num_heads)
+    if int(nb) != nb or nb < 1:
+        raise ValueError(f"nb must be a positive integer, got {nb}")
+    if qkv.shape[0] % nb:
+        # the TPU kernel's grid (B // nb,) would leave the last B % nb rows
+        # unwritten
+        raise ValueError(f"B={qkv.shape[0]} is not a multiple of nb={nb}")
+
+
+def attention_qkv_rows_plain(qkv, num_heads, nb):
+    """Plain version of :func:`attention_qkv_rows`: the same refusals, then
+    :func:`attention_qkv_plain` without the causal mask (``nb`` only sets
+    how the kernel splits the batch)."""
+    _check_rows(qkv, num_heads, nb)
+    return attention_qkv_plain(qkv, num_heads, causal=False)
+
+
+def rows_smem_bytes(l, head_dim, dtype):
+    """Dynamic shared memory per block of the multi-row kernel at sequence
+    length ``l`` (its bf16 path holds two whole rows of K_h and V_h)."""
+    lib = _build.load("attention", _SIGNATURES)
+    return lib.dtt_attention_rows_smem_bytes(l, head_dim,
+                                             int(dtype == torch.bfloat16))
+
+
+def attention_qkv_rows(qkv, num_heads, nb):
+    """O (B, L, D): :func:`fused_attention_qkv`'s function without the
+    causal mask, with ``nb`` batch rows per block of the kernel (B % nb ==
+    0). CUDA tensor: the hand-written kernel; CPU tensor:
+    :func:`attention_qkv_rows_plain`."""
+    _check_rows(qkv, num_heads, nb)
+    if qkv.device.type == "cpu":
+        return attention_qkv_rows_plain(qkv, num_heads, nb)
+    b, _, _, hd = _check_cuda(qkv, num_heads)
+    if b // nb > 65535:
+        raise ValueError(f"grid too large: B/nb={b // nb}")
+    out = _launch("dtt_attention_qkv_rows", qkv, num_heads, int(nb),
+                  hd ** -0.5)
+    attention_qkv_rows.launches += 1
+    return out
+
+
+attention_qkv_rows.launches = 0

@@ -37,6 +37,8 @@ class InferenceEngine:
     per-clip class scores ``(n, num_classes)`` as numpy (softmax with the
     head's softmax activation). Runs on the CUDA card unless
     ``device="cpu"`` is passed; without a card and without that, raises.
+    ``ready`` turns true once :meth:`warmup` or a first request has run
+    (the HTTP server's health check reads it).
     """
 
     def __init__(self, cfg, batch_size=8, device=None):
@@ -53,6 +55,7 @@ class InferenceEngine:
         load_test_checkpoint(cfg, self.model)
         self._step = make_eval_step(self.model, cfg)
         self.label_names, self.text_features = self._label_setup()
+        self.ready = False
 
     def _label_setup(self):
         """Label names and the text features, computed once."""
@@ -105,7 +108,9 @@ class InferenceEngine:
         video = torch.from_numpy(clips).to(self.device)
         preds = self._step({"video": video,
                             "text_features": self.text_features})["preds"]
-        return preds[:n].float().cpu().numpy()
+        out = preds[:n].float().cpu().numpy()
+        self.ready = True
+        return out
 
     def topk(self, scores, k=5):
         """[(class_index, label_or_None, score), ...] rows per clip."""

@@ -29,6 +29,8 @@ BATCH_SIZE = 8
 
 def _group(name):
     n = name.lower()
+    if "attention_rows" in n:
+        return "K4 attention, nb rows per block (csrc/attention.cu)"
     if "attention_qkv" in n:
         return "K1 attention (csrc/attention.cu)"
     if "temporal_stage_kernel" in n or "spatial_stage_kernel" in n:

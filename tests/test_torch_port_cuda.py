@@ -68,6 +68,80 @@ def test_attention_kernel_refuses_what_it_cannot_take():
         att.fused_attention_qkv(flat[1:].view(2, 5, 3 * 64), 1)
 
 
+def _bf16_attention_tolerance(x, hd_total):
+    # P and O are rounded to bf16 on both sides: one flip of P moves O by
+    # <= 2^-8 max|V|, one step of O is <= 2^-7 relative
+    return 2 ** -8 * float(x[..., 2 * hd_total:].float().abs().max()), 2 ** -7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,hd", [(197, 64), (197, 32), (77, 64), (77, 32)])
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+def test_attention_rows_kernel_matches_plain(nb, l, hd, dtype):
+    b, h = 8, 128 // hd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(nb * l + hd)
+    x = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(dt)
+    before = att.attention_qkv_rows.launches
+    got = att.attention_qkv_rows(x, h, nb)
+    again = att.attention_qkv_rows(x, h, nb)
+    torch.cuda.synchronize()
+    assert att.attention_qkv_rows.launches == before + 2
+    assert torch.equal(got, again)                     # no atomics
+    want = att.attention_qkv_rows_plain(x, h, nb)
+    if dt == torch.float32:
+        _within(got, want, 2e-5, 1e-5)          # summation order only
+    else:
+        _within(got, want, *_bf16_attention_tolerance(x, h * hd))
+
+
+def test_attention_rows_kernel_refuses_what_it_cannot_take():
+    x = torch.zeros((6, 5, 3 * 64), device="cuda", dtype=torch.bfloat16)
+    before = att.attention_qkv_rows.launches
+    for nb in (4, 0, -1):                      # B % nb != 0, nb < 1
+        with pytest.raises(ValueError):
+            att.attention_qkv_rows(x, 1, nb)
+    with pytest.raises(ValueError):            # head dim 24
+        att.attention_qkv_rows(torch.zeros((2, 5, 3 * 48), device="cuda"), 2, 1)
+    with pytest.raises(ValueError):            # fp16
+        att.attention_qkv_rows(x.half(), 1, 2)
+    with pytest.raises(RuntimeError):          # more shared memory than a block has
+        att.attention_qkv_rows(
+            torch.zeros((2, 1000, 3 * 128), device="cuda", dtype=torch.bfloat16),
+            1, 1)
+    assert att.attention_qkv_rows.launches == before
+
+
+def test_microbatcher_round_trip_through_engine_on_card():
+    """The tiny config served on the card through the MicroBatcher: every
+    clip's scores equal the engine's direct predict of the same clip."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving import InferenceEngine, MicroBatcher
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TRAIN.MIXED_PRECISION", "false"], make_output_dir=False)
+    engine = InferenceEngine(cfg, batch_size=4)
+    engine.warmup()
+    assert engine.ready
+    clips = np.random.default_rng(4).integers(
+        0, 256, (6, 4, 64, 64, 3), dtype=np.uint8)
+    batcher = MicroBatcher(engine.predict, max_batch=4, max_delay_ms=20.0)
+    try:
+        got = [f.result(timeout=60) for f in
+               [batcher.submit(c) for c in clips]]
+    finally:
+        batcher.close()
+    assert batcher.snapshot()["requests"] == 6
+    for clip, row in zip(clips, got):
+        # fp32; batches of other sizes may sum in another order
+        np.testing.assert_allclose(row, engine.predict(clip[None])[0],
+                                   atol=1e-6, rtol=0)
+
+
 def _tn_params(c, f, k, seed):
     rng = np.random.default_rng(seed)
     r = lambda *s, sc: torch.from_numpy(

@@ -4,7 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 1. Card: prints the card's name and power limit, builds the hand-written
-   CUDA kernels from ``dist_tpu_torch/csrc`` with nvcc (in parallel).
+   CUDA kernels from ``dist_tpu_torch/csrc`` with nvcc (in parallel) and
+   fails if ptxas reports spill bytes for any whole-row attention
+   instance.
 2. Kernels: calls each kernel on the card at the shapes the serving path
    and the train step give it (K3, the TemporalNet backward, in fp32 and
    bf16, twice, to show that two launches agree bit for bit) and holds it
@@ -53,12 +55,19 @@
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
-bit, K1's time on the same input beside it, and ``B % nb != 0`` refused.
+bit, equal to K1 bit for bit, K1's time on the same input beside it, and
+``B % nb != 0`` refused. Each attention check names its route
+(``attention_route``: whole_row, streaming or fp32) and the blocks per SM;
+at the train shape K1's streaming kernel is timed on the same input
+(``streaming_ms``), and at L = 577 (ViT-L/14 at 336 px) it is the route. A bf16 sweep at batch 4, 4 heads holds K1 to its plain
+version at the lengths on the edges of the routes (``ROUTE_EDGE_LENGTHS``).
 
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them; K4's from the tools phase
-at nb = 8, each nb's beside them), the card line, and last
+at nb = 8, each nb's beside them; K1 and K4 with their attention route,
+blocks per SM and the ptxas registers and spill bytes of the instance the
+main path launches), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
 non-zero without the last line.
 """
@@ -77,6 +86,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "float32": 67e12}     # fp32 outside the tensor cores
 SERVE_REQUESTS = (1, 3, 8)
 TIMED_REPEATS = 10
+# the card's busy wait before a timed run: ~10 ms at the H100's ~2 GHz,
+# longer than the host takes to queue 20 launches
+HOLD_CYCLES = 20_000_000
 AGREEMENT_SEEDS = 3                 # weight seeds RANDOM_SEED + 0, 1, 2
 AGREEMENT_CLIPS = 3                 # clips per agreement request
 # controls: TemporalNet blocks (from the first) with one spatial tap
@@ -141,6 +153,13 @@ TOOL_TIMEOUT_S = 300
 HTTP_CLIPS = 3
 HTTP_SCORE_LIMIT = AGREEMENT_LIMITS["unfused_card"]["max_abs_score_diff"]
 K4_ROWS = (2, 4, 8)
+# K1's bf16 route sweep: the lengths at the edges of the routes (the
+# whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
+# causal as in the text tower, at hd 64, and one length at hd 32
+ROUTE_EDGE_LENGTHS = (1, 16, 17, 77, 80, 81, 197, 208, 209, 257, 272, 273)
+ROUTE_SWEEP_HD32_LEN = 197
+ROUTE_SWEEP_BATCH = 4
+ROUTE_SWEEP_HEADS = 4
 
 
 def emit(obj):
@@ -157,12 +176,15 @@ def card_line():
 
 def time_ms(fn, iters):
     """Mean time of one call, CUDA events around ``iters`` calls after
-    warm-up."""
+    warm-up. The card is first held busy for ``HOLD_CYCLES`` clock cycles,
+    so that the host has queued every timed call before the first runs: the
+    events then time the card, not the host's pace of launches."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -193,7 +215,11 @@ def compare(got, want, atol, rtol):
     return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
 
 
-def check_attention(name, b, l, heads, hd, causal, dtype, seed):
+def check_attention(name, b, l, heads, hd, causal, dtype, seed,
+                    streaming=False):
+    """K1 against its plain version on its route; with ``streaming``, the
+    streaming kernel's time on the same input beside it (the private route
+    argument)."""
     import torch
     import torch.nn.functional as F
     from dist_tpu_torch.ops import attention as att
@@ -216,6 +242,8 @@ def check_attention(name, b, l, heads, hd, causal, dtype, seed):
     rec = {
         "check": name, "kernel": "attention_qkv", "shape": [b, l, 3 * d],
         "heads": heads, "causal": causal, "dtype": dtname,
+        "route": att.attention_route(l, hd, dtype),
+        "blocks_per_sm": att.blocks_per_sm(l, hd, dtype, causal=causal),
         "max_abs_err": err, "atol": atol, "rtol": rtol, "tolerance": why,
         "ms": time_ms(lambda: att.fused_attention_qkv(qkv, heads, causal), 20),
         "plain_ms": time_ms(
@@ -224,11 +252,46 @@ def check_attention(name, b, l, heads, hd, causal, dtype, seed):
             q, k, v, is_causal=causal), 20),
         "bound_ms": b_ms, "bound_by": b_by, "pass": ok,
     }
+    if streaming:
+        rec["streaming_ms"] = time_ms(lambda: att.fused_attention_qkv(
+            qkv, heads, causal, _route="streaming"), 20)
     emit(rec)
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree "
                              f"(max abs err {err})")
     return rec
+
+
+def check_route_sweep():
+    """K1 in bf16 at small batch (B = 4, 4 heads) over the edges of its
+    routes, each length held to the plain version under the bf16
+    tolerance."""
+    import torch
+    from dist_tpu_torch.ops import attention as att
+
+    cases, problems = [], []
+    for l, hd, causal in [(l, 64, l == 77) for l in ROUTE_EDGE_LENGTHS] + [
+            (ROUTE_SWEEP_HD32_LEN, 32, False)]:
+        d = ROUTE_SWEEP_HEADS * hd
+        gen = torch.Generator(device="cuda").manual_seed(l + hd)
+        qkv = torch.randn((ROUTE_SWEEP_BATCH, l, 3 * d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        got = att.fused_attention_qkv(qkv, ROUTE_SWEEP_HEADS, causal)
+        want = att.attention_qkv_plain(qkv, ROUTE_SWEEP_HEADS, causal)
+        torch.cuda.synchronize()
+        atol, rtol, _ = _attention_tolerance(qkv, d, torch.bfloat16)
+        err, ok = compare(got, want, atol, rtol)
+        cases.append({"l": l, "hd": hd, "causal": causal,
+                      "route": att.attention_route(l, hd, torch.bfloat16),
+                      "max_abs_err": err, "atol": atol, "pass": ok})
+        if not ok:
+            problems.append(f"L={l} hd={hd}: max abs err {err}")
+    emit({"check": "attention route sweep bf16", "kernel": "attention_qkv",
+          "batch": ROUTE_SWEEP_BATCH, "heads": ROUTE_SWEEP_HEADS,
+          "rtol": 2 ** -7, "tolerance": "bf16 rounding of P and O",
+          "cases": cases, "pass": not problems})
+    if problems:
+        raise AssertionError("route sweep: " + "; ".join(problems))
 
 
 def _attention_tolerance(qkv, d, dtype):
@@ -247,8 +310,9 @@ def _attention_tolerance(qkv, d, dtype):
 
 
 def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
-    """K4 against its plain version: two launches bit for bit, K1's time
-    on the same input beside it, and ``B % nb != 0`` refused."""
+    """K4 against its plain version: two launches bit for bit, equal to K1
+    bit for bit, K1's time on the same input beside it, and ``B % nb != 0``
+    refused."""
     import torch
     import torch.nn.functional as F
     from dist_tpu_torch.ops import attention as att
@@ -264,6 +328,7 @@ def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
     atol, rtol, why = _attention_tolerance(qkv, d, dtype)
     err, ok = compare(got, want, atol, rtol)
     repeatable = bool(torch.equal(got, again))
+    equal_k1 = bool(torch.equal(got, k1))
     try:
         att.attention_qkv_rows(qkv[:b - 1], heads, nb)
         refused = False
@@ -278,11 +343,13 @@ def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
     rec = {
         "check": name, "kernel": "attention_qkv_rows", "shape": [b, l, 3 * d],
         "heads": heads, "nb": nb, "dtype": dtname,
+        "route": att.attention_route(l, hd, dtype),
         "blocks": -(-l // 64) * heads * (b // nb),
+        "blocks_per_sm": att.blocks_per_sm(l, hd, dtype, rows=True),
         "smem_bytes_per_block": att.rows_smem_bytes(l, hd, dtype),
         "max_abs_err": err, "atol": atol, "rtol": rtol, "tolerance": why,
         "bitwise_repeatable": repeatable,
-        "equal_to_k1": bool(torch.equal(got, k1)),
+        "equal_to_k1": equal_k1,
         "refuses_b_mod_nb": refused,
         "ms": time_ms(lambda: att.attention_qkv_rows(qkv, heads, nb), 20),
         "k1_ms": time_ms(lambda: att.fused_attention_qkv(qkv, heads, False),
@@ -292,12 +359,13 @@ def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
         "bound_ms": b_ms, "bound_by": b_by,
-        "pass": ok and repeatable and refused,
+        "pass": ok and repeatable and refused and equal_k1,
     }
     emit(rec)
     if not rec["pass"]:
         raise AssertionError(f"{name}: max abs err {err}, repeatable "
-                             f"{repeatable}, B % nb refused {refused}")
+                             f"{repeatable}, B % nb refused {refused}, "
+                             f"equal to K1 {equal_k1}")
     return rec
 
 
@@ -424,6 +492,9 @@ def kernel_checks():
         check_attention("attention text causal bf16", 174, 77, 8, 64, True,
                         bf16, 3),
         check_attention("attention L/14 bf16", 16, 257, 16, 64, False, bf16, 4),
+        # past the whole-row lengths: ViT-L/14 at 336 px, 24^2 + 1 tokens
+        check_attention("attention L/14-336 bf16", 8, 577, 16, 64, False,
+                        bf16, 20),
     ]
     tnet = [
         check_temporal_net("temporal_net fp32", (8, 16, 14, 14, 96), f32, 5),
@@ -433,7 +504,8 @@ def kernel_checks():
     # tower, 16 dense frames in the ladder
     train = {
         "attention_qkv": check_attention("attention vision train bf16", 256,
-                                         197, 12, 64, False, bf16, 7),
+                                         197, 12, 64, False, bf16, 7,
+                                         streaming=True),
         "temporal_net_fwd": check_temporal_net(
             "temporal_net train bf16", (32, 16, 14, 14, 96), bf16, 8),
     }
@@ -447,8 +519,10 @@ def kernel_checks():
             for nb in K4_ROWS}
     check_attention_rows("attention_rows nb=8 fp32", 64, 197, 12, 64, 8,
                          f32, 19)
+    check_route_sweep()
     # the shapes and type of the served model's main path, the train
-    # step's, and the tools'
+    # step's, and the tools'; K1's streaming route at L > 272 beside them
+    train["attention_qkv"]["streaming_route"] = att[4]
     return ({"attention_qkv": att[1], "temporal_net_fwd": tnet[1]}, train,
             rows)
 
@@ -1119,6 +1193,45 @@ def tools(repo):
     return launches
 
 
+def _instance(mangled):
+    """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
+    kernel name."""
+    import re
+
+    m = re.search(r"(attention_(?:qkv|rows)_wr_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?",
+                  mangled)
+    if not m:
+        return mangled
+    args = [m[2], m[3]] + ([("false", "true")[int(m[4])]] if m[4] else [])
+    return f"{m[1]}<{', '.join(args)}>"
+
+
+def _attention_entry(rec, kernel):
+    """An attention check's route, blocks per SM and the ptxas usage of
+    the whole-row instance of ``kernel`` that its shape launches."""
+    from dist_tpu_torch.ops import _build
+    from dist_tpu_torch.ops.attention import WHOLE_ROW_LENS
+
+    out = {"attention_route": rec["route"],
+           "blocks_per_sm": rec["blocks_per_sm"], "ptxas": None}
+    if rec["route"] == "whole_row":
+        _, l, d3 = rec["shape"]
+        lp = next(p for p in WHOLE_ROW_LENS if l <= p)
+        mask = ""                # K1's instances differ in the causal mask
+        if "causal" in rec:
+            mask = ", true" if rec["causal"] else ", false"
+        name = f"{kernel}<{d3 // 3 // rec['heads']}, {lp}{mask}>"
+        usage = {_instance(k): v
+                 for k, v in _build.ptxas_usage("attention").items()}
+        if name not in usage:
+            raise AssertionError(f"no ptxas usage of {name}")
+        out["ptxas"] = {"instance": name,
+                        "registers": usage[name]["registers"],
+                        "spill_bytes": usage[name]["spill_stores"]
+                        + usage[name]["spill_loads"]}
+    return out
+
+
 def _breaches(reading, limits):
     """[(metric, reading)] of the limits a comparison's reading breaks;
     a ``min_`` limit is a floor, the others are ceilings. A control has no
@@ -1163,10 +1276,21 @@ def main():
         names = ["attention", "temporal_net"]
         t0 = time.perf_counter()
         _build.build(names)
+        whole_row = {_instance(k): v
+                     for k, v in _build.ptxas_usage("attention").items()
+                     if "_wr_kernel" in k}
+        spills = [k for k, v in whole_row.items()
+                  if v.get("spill_stores") != 0 or v.get("spill_loads") != 0]
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                             if "registers" in ln or "spill" in ln][:40]
-                        for n in names}})
+                        for n in names},
+              "whole_row_registers": {k: v.get("registers")
+                                      for k, v in sorted(whole_row.items())},
+              "whole_row_spills": spills, "pass": bool(whole_row) and not spills})
+        if not whole_row or spills:
+            raise AssertionError(f"whole-row instances {len(whole_row)}, "
+                                 f"spilling: {spills}")
 
         serve_path, train_path, rows = kernel_checks()
         engine, serve_launches = serve(repo)
@@ -1186,6 +1310,10 @@ def main():
                                         "dist_tpu/ops/temporal_net.py:171")}
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
+        # "route" is the build route (cuda or triton); the attention
+        # kernels' own route (whole_row, streaming, fp32) and the ptxas
+        # usage of the instance the main path launches are beside it
+        att_keys = ("attention_route", "blocks_per_sm", "ptxas")
         kernels = []
         for name, rec in train_path.items():
             entry = {"name": name, "route": "cuda",
@@ -1194,11 +1322,22 @@ def main():
                      "launches": train_launches[name],
                      **{k: rec[k] for k in keys},
                      "shape": rec["shape"], "dtype": rec["dtype"]}
+            if name == "attention_qkv":
+                entry.update(_attention_entry(rec, "attention_qkv_wr_kernel"))
+                entry["streaming_ms"] = rec["streaming_ms"]
+                long = rec["streaming_route"]
+                entry["streaming_route"] = {
+                    "shape": long["shape"], "attention_route": long["route"],
+                    **{k: long[k] for k in keys}}
             if name in serve_path:
                 srv = serve_path[name]
                 entry["serving"] = {"launches": serve_launches[name],
                                     "shape": srv["shape"],
                                     **{k: srv[k] for k in keys}}
+                if name == "attention_qkv":
+                    entry["serving"].update({k: v for k, v in _attention_entry(
+                        srv, "attention_qkv_wr_kernel").items()
+                        if k in att_keys})
             entry["tools_launches"] = tools_launches[name]
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
@@ -1210,8 +1349,10 @@ def main():
             "launches": tools_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
+            **_attention_entry(rows[8], "attention_rows_wr_kernel"),
             "per_nb": {str(nb): {k: rec[k] for k in (
-                *keys, "k1_ms", "blocks", "smem_bytes_per_block")}
+                *keys, "k1_ms", "blocks", "blocks_per_sm",
+                "smem_bytes_per_block", "equal_to_k1")}
                 for nb, rec in rows.items()}})
         emit({"kernels": kernels})
         print(card, flush=True)

@@ -1,55 +1,86 @@
 // Fused multi-head attention over the fused (B, L, 3D) qkv projection: two
-// kernels that share their device code.
+// entry points that share their device code.
 //
-// K1 replaces dist_tpu/ops/attention.py::_attn_kernel (launched by
-// _pallas_attention_qkv, public fused_attention_qkv). For each batch row
-// and head h,
-//   S = (Q_h * hd^-1/2) K_h^T        fp32
+// K1 (dtt_attention_qkv) replaces dist_tpu/ops/attention.py::_attn_kernel
+// (launched by _pallas_attention_qkv, public fused_attention_qkv). For each
+// batch row and head h,
+//   S = (Q_h * hd^-1/2, rounded to the input type) K_h^T    fp32
 //   optional causal mask: col > row -> -inf
-//   P = softmax(S)                   fp32, then rounded to the input type
-//   O_h = P V_h                      fp32 accumulation, stored in the input type
+//   P = softmax(S)              fp32, normalised, then rounded to the input type
+//   O_h = P V_h                 fp32 accumulation, stored in the input type
 // reading Q_h, K_h, V_h straight from columns h*hd, D + h*hd, 2D + h*hd of
 // the fused rows and writing columns h*hd of the (B, L, D) output.
 //
-// K4 replaces tools/microbench.py::kernel_nb (via make_nb): the same
-// function without the causal mask, nb batch rows per program.
+// K4 (dtt_attention_qkv_rows) replaces tools/microbench.py::kernel_nb (via
+// make_nb): the same function without the causal mask, one block looping
+// over nb batch rows; grid (ceil(L/64), heads, B/nb). Every route runs K1's
+// device routine once per row, so K4 gives K1's bits.
 //
-// What bounds them on the card: at the CLIP shapes (L = 197 or 77, hd = 64)
-// the function moves (3D + D) * L * B elements once and does 4 L^2 hd
-// operations per (row, head); in bf16 at the tensor-core rate it is
-// memory-bound (~23 us for the ViT-B/16 batch of 64 frames); in fp32 at
-// the CUDA-core rate it is compute-bound (~114 us).
+// The bound. At the CLIP shapes the function moves (3D + D) L B elements
+// once and does 4 L^2 hd operations per (row, head). At the train shape
+// (256, 197, 2304) in bf16 that is 0.0925 ms of bytes at 3.35 TB/s against
+// 0.031 ms of operations at 989 TFLOP/s: bytes-bound. In fp32 on the CUDA
+// cores it is operations-bound.
 //
-// K1's design: the TPU kernel ran one program per batch row with every
-// head resident in VMEM. Here one block owns one (row, head, 64-query
-// tile), so a ViT-B/16 launch has 64 * 12 * 4 = 3072 blocks for 132 SMs.
-// Keys are streamed through shared memory in chunks of 64, so no length
-// limit applies. Two passes over the keys keep the exact softmax of the
-// reference: pass 1 finds each row's max and sum (online rescaling), pass
-// 2 recomputes S, forms the normalised P, rounds it to the input type as
-// the reference does, and accumulates P V. The key loop ends at the tile's
-// last row under the causal mask.
+// Routes, one rule (attention_route in ops/attention.py says the same; a
+// launch naming another route is refused):
+//   whole_row  bf16, hd in {16, 32, 64}, L <= 272: the Hopper design below,
+//              instantiated for padded lengths LP = 80, 208, 272 (the text
+//              tower's 77, ViT-B/16's 197, ViT-L/14's 257);
+//   streaming  every other bf16 case (L > 272, hd = 128): 64-key chunks in
+//              two passes, nvcuda::wmma, no length limit;
+//   fp32       fp32 on the CUDA cores (simt).
+// The caller may ask for `streaming` where the rule says `whole_row` (to
+// time the two side by side); nothing else.
 //
-// K4's design: one block owns the 64-query tile of one head for nb
-// consecutive batch rows and loops over them, grid (ceil(L/64), heads,
-// B/nb): 384 blocks at nb = 8 for the ViT-B/16 batch. In bf16 the block
-// keeps a whole row's K_h and V_h resident in shared memory (L padded to a
-// multiple of 64, zero past L), so each is read once per row rather than
-// K twice; while it computes row r, the Q tile, K_h and V_h of row r + 1
-// arrive in a second buffer by cp.async (two buffers: 192,512 bytes per
-// block at hd = 64, L = 197, so one block per SM). The passes over the
-// resident keys are K1's, chunk for chunk, so K4 and K1 give the same bits.
-// In fp32 the block runs K1's streaming tile once per row (one buffer).
+// whole_row. One block of 4 warps owns 64 query rows of one head in one
+// batch row, each warp 16 rows. The whole row fits: at L <= 272 a warp
+// keeps its 16 x LP strip of scores in registers, so the softmax is exact
+// in one pass, as the TPU kernel's whole (L, L) tile is, and P is
+// normalised before it is rounded to bf16.
+//   copies   cp.async, 16 bytes a thread, zero-filled past L: Q tile and
+//            K_h as one group, V_h as a second; scores wait for the first
+//            only, so V lands while they run. Without the causal mask all
+//            LP rows of K and V are filled (zeros past L, so P = 0 never
+//            meets uninitialised memory); under it, only the keys the
+//            block reads, rounded up to 16 rows.
+//   scores   mma.sync.m16n8k16 (bf16 in, fp32 sums), A = Q through
+//            ldmatrix, scaled and rounded to bf16 in registers as the
+//            reference scales Q in the input type; B = K through ldmatrix;
+//            float s[LP/8][4] per lane. Without the mask every key tile of
+//            LP is computed and the loops have no branch (a branch per tile
+//            keeps the compiler from scheduling the tiles' ldmatrix and mma
+//            together; tools/attn_variants.py times the two); under it,
+//            the tiles wholly past the warp's last row are skipped
+//            (CAUSAL is a template parameter).
+//   softmax  in registers: lane t holds rows t/4 and t/4 + 8; row max and
+//            sum over the 4 lanes of a quad (shfl_xor 1, 2); ex2.approx
+//            with log2 e folded into one fma (P is rounded to bf16
+//            afterwards); P = p / sum rounded to bf16 and packed straight
+//            into the k16 A fragments of P V (the FlashAttention-2
+//            register layout): S and P never touch shared memory.
+//   P V      mma.sync again, B = V through ldmatrix.trans from the
+//            row-major tile; O in float o[hd/8][4]; rounded to bf16 in the
+//            warp's own Q rows and stored with 16-byte writes.
+// Why mma.sync and cp.async, and not wgmma and TMA: the function is
+// bytes-bound here, so the warp-level tensor-core rate is enough to reach
+// the bytes bound; wgmma needs shared-memory descriptors and 64-row
+// warpgroup tiles, TMA and mbarriers a producer warp, and buy operations
+// that this function does not lack.
+// Per block at hd 64: shared memory (64 + 2 LP) (hd + 8) bf16, 69,120 bytes
+// at LP 208 (three blocks per SM), 87,552 at LP 272 (two); registers are
+// capped by __launch_bounds__ for three (LP <= 208) or two blocks per SM.
+// K4 has no second buffer: the blocks resident on an SM overlap each
+// other's copies.
 //
-// bf16 (the served path): 4 warps, each owning 16 query rows, compute S
-// and P V on the tensor cores with warp-level mma (nvcuda::wmma, bf16 in,
-// fp32 accumulate); S goes through shared memory for the masked softmax,
-// two lanes per row. Q is pre-scaled and rounded to bf16 on load, as the
-// reference scales it in the input type (at hd = 64 the scale is 1/8 and
-// the rounding is exact, which is kernel_nb's fp32 q * scale). fp32: 256
-// threads on the CUDA cores, each owning a 4 x 4 tile of S and a
-// 4 x (hd/16) tile of O, row max and sum reduced across the 16 lanes that
-// share a row; Q is scaled in fp32 on load.
+// streaming (the lengths and head dims the registers cannot hold): one
+// block per (row, head, 64-query tile); keys in chunks of 64
+// through shared memory, pass 1 for each row's max and sum (online
+// rescaling), pass 2 recomputes S and forms the normalised P, rounded, then
+// P V; S goes through shared memory for the softmax, two lanes per row.
+//
+// fp32: 256 threads on the CUDA cores, each owning a 4 x 4 tile of S and a
+// 4 x (hd/16) tile of O, keys streamed as above; Q is scaled in fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,10 +88,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+
 namespace {
 
 constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per chunk
+constexpr int BK = 64;   // keys per chunk (streaming and fp32)
 
 // ---------------------------------------------------------------------------
 // fp32 on the CUDA cores
@@ -260,50 +292,6 @@ attention_rows_kernel(const float* __restrict__ qkv, float* __restrict__ out, in
     tile<HD>(qkv, out, blockIdx.z * nb + i, L, D, 0, scale, reinterpret_cast<float*>(smem4));
 }
 
-template <int HD>
-cudaError_t launch(const void* qkv, void* out, int B, int L, int D, int causal, int nb,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();   // 2 buffers of 64 x (hd + 4), one of 64 x hd, P
-  const bool rows = nb > 0;
-  const void* fn = rows ? reinterpret_cast<const void*>(attention_rows_kernel<HD>)
-                        : reinterpret_cast<const void*>(attention_qkv_kernel<HD>);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const float* x = static_cast<const float*>(qkv);
-  float* y = static_cast<float*>(out);
-  if (rows) {
-    const dim3 grid((L + BQ - 1) / BQ, D / HD, B / nb);
-    attention_rows_kernel<HD><<<grid, NT, smem, stream>>>(x, y, L, D, nb, scale);
-  } else {
-    const dim3 grid((L + BQ - 1) / BQ, D / HD, B);
-    attention_qkv_kernel<HD><<<grid, NT, smem, stream>>>(x, y, L, D, causal, scale);
-  }
-  return cudaGetLastError();
-}
-
-// nb = 0: K1 (one row per block, `causal` honoured); nb >= 1: K4
-cudaError_t dispatch(const void* qkv, void* out, int B, int L, int D, int hd, int causal,
-                     int nb, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<16>(qkv, out, B, L, D, causal, nb, scale, stream);
-    case 32: return launch<32>(qkv, out, B, L, D, causal, nb, scale, stream);
-    case 64: return launch<64>(qkv, out, B, L, D, causal, nb, scale, stream);
-    case 128: return launch<128>(qkv, out, B, L, D, causal, nb, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-size_t dyn_smem(int hd) {
-  switch (hd) {
-    case 16: return smem_bytes<16>();
-    case 32: return smem_bytes<32>();
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    default: return 0;
-  }
-}
-
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
@@ -319,6 +307,8 @@ constexpr int NW = 4;            // warps per block, 16 query rows each
 constexpr int NT = 32 * NW;
 constexpr int PP = BK + 8;       // bf16 row stride of a warp's P tile
 
+// ---- streaming: 64-key chunks, two passes
+
 template <int HD>
 struct Layout {
   static constexpr int LD = HD + 8;                      // bf16 row stride of Q, K, V
@@ -329,18 +319,6 @@ struct Layout {
   static constexpr size_t p = sizeof(bf16) * NW * 16 * PP;
   static constexpr size_t bytes = q + 2 * kv + s + p;
 };
-
-// K4's shared memory: two buffers, each a Q tile and one row's whole K_h
-// and V_h (lp = L rounded up to a multiple of BK rows), then S and P as K1
-template <int HD>
-struct RowsLayout {
-  using K1 = Layout<HD>;
-  static __host__ __device__ size_t kv(int lp) { return sizeof(bf16) * (size_t)lp * K1::LD; }
-  static __host__ __device__ size_t buf(int lp) { return K1::q + 2 * kv(lp); }
-  static __host__ __device__ size_t bytes(int lp) { return 2 * buf(lp) + K1::s + K1::p; }
-};
-
-__device__ __forceinline__ int padded_len(int L) { return (L + BK - 1) / BK * BK; }
 
 // rows [k0, k0 + BK) of one head's K (and V, when Vs is given) into shared
 // memory, zero past L: 16-byte loads (the wrapper checks the alignment), all
@@ -474,13 +452,14 @@ __device__ __forceinline__ void store_o(Acc (&o)[HD / 16], float* Sw, bf16* __re
   }
 }
 
+// The block's 64-query tile (blockIdx.x) of head blockIdx.y in batch row
+// b. The caller puts a barrier between two calls on the same shared memory.
 template <int HD>
-__global__ void __launch_bounds__(NT)
-attention_qkv_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
-                        int causal, float scale) {
+__device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                                            int b, int L, int D, int causal, float scale,
+                                            unsigned char* smem) {
   using Lay = Layout<HD>;
   constexpr int LD = Lay::LD, OS = Lay::OS;
-  extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::q);
   bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::q + Lay::kv);
@@ -489,7 +468,7 @@ attention_qkv_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, in
   bf16* Pw = reinterpret_cast<bf16*>(smem + Lay::q + 2 * Lay::kv + Lay::s) + warp * 16 * PP;
   const bf16* Qw = Qs + warp * 16 * LD;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * L * rs;
 
@@ -544,6 +523,29 @@ attention_qkv_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, in
   store_o<HD>(o, Sw, out, b, q0 + warp * 16, h, L, D, lane);
 }
 
+// K1, streaming route: batch row blockIdx.z
+template <int HD>
+__global__ void __launch_bounds__(NT)
+attention_qkv_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+                        int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  stream_tile<HD>(qkv, out, blockIdx.z, L, D, causal, scale, smem);
+}
+
+// K4, streaming route: batch rows blockIdx.z * nb .. + nb - 1
+template <int HD>
+__global__ void __launch_bounds__(NT)
+attention_rows_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+                         int nb, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  for (int i = 0; i < nb; ++i) {
+    if (i) __syncthreads();
+    stream_tile<HD>(qkv, out, blockIdx.z * nb + i, L, D, 0, scale, smem);
+  }
+}
+
+// ---- whole_row: the row's keys resident, scores and P in registers
+
 // 16 bytes global -> shared without the registers; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -559,201 +561,407 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// start the copies of batch row `base`'s Q tile and its whole K_h and V_h
-// (lp rows, zero past L) into one buffer, as one cp.async group
-template <int HD>
-__device__ __forceinline__ void prefetch_row(const bf16* __restrict__ base, size_t rs, int q0,
-                                             int h, int D, int L, int lp, bf16* Qs, bf16* Ks,
-                                             bf16* Vs) {
-  constexpr int LD = Layout<HD>::LD, CH = HD / 8;
-  for (int c = threadIdx.x; c < BQ * CH; c += NT) {
-    const int r = c / CH, d = (c % CH) * 8;
-    const bool ok = q0 + r < L;
-    cp_async16(Qs + r * LD + d, base + (size_t)(ok ? q0 + r : 0) * rs + h * HD + d, ok);
-  }
-  for (int c = threadIdx.x; c < lp * CH; c += NT) {
-    const int r = c / CH, d = (c % CH) * 8;
-    const bool ok = r < L;
-    const bf16* k = base + (size_t)(ok ? r : 0) * rs + D + h * HD + d;
-    cp_async16(Ks + r * LD + d, k, ok);
-    cp_async16(Vs + r * LD + d, k + D, ok);
-  }
-  cp_async_commit();
+// four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
+// row addresses of matrix i, register i receives it in the mma layout
+// (lane t: row t / 4, columns 2 (t % 4), + 1); .trans transposes each
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, the SFU's approximation (relative error ~2^-22, denormal results
+// flushed to 0); P is rounded to bf16 afterwards
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a pair of bf16 times `scale`, rounded to bf16 again
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// shared memory of one block: Q tile (BQ rows), K_h and V_h (LP rows each),
+// bf16 with row stride HD + 8 (ldmatrix's 8 row addresses fall in distinct
+// banks)
+template <int HD, int LP>
+struct WholeRow {
+  static constexpr int LD = HD + 8;
+  static constexpr size_t bytes = sizeof(bf16) * (size_t)(BQ + 2 * LP) * LD;
+  static constexpr int min_blocks = LP <= 208 ? 3 : 2;   // per SM, for the register cap
+};
+
+// rows [r0, r0 + n) of one head's columns into shared memory (row stride
+// LD), zero-filled past L. The thread index goes through an empty asm, so
+// that each call computes its ~30 copy addresses afresh: hoisted out of
+// K4's row loop they stayed live across the whole row and made its
+// registers spill.
 template <int HD>
-__global__ void __launch_bounds__(NT)
-attention_rows_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
-                         int nb, float scale) {
-  using Lay = Layout<HD>;
-  using Rows = RowsLayout<HD>;
-  constexpr int LD = Lay::LD, OS = Lay::OS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lp = padded_len(L);
-  const size_t buf = Rows::buf(lp);
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src, size_t rs,
+                                          int r0, int n, int L) {
+  constexpr int LD = HD + 8, CH = HD / 8;
+  int tid = threadIdx.x;
+  asm volatile("" : "+r"(tid));
+  for (int c = tid; c < n * CH; c += NT) {
+    const int r = c / CH, d = (c % CH) * 8;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + r * LD + d, src + (size_t)(ok ? r0 + r : 0) * rs + d, ok);
+  }
+}
+
+// The block's 64 query rows (blockIdx.x) of head blockIdx.y in batch row b,
+// L <= LP. The caller puts a barrier between two calls on the same shared
+// memory. Without the causal mask every key tile of LP is computed, its
+// rows past L zero-filled and masked: the loops have no branch, so the
+// compiler schedules the ldmatrix and mma of all tiles together. Under the
+// mask the tiles past the warp's last row are skipped.
+template <int HD, int LP, bool CAUSAL>
+__device__ __forceinline__ void whole_row(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                                          int b, int L, int D, float scale, unsigned char* smem) {
+  constexpr int LD = WholeRow<HD, LP>::LD;
+  constexpr int NKT = LP / 16;      // key tiles of 16: k-steps of P V
+  constexpr int KS = HD / 16;       // k-steps of Q K^T
+  constexpr int CH = HD / 8;        // 16-byte chunks of a row
+  constexpr float LOG2E = 1.4426950408889634f;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQ * LD;
+  bf16* Vs = Ks + LP * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Sw = reinterpret_cast<float*>(smem + 2 * buf) + warp * 16 * OS;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + 2 * buf + Lay::s) + warp * 16 * PP;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b0 = blockIdx.z * nb;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y;
   const size_t rs = 3 * (size_t)D;
-  const int r_w = lane >> 1, par = lane & 1;
-  // buffer i holds Q (BQ x LD), then K_h and V_h (lp x LD each)
-  bf16* const buf0 = reinterpret_cast<bf16*>(smem);
-  bf16* const buf1 = reinterpret_cast<bf16*>(smem + buf);
+  const bf16* base = qkv + (size_t)b * L * rs + h * HD;
 
-  prefetch_row<HD>(qkv + (size_t)b0 * L * rs, rs, q0, h, D, L, lp, buf0, buf0 + BQ * LD,
-                   buf0 + BQ * LD + lp * LD);
-  for (int r = 0; r < nb; ++r) {
-    bf16* Qs = (r & 1) ? buf1 : buf0;
-    const bf16* Ks = Qs + BQ * LD;
-    const bf16* Vs = Ks + lp * LD;
-    if (r + 1 < nb) {  // row r + 1 into the other buffer, then wait for row r only
-      bf16* nq = (r & 1) ? buf0 : buf1;
-      prefetch_row<HD>(qkv + (size_t)(b0 + r + 1) * L * rs, rs, q0, h, D, L, lp, nq,
-                       nq + BQ * LD, nq + BQ * LD + lp * LD);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+  // the keys any row of the block reads, in whole tiles of 16
+  const int nk = CAUSAL ? (min(L, q0 + BQ) + 15) & ~15 : LP;
+  copy_rows<HD>(Qs, base, rs, q0, BQ, L);
+  copy_rows<HD>(Ks, base + D, rs, 0, nk, L);
+  cp_async_commit();
+  copy_rows<HD>(Vs, base + 2 * D, rs, 0, nk, L);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and K; V may still be landing
+  __syncthreads();
 
-    // the warp's own Q rows, scaled and rounded to bf16 in place, as K1
-    bf16* Qw = Qs + warp * 16 * LD;
-    for (int i = lane; i < 16 * HD; i += 32) {
-      bf16* e = Qw + (i / HD) * LD + i % HD;
-      *e = __float2bfloat16_rn(__bfloat162float(*e) * scale);
-    }
-    __syncwarp();
+  const int q0w = q0 + warp * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0w + g, row1 = row0 + 8;
+  // under the mask, the warp's keys end at its last row: later tiles skipped
+  const int kend = CAUSAL ? min(L, q0w + 16) : LP;
 
-    float m = -INFINITY, l = 0.f;
-    for (int k0 = 0; k0 < L; k0 += BK) {
-      warp_scores<HD>(Qw, Ks + k0 * LD, Sw);
-      __syncwarp();
-      row_stats<OS>(Sw, k0, L, 0, 0, r_w, par, m, l);
-      __syncwarp();
-    }
-    const float inv_l = 1.f / l;
-    Acc o[HD / 16];
+  // Q's A fragments, scaled and rounded to bf16
+  uint32_t qa[KS][4];
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-    for (int k0 = 0; k0 < L; k0 += BK) {
-      warp_scores<HD>(Qw, Ks + k0 * LD, Sw);
-      __syncwarp();
-      probs<OS>(Sw, Pw, k0, L, 0, 0, r_w, par, m, inv_l);
-      __syncwarp();
-      pv<HD>(Pw, Vs + k0 * LD, o);
+  for (int kk = 0; kk < KS; ++kk) {
+    ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[kk][i] = scale_bf16x2(qa[kk][i], scale);
+  }
+
+  // S: n8 tile j holds keys 8j + 2 t4, + 1 of rows g (s[j][0..1]) and g + 8
+  float s[2 * NKT][4];
+#pragma unroll
+  for (int jt = 0; jt < NKT; ++jt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[2 * jt][i] = s[2 * jt + 1][i] = 0.f;
+    if (!CAUSAL || jt * 16 < kend) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        // keys 16 jt + 0..7 at d 0..7, 8..15, then keys + 8..15 at the same
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (jt * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_16816(s[2 * jt], qa[kk], kb[0], kb[1]);
+        mma_16816(s[2 * jt + 1], qa[kk], kb[2], kb[3]);
+      }
     }
-    store_o<HD>(o, Sw, out, b0 + r, q0 + warp * 16, h, L, D, lane);
-    // every warp is done with this buffer before row r + 2's copies land in it
-    __syncthreads();
+  }
+
+  // softmax of rows row0 (s[.][0..1]) and row1 (s[.][2..3]); a row reads
+  // keys below lim (L, and its own index + 1 under the causal mask)
+  const int lim0 = CAUSAL ? min(L, row0 + 1) : L;
+  const int lim1 = CAUSAL ? min(L, row1 + 1) : L;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) {
+    if (!CAUSAL || (j >> 1) * 16 < kend) {
+      const int c = j * 8 + 2 * t4;
+      s[j][0] = c < lim0 ? s[j][0] : -INFINITY;
+      s[j][1] = c + 1 < lim0 ? s[j][1] : -INFINITY;
+      s[j][2] = c < lim1 ? s[j][2] : -INFINITY;
+      s[j][3] = c + 1 < lim1 ? s[j][3] : -INFINITY;
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  // key 0 is every row's, so m0 and m1 are finite
+  const float ms0 = m0 * LOG2E, ms1 = m1 * LOG2E;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) {
+    if (!CAUSAL || (j >> 1) * 16 < kend) {
+      s[j][0] = fast_exp2(fmaf(s[j][0], LOG2E, -ms0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], LOG2E, -ms0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], LOG2E, -ms1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], LOG2E, -ms1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+
+  // P, normalised and rounded to bf16, as the A fragments of P V: k-step
+  // t is n8 tiles 2t (columns 0..7) and 2t + 1 (8..15)
+  uint32_t pa[NKT][4];
+#pragma unroll
+  for (int t = 0; t < NKT; ++t) {
+    pa[t][0] = pack_bf16(s[2 * t][0] * inv0, s[2 * t][1] * inv0);
+    pa[t][1] = pack_bf16(s[2 * t][2] * inv1, s[2 * t][3] * inv1);
+    pa[t][2] = pack_bf16(s[2 * t + 1][0] * inv0, s[2 * t + 1][1] * inv0);
+    pa[t][3] = pack_bf16(s[2 * t + 1][2] * inv1, s[2 * t + 1][3] * inv1);
+  }
+
+  cp_async_wait<0>();   // V
+  __syncthreads();
+
+  // O = P V: n8 tile j holds columns 8j + 2 t4, + 1 of rows g and g + 8
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NKT; ++t) {
+    if (!CAUSAL || t * 16 < kend) {
+#pragma unroll
+      for (int dj = 0; dj < HD / 16; ++dj) {
+        // keys 16 t + 0..7, 8..15 at d 16 dj + 0..7, then at + 8..15
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vs + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 +
+                              (lane >> 4) * 8);
+        mma_16816(o[2 * dj], pa[t], vb[0], vb[1]);
+        mma_16816(o[2 * dj + 1], pa[t], vb[2], vb[3]);
+      }
+    }
+  }
+
+  // O rounded to bf16 through the warp's own Q rows, then 16-byte stores
+  bf16* Ow = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(Ow + g * LD + j * 8 + 2 * t4) = pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(Ow + (g + 8) * LD + j * 8 + 2 * t4) =
+        pack_bf16(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CH / 32; ++i) {
+    const int c = lane + 32 * i, r = c / CH, d = (c % CH) * 8;
+    if (q0w + r < L)
+      *reinterpret_cast<uint4*>(out + ((size_t)b * L + q0w + r) * D + h * HD + d) =
+          *reinterpret_cast<const uint4*>(Ow + r * LD + d);
   }
 }
 
-template <int HD>
-cudaError_t launch(const void* qkv, void* out, int B, int L, int D, int causal, float scale,
-                   cudaStream_t stream) {
-  // 64 x (hd + 8) Q, two 64 x (hd + 8) K/V chunks, 4 warps' S (fp32) and P
-  const size_t smem = Layout<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attention_qkv_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + BQ - 1) / BQ, D / HD, B);
-  attention_qkv_tc_kernel<HD><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), L, D, causal, scale);
-  return cudaGetLastError();
+// K1, whole_row route: batch row blockIdx.z (`causal` is CAUSAL, fixed by
+// the instance)
+template <int HD, int LP, bool CAUSAL>
+__global__ void __launch_bounds__(NT, (WholeRow<HD, LP>::min_blocks))
+attention_qkv_wr_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+                        int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  whole_row<HD, LP, CAUSAL>(qkv, out, blockIdx.z, L, D, scale, smem);
 }
 
-template <int HD>
-cudaError_t launch_rows(const void* qkv, void* out, int B, int L, int D, int nb, float scale,
-                        cudaStream_t stream) {
-  // two buffers of (Q tile + whole-row K_h and V_h), S and P:
-  // 192,512 bytes at hd = 64, L = 197 (lp = 256)
-  const size_t smem = RowsLayout<HD>::bytes((L + BK - 1) / BK * BK);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)limit) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(attention_rows_tc_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + BQ - 1) / BQ, D / HD, B / nb);
-  attention_rows_tc_kernel<HD><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), L, D, nb, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch(const void* qkv, void* out, int B, int L, int D, int hd, int causal,
-                     int nb, float scale, cudaStream_t stream) {
-  switch (hd) {
-#define DTT_CASE(H)                                                           \
-  case H:                                                                     \
-    return nb > 0 ? launch_rows<H>(qkv, out, B, L, D, nb, scale, stream)     \
-                  : launch<H>(qkv, out, B, L, D, causal, scale, stream);
-    DTT_CASE(16)
-    DTT_CASE(32)
-    DTT_CASE(64)
-    DTT_CASE(128)
-#undef DTT_CASE
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-size_t rows_smem(int L, int hd) {
-  const int lp = (L + BK - 1) / BK * BK;
-  switch (hd) {
-    case 16: return RowsLayout<16>::bytes(lp);
-    case 32: return RowsLayout<32>::bytes(lp);
-    case 64: return RowsLayout<64>::bytes(lp);
-    case 128: return RowsLayout<128>::bytes(lp);
-    default: return 0;
+// K4, whole_row route: batch rows blockIdx.z * nb .. + nb - 1, one buffer
+template <int HD, int LP>
+__global__ void __launch_bounds__(NT, (WholeRow<HD, LP>::min_blocks))
+attention_rows_wr_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L, int D,
+                         int nb, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  for (int i = 0; i < nb; ++i) {
+    if (i) __syncthreads();   // every warp is done with the last row's tiles
+    whole_row<HD, LP, false>(qkv, out, blockIdx.z * nb + i, L, D, scale, smem);
   }
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// routes and launches
+
+enum Route { kWholeRow = 0, kStreaming = 1, kFp32 = 2 };
+
+constexpr int kMaxWholeRow = 272;
+
+// the whole-row instance's padded length for L (L <= kMaxWholeRow)
+int padded_len(int L) { return L <= 80 ? 80 : L <= 208 ? 208 : 272; }
+
+// the rule: fp32 on the CUDA cores; bf16 whole-row where a warp's scores
+// fit its registers, else streaming
+int route_of(int L, int hd, int is_bf16) {
+  if (!is_bf16) return kFp32;
+  return (hd == 16 || hd == 32 || hd == 64) && L <= kMaxWholeRow ? kWholeRow : kStreaming;
+}
+
+// the rule's route, or streaming where the rule says whole_row
+bool route_allowed(int route, int L, int hd, int is_bf16) {
+  const int want = route_of(L, hd, is_bf16);
+  return route == want || (route == kStreaming && want == kWholeRow);
+}
+
+// a kernel of either entry: (qkv, out, L, D, causal or nb, scale)
+struct Kernel {
+  const void* fn;
+  size_t smem;
+  int threads;
+};
+
+template <int HD, int LP>
+Kernel whole_row_kernel(bool rows, bool causal) {
+  const void* fn = rows     ? reinterpret_cast<const void*>(tc::attention_rows_wr_kernel<HD, LP>)
+                   : causal ? reinterpret_cast<const void*>(tc::attention_qkv_wr_kernel<HD, LP, true>)
+                            : reinterpret_cast<const void*>(tc::attention_qkv_wr_kernel<HD, LP, false>);
+  return {fn, tc::WholeRow<HD, LP>::bytes, tc::NT};
+}
+
+template <int HD>
+Kernel pick_hd(int route, int L, bool rows, bool causal) {
+  if (route == kFp32)
+    return {rows ? reinterpret_cast<const void*>(simt::attention_rows_kernel<HD>)
+                 : reinterpret_cast<const void*>(simt::attention_qkv_kernel<HD>),
+            simt::smem_bytes<HD>(), simt::NT};
+  if (route == kStreaming)
+    return {rows ? reinterpret_cast<const void*>(tc::attention_rows_tc_kernel<HD>)
+                 : reinterpret_cast<const void*>(tc::attention_qkv_tc_kernel<HD>),
+            tc::Layout<HD>::bytes, tc::NT};
+  if constexpr (HD <= 64) {
+    switch (padded_len(L)) {
+      case 80: return whole_row_kernel<HD, 80>(rows, causal);
+      case 208: return whole_row_kernel<HD, 208>(rows, causal);
+      default: return whole_row_kernel<HD, 272>(rows, causal);
+    }
+  }
+  return {nullptr, 0, 0};
+}
+
+// the kernel of an allowed route (K4, rows, takes no causal mask)
+Kernel pick(int route, int L, int hd, bool rows, bool causal) {
+  switch (hd) {
+    case 16: return pick_hd<16>(route, L, rows, causal);
+    case 32: return pick_hd<32>(route, L, rows, causal);
+    case 64: return pick_hd<64>(route, L, rows, causal);
+    case 128: return pick_hd<128>(route, L, rows, causal);
+    default: return {nullptr, 0, 0};
+  }
+}
+
+// the kernel's shared memory limit raised to its need, shared memory
+// preferred over L1 so that several blocks fit on an SM
+cudaError_t prepare(const Kernel& k) {
+  cudaError_t err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(k.smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 cudaError_t run(const void* qkv, void* out, int B, int L, int D, int num_heads, int causal,
-                int nb, float scale, int is_bf16, void* stream) {
+                int nb, float scale, int is_bf16, int route, void* stream) {
   if (B <= 0 || L <= 0 || num_heads <= 0 || D % num_heads != 0 || num_heads > 65535 ||
       nb < 0 || (nb > 0 && B % nb != 0) || (nb > 0 ? B / nb : B) > 65535)
     return cudaErrorInvalidValue;
   const int hd = D / num_heads;
   if (is_bf16 && (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(out) % 16))
-    return cudaErrorMisalignedAddress;  // the bf16 path moves 16-byte vectors
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? tc::dispatch(qkv, out, B, L, D, hd, causal, nb, scale, st)
-                 : simt::dispatch(qkv, out, B, L, D, hd, causal, nb, scale, st);
+    return cudaErrorMisalignedAddress;  // the bf16 routes move 16-byte vectors
+  if (!route_allowed(route, L, hd, is_bf16)) return cudaErrorInvalidValue;
+  const Kernel k = pick(route, L, hd, nb > 0, causal != 0);
+  if (k.fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = prepare(k);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, num_heads, nb > 0 ? B / nb : B);
+  int flag = nb > 0 ? nb : causal;
+  void* args[] = {&qkv, &out, &L, &D, &flag, &scale};
+  err = cudaLaunchKernel(k.fn, grid, dim3(k.threads), args, k.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // K1. qkv (B, L, 3D) contiguous, out (B, L, D) contiguous, both fp32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1, both 16-byte aligned); hd =
-// D / num_heads in {16, 32, 64, 128}. Launches on `stream`; returns
+// D / num_heads in {16, 32, 64, 128}; route 0 whole_row, 1 streaming,
+// 2 fp32, as attention_route names it (streaming also where it names
+// whole_row; any other route is refused). Launches on `stream`; returns
 // cudaGetLastError() after the launch.
 extern "C" int dtt_attention_qkv(const void* qkv, void* out, int B, int L, int D, int num_heads,
-                                 int causal, float scale, int is_bf16, void* stream) {
-  return run(qkv, out, B, L, D, num_heads, causal, 0, scale, is_bf16, stream);
+                                 int causal, float scale, int is_bf16, int route, void* stream) {
+  return run(qkv, out, B, L, D, num_heads, causal, 0, scale, is_bf16, route, stream);
 }
 
 // K4: K1's function without the causal mask, nb >= 1 batch rows per block;
-// B % nb == 0. The bf16 path keeps whole rows in shared memory and returns
-// cudaErrorInvalidValue where dtt_attention_rows_smem_bytes exceeds the
-// card's per-block limit.
+// B % nb == 0; the route as for K1.
 extern "C" int dtt_attention_qkv_rows(const void* qkv, void* out, int B, int L, int D,
-                                      int num_heads, int nb, float scale, int is_bf16,
+                                      int num_heads, int nb, float scale, int is_bf16, int route,
                                       void* stream) {
   if (nb < 1) return cudaErrorInvalidValue;
-  return run(qkv, out, B, L, D, num_heads, 0, nb, scale, is_bf16, stream);
+  return run(qkv, out, B, L, D, num_heads, 0, nb, scale, is_bf16, route, stream);
 }
 
-// K4's dynamic shared memory per block, in bytes (0 for a head dim it
-// does not take)
+// K4's dynamic shared memory per block on the rule's route, in bytes (0
+// for a head dim it does not take)
 extern "C" int dtt_attention_rows_smem_bytes(int L, int hd, int is_bf16) {
   if (L <= 0) return 0;
-  return static_cast<int>(is_bf16 ? tc::rows_smem(L, hd) : simt::dyn_smem(hd));
+  return static_cast<int>(pick(route_of(L, hd, is_bf16), L, hd, true, false).smem);
+}
+
+// blocks of K1 (rows = 0, with or without the causal mask) or K4 (rows =
+// 1) resident on one SM on the rule's route, from the occupancy
+// calculator; -1 for a head dim not taken or a CUDA error
+extern "C" int dtt_attention_blocks_per_sm(int L, int hd, int is_bf16, int rows, int causal) {
+  if (L <= 0) return -1;
+  const Kernel k = pick(route_of(L, hd, is_bf16), L, hd, rows != 0, causal != 0);
+  int blocks = 0;
+  if (k.fn == nullptr || prepare(k) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn, k.threads, k.smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 extern "C" const char* dtt_attention_error_string(int err) {

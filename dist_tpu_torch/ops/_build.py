@@ -12,6 +12,7 @@ built at import time, only when a kernel is first launched or when
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -81,6 +82,36 @@ def build_log(name):
         return ""
     with open(path) as f:
         return f.read()
+
+
+def ptxas_usage(name):
+    """{entry function (mangled): {"registers", "spill_stores",
+    "spill_loads"}} from ``-Xptxas=-v`` in the last build's log of
+    ``name``; {} if it was not built here."""
+    return parse_ptxas(build_log(name))
+
+
+def parse_ptxas(log):
+    """:func:`ptxas_usage` of the text of an nvcc log."""
+    usage, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = usage.get(m.group(1))     # None for a device function
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+    return usage
 
 
 def load(name, signatures):

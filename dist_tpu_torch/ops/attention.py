@@ -19,6 +19,12 @@ yet, so the CUDA path refuses inputs that need a gradient.
 multi-row variant (``tools/microbench.py::kernel_nb``): the same function
 without the causal mask, with ``nb`` batch rows per block of the kernel;
 its plain version is :func:`attention_qkv_rows_plain`.
+
+On the card both take one of three routes, fixed by (L, head dim, dtype)
+and named by :func:`attention_route`: ``whole_row`` (bf16, head dim 16,
+32 or 64, L <= 272: a warp keeps its whole row of scores in registers),
+``streaming`` (every other bf16 case: keys in chunks of 64, two passes)
+and ``fp32`` (CUDA cores).
 """
 
 import ctypes
@@ -35,16 +41,36 @@ _SIGNATURES = {
     "dtt_attention_qkv": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p],
+                          ctypes.c_int, ctypes.c_void_p],
     "dtt_attention_qkv_rows": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                               ctypes.c_void_p],
+                               ctypes.c_int, ctypes.c_void_p],
     "dtt_attention_rows_smem_bytes": [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int],
+    "dtt_attention_blocks_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int],
     "dtt_attention_error_string": [ctypes.c_int],
 }
 _HEAD_DIMS = (16, 32, 64, 128)
+# the kernels' routes, numbered as in csrc/attention.cu
+ROUTES = ("whole_row", "streaming", "fp32")
+# the padded lengths of the whole-row kernel's instances; the last is the
+# longest row whose scores a warp holds in registers
+WHOLE_ROW_LENS = (80, 208, 272)
+_WHOLE_ROW_HEAD_DIMS = (16, 32, 64)
+
+
+def attention_route(l, head_dim, dtype):
+    """The kernel route for sequence length ``l``, head dim and dtype, by
+    the rule ``csrc/attention.cu`` applies: ``"fp32"`` for float32,
+    ``"whole_row"`` for bf16 at head dim 16/32/64 and ``l <= 272``, else
+    ``"streaming"``."""
+    if dtype != torch.bfloat16:
+        return "fp32"
+    if head_dim in _WHOLE_ROW_HEAD_DIMS and l <= WHOLE_ROW_LENS[-1]:
+        return "whole_row"
+    return "streaming"
 
 
 def attention_qkv_plain(qkv, num_heads, causal=False):
@@ -99,9 +125,9 @@ def _check_cuda(qkv, num_heads):
     return b, l, d, hd
 
 
-def _launch(fn, qkv, *args):
+def _launch(fn, qkv, route, *args):
     """Allocate the output and run the C entry ``fn`` of the attention
-    library on qkv's stream; raises on a CUDA error."""
+    library on ``route`` on qkv's stream; raises on a CUDA error."""
     lib = _build.load("attention", _SIGNATURES)
     b, l, d3 = qkv.shape
     out = torch.empty((b, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
@@ -109,22 +135,30 @@ def _launch(fn, qkv, *args):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(
             qkv.data_ptr(), out.data_ptr(), b, l, d3 // 3, *args,
-            int(qkv.dtype == torch.bfloat16), stream)
+            int(qkv.dtype == torch.bfloat16), ROUTES.index(route), stream)
     _build.check(lib, "dtt_attention_error_string", err, "attention kernel")
     return out
 
 
-def fused_attention_qkv(qkv, num_heads, causal=False):
+def fused_attention_qkv(qkv, num_heads, causal=False, _route=None):
     """O (B, L, D) = multi-head softmax attention of the fused projection
-    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel; CPU tensor:
-    :func:`attention_qkv_plain`."""
+    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel on the route
+    :func:`attention_route` names; CPU tensor: :func:`attention_qkv_plain`.
+
+    ``_route="streaming"`` times the streaming kernel where the rule says
+    ``whole_row``; no caller on a main path passes it, and the kernel
+    refuses any other route against the rule."""
     _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, causal)
-    b, _, _, hd = _check_cuda(qkv, num_heads)
+    b, l, _, hd = _check_cuda(qkv, num_heads)
     if b > 65535:
         raise ValueError(f"grid too large: B={b}")
-    out = _launch("dtt_attention_qkv", qkv, num_heads, int(causal), hd ** -0.5)
+    route = _route or attention_route(l, hd, qkv.dtype)
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}")
+    out = _launch("dtt_attention_qkv", qkv, route, num_heads, int(causal),
+                  hd ** -0.5)
     fused_attention_qkv.launches += 1
     return out
 
@@ -152,10 +186,24 @@ def attention_qkv_rows_plain(qkv, num_heads, nb):
 
 def rows_smem_bytes(l, head_dim, dtype):
     """Dynamic shared memory per block of the multi-row kernel at sequence
-    length ``l`` (its bf16 path holds two whole rows of K_h and V_h)."""
+    length ``l`` on its route (whole_row: the Q tile and one row's whole
+    K_h and V_h)."""
     lib = _build.load("attention", _SIGNATURES)
     return lib.dtt_attention_rows_smem_bytes(l, head_dim,
                                              int(dtype == torch.bfloat16))
+
+
+def blocks_per_sm(l, head_dim, dtype, rows=False, causal=False):
+    """Blocks of K1 (or K4, ``rows=True``) that fit on one SM on the route
+    :func:`attention_route` names, from CUDA's occupancy calculator."""
+    lib = _build.load("attention", _SIGNATURES)
+    n = lib.dtt_attention_blocks_per_sm(l, head_dim,
+                                        int(dtype == torch.bfloat16),
+                                        int(rows), int(causal))
+    if n < 0:
+        raise RuntimeError(f"no attention kernel at L={l}, head dim "
+                           f"{head_dim}, {dtype}")
+    return n
 
 
 def attention_qkv_rows(qkv, num_heads, nb):
@@ -166,10 +214,11 @@ def attention_qkv_rows(qkv, num_heads, nb):
     _check_rows(qkv, num_heads, nb)
     if qkv.device.type == "cpu":
         return attention_qkv_rows_plain(qkv, num_heads, nb)
-    b, _, _, hd = _check_cuda(qkv, num_heads)
+    b, l, _, hd = _check_cuda(qkv, num_heads)
     if b // nb > 65535:
         raise ValueError(f"grid too large: B/nb={b // nb}")
-    out = _launch("dtt_attention_qkv_rows", qkv, num_heads, int(nb),
+    out = _launch("dtt_attention_qkv_rows", qkv,
+                  attention_route(l, hd, qkv.dtype), num_heads, int(nb),
                   hd ** -0.5)
     attention_qkv_rows.launches += 1
     return out

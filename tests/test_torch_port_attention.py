@@ -16,6 +16,9 @@ from dist_tpu.ops.attention import (
 from dist_tpu_torch.ops import attention as port
 
 SHAPES = [(3, 29, 4, 16), (2, 77, 2, 32)]   # (batch, length, heads, head dim)
+# lengths at the edges of the card's routes (the whole-row instances pad L
+# to 80, 208 and 272; longer rows stream), at tiny width
+EDGE_SHAPES = [(1, l, 2, 16) for l in (80, 81, 208, 209, 273)]
 
 
 def _qkv(b, l, h, hd, seed):
@@ -24,7 +27,7 @@ def _qkv(b, l, h, hd, seed):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_plain_matches_jax_reference_and_pallas(shape, causal):
     b, l, h, hd = shape
     x = _qkv(b, l, h, hd, seed=l + causal)
@@ -49,6 +52,28 @@ def test_plain_bf16_matches_jax_reference(causal):
     # bf16 keeps 8 mantissa bits: P and O are rounded to bf16 (relative
     # step 2^-8) at points where the two frameworks may round differently
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("l,hd,dtype,route", [
+    (1, 64, torch.bfloat16, "whole_row"),
+    (77, 64, torch.bfloat16, "whole_row"),
+    (80, 64, torch.bfloat16, "whole_row"),
+    (81, 32, torch.bfloat16, "whole_row"),
+    (197, 16, torch.bfloat16, "whole_row"),
+    (272, 64, torch.bfloat16, "whole_row"),
+    (273, 64, torch.bfloat16, "streaming"),
+    (1000, 16, torch.bfloat16, "streaming"),
+    (197, 128, torch.bfloat16, "streaming"),
+    (1, 128, torch.bfloat16, "streaming"),
+    (197, 64, torch.float32, "fp32"),
+    (77, 64, torch.float32, "fp32"),
+    (273, 128, torch.float32, "fp32"),
+])
+def test_attention_route_at_the_edges(l, hd, dtype, route):
+    assert port.attention_route(l, hd, dtype) == route
+    assert route in port.ROUTES
+    assert (route == "whole_row") == (
+        dtype == torch.bfloat16 and hd <= 64 and l <= port.WHOLE_ROW_LENS[-1])
 
 
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing():

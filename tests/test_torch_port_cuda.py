@@ -31,16 +31,27 @@ def _within(got, want, atol, rtol):
     assert not bad.any(), f"max abs err {float(err.max())}"
 
 
+# the lengths at the edges of the kernels' routes: the whole-row instances
+# pad L to 80, 208 and 272; longer rows stream
+ROUTE_EDGE_LENGTHS = (1, 16, 17, 77, 80, 81, 197, 208, 209, 257, 272, 273)
+
+
+def _qkv(b, l, h, hd, dt, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(dt)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [(4, 197, 12, 64), (6, 77, 8, 64),
                                    (2, 257, 16, 64), (3, 29, 4, 16),
-                                   (2, 130, 2, 32), (1, 1, 1, 128)])
+                                   (2, 130, 2, 32), (1, 1, 1, 128),
+                                   (4, 209, 4, 32)]
+                         + [(4, l, 4, 64) for l in ROUTE_EDGE_LENGTHS])
 def test_attention_kernel_matches_plain(shape, causal, dtype):
     b, l, h, hd = shape
     dt = getattr(torch, dtype)
-    gen = torch.Generator(device="cuda").manual_seed(l * h + causal)
-    x = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(dt)
+    x = _qkv(b, l, h, hd, dt, seed=l * h + causal)
     before = att.fused_attention_qkv.launches
     got = att.fused_attention_qkv(x, h, causal)
     torch.cuda.synchronize()
@@ -53,6 +64,62 @@ def test_attention_kernel_matches_plain(shape, causal, dtype):
         # by <= 2^-8 max|V|, one step of O is <= 2^-7 relative
         vmax = float(x[..., 2 * h * hd:].float().abs().max())
         _within(got, want, 2 ** -8 * vmax, 2 ** -7)
+
+
+@pytest.mark.parametrize("l", [197, 77])
+def test_rows_kernel_equals_k1_bit_for_bit(l):
+    """K4 runs K1's device routine once per row: the same bits at every
+    nb, on the whole-row route."""
+    x = _qkv(8, l, 12, 64, torch.bfloat16, seed=l)
+    assert att.attention_route(l, 64, torch.bfloat16) == "whole_row"
+    k1 = att.fused_attention_qkv(x, 12)
+    for nb in (1, 2, 4, 8):
+        assert torch.equal(att.attention_qkv_rows(x, 12, nb), k1), nb
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_kernel_repeats_bit_for_bit(causal):
+    x = _qkv(16, 197, 12, 64, torch.bfloat16, seed=3)
+    assert torch.equal(att.fused_attention_qkv(x, 12, causal),
+                       att.fused_attention_qkv(x, 12, causal))
+
+
+@pytest.mark.parametrize("l", [1, 17])
+def test_whole_row_pad_rows_are_zero_filled(l):
+    """L = 1 and 17 leave 15 pad rows in the last 16-key tile. A launch
+    at L = 208 on NaN inputs first leaves NaN in the SMs' shared memory;
+    the short rows must still come out finite and right, which they do
+    only if the pad rows of K and V are zero-filled."""
+    nan = torch.full((64, 208, 3 * 4 * 64), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    att.fused_attention_qkv(nan, 4)
+    x = _qkv(64, l, 4, 64, torch.bfloat16, seed=l)
+    for causal in (False, True):
+        got = att.fused_attention_qkv(x, 4, causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _within(got, att.attention_qkv_plain(x, 4, causal),
+                *_bf16_attention_tolerance(x, 4 * 64))
+
+
+def test_streaming_route_on_request_and_refused_routes():
+    """The private ``_route="streaming"`` runs the streaming kernel where
+    the rule says whole_row; the kernel refuses a route the rule does not
+    name."""
+    x = _qkv(4, 197, 4, 64, torch.bfloat16, seed=5)
+    got = att.fused_attention_qkv(x, 4, True, _route="streaming")
+    _within(got, att.attention_qkv_plain(x, 4, True),
+            *_bf16_attention_tolerance(x, 4 * 64))
+    with pytest.raises(RuntimeError):                  # whole_row at L 273
+        att.fused_attention_qkv(_qkv(1, 273, 1, 64, torch.bfloat16, 1), 1,
+                                _route="whole_row")
+    with pytest.raises(RuntimeError):                  # whole_row in fp32
+        att.fused_attention_qkv(_qkv(1, 77, 1, 64, torch.float32, 1), 1,
+                                _route="whole_row")
+    with pytest.raises(ValueError):
+        att.fused_attention_qkv(x, 4, _route="fast")
+    for l, hd in ((197, 64), (257, 64), (300, 64)):
+        assert att.blocks_per_sm(l, hd, torch.bfloat16) >= 1
 
 
 def test_attention_kernel_refuses_what_it_cannot_take():
@@ -75,7 +142,8 @@ def _bf16_attention_tolerance(x, hd_total):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("l,hd", [(197, 64), (197, 32), (77, 64), (77, 32)])
+@pytest.mark.parametrize("l,hd", [(197, 64), (197, 32), (77, 64), (77, 32),
+                                  (273, 64), (130, 128)])
 @pytest.mark.parametrize("nb", [1, 2, 4, 8])
 def test_attention_rows_kernel_matches_plain(nb, l, hd, dtype):
     b, h = 8, 128 // hd
@@ -105,11 +173,13 @@ def test_attention_rows_kernel_refuses_what_it_cannot_take():
         att.attention_qkv_rows(torch.zeros((2, 5, 3 * 48), device="cuda"), 2, 1)
     with pytest.raises(ValueError):            # fp16
         att.attention_qkv_rows(x.half(), 1, 2)
-    with pytest.raises(RuntimeError):          # more shared memory than a block has
-        att.attention_qkv_rows(
-            torch.zeros((2, 1000, 3 * 128), device="cuda", dtype=torch.bfloat16),
-            1, 1)
     assert att.attention_qkv_rows.launches == before
+    # a long row at head dim 128 is not refused: it takes the streaming
+    # route, K1's kernel row by row
+    long = _qkv(2, 1000, 1, 128, torch.bfloat16, seed=2)
+    assert att.attention_route(1000, 128, torch.bfloat16) == "streaming"
+    assert torch.equal(att.attention_qkv_rows(long, 1, 1),
+                       att.fused_attention_qkv(long, 1))
 
 
 def test_microbatcher_round_trip_through_engine_on_card():

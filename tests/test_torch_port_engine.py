@@ -80,6 +80,10 @@ def test_profile_groups_kernels_and_unions_busy_time():
             "K4 attention, nb rows per block (csrc/attention.cu)",
         "void (anonymous namespace)::simt::attention_rows_kernel<32>(x)":
             "K4 attention, nb rows per block (csrc/attention.cu)",
+        "void (anonymous namespace)::tc::attention_qkv_wr_kernel<64, 208, false>(x)":
+            "K1 attention (csrc/attention.cu)",
+        "void (anonymous namespace)::tc::attention_rows_wr_kernel<64, 208>(x)":
+            "K4 attention, nb rows per block (csrc/attention.cu)",
         "void (anonymous namespace)::spatial_stage_kernel<float, 6>(x)":
             "K2 TemporalNet (csrc/temporal_net.cu)",
         "nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN": "GEMM (cuBLAS)",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dist_tpu_torch.tools import (
+    attn_variants,
     bench,
     bench_serving,
     microbench,
@@ -212,3 +213,21 @@ def test_tools_need_a_card_unless_told(monkeypatch, run):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run()
+
+
+@pytest.mark.parametrize("name", sorted(attn_variants.VARIANTS))
+def test_attn_variants_apply_to_the_kernel_source(name):
+    """Each variant's substitutions find their anchors in
+    ``csrc/attention.cu`` as often as stated, so an edit of the kernel that
+    moves one fails here and not on the card."""
+    src = attn_variants.variant_source(name)
+    with open(os.path.join(attn_variants._build.SRC_DIR, "attention.cu")) as f:
+        shipped = f.read()
+    assert (src == shipped) == (name == "shipped")
+    assert src.count("#if 0") == {"copies_only": 2, "math_only": 1}.get(name, 0)
+
+
+def test_attn_variants_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs the CUDA card"):
+        attn_variants.main([])

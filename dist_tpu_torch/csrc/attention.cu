@@ -4,7 +4,8 @@
 // K1 (dtt_attention_qkv) replaces dist_tpu/ops/attention.py::_attn_kernel
 // (launched by _pallas_attention_qkv, public fused_attention_qkv). For each
 // batch row and head h,
-//   S = (Q_h * hd^-1/2, rounded to the input type) K_h^T    fp32
+//   S = Q_h K_h^T * hd^-1/2     fp32; Q scaled in fp32, never rounded
+//                               (as the TPU kernel scales it)
 //   optional causal mask: col > row -> -inf
 //   P = softmax(S)              fp32, normalised, then rounded to the input type
 //   O_h = P V_h                 fp32 accumulation, stored in the input type
@@ -45,8 +46,9 @@
 //            meets uninitialised memory); under it, only the keys the
 //            block reads, rounded up to 16 rows.
 //   scores   mma.sync.m16n8k16 (bf16 in, fp32 sums), A = Q through
-//            ldmatrix, scaled and rounded to bf16 in registers as the
-//            reference scales Q in the input type; B = K through ldmatrix;
+//            ldmatrix as it is; the scale multiplies the fp32 scores
+//            inside the softmax's exponent factor (hd^-1/2 log2 e), so Q
+//            is never rounded after scaling; B = K through ldmatrix;
 //            float s[LP/8][4] per lane. Without the mask every key tile of
 //            LP is computed and the loops have no branch (a branch per tile
 //            keeps the compiler from scheduling the tiles' ldmatrix and mma
@@ -77,7 +79,8 @@
 // block per (row, head, 64-query tile); keys in chunks of 64
 // through shared memory, pass 1 for each row's max and sum (online
 // rescaling), pass 2 recomputes S and forms the normalised P, rounded, then
-// P V; S goes through shared memory for the softmax, two lanes per row.
+// P V; S (unscaled) goes through shared memory for the softmax, two lanes
+// per row, which multiplies it by the scale in fp32.
 //
 // fp32: 256 threads on the CUDA cores, each owning a 4 x 4 tile of S and a
 // 4 x (hd/16) tile of O, keys streamed as above; Q is scaled in fp32.
@@ -379,20 +382,21 @@ __device__ __forceinline__ void warp_scores(const bf16* Qw, const bf16* Ks, floa
 // Softmax layout: lanes 2r and 2r + 1 share row r of the warp's tile
 // (absolute query row `row`) and take alternate columns of the chunk.
 
-// pass 1: fold the chunk of scores at key k0 into the row's max m and sum l
+// pass 1: fold the chunk of scores at key k0, times `scale`, into the
+// row's max m and sum l
 template <int OS>
 __device__ __forceinline__ void row_stats(const float* Sw, int k0, int L, int causal, int row,
-                                          int r_w, int par, float& m, float& l) {
+                                          int r_w, int par, float scale, float& m, float& l) {
   float tmax = -INFINITY;
   for (int c = par; c < BK; c += 2) {
     const int col = k0 + c;
-    if (col < L && !(causal && col > row)) tmax = fmaxf(tmax, Sw[r_w * OS + c]);
+    if (col < L && !(causal && col > row)) tmax = fmaxf(tmax, Sw[r_w * OS + c] * scale);
   }
   const float mnew = fmaxf(m, fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1)));
   float sum = 0.f;
   for (int c = par; c < BK; c += 2) {
     const int col = k0 + c;
-    if (col < L && !(causal && col > row)) sum += expf(Sw[r_w * OS + c] - mnew);
+    if (col < L && !(causal && col > row)) sum += expf(Sw[r_w * OS + c] * scale - mnew);
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   l = l * (m == -INFINITY ? 0.f : expf(m - mnew)) + sum;
@@ -402,11 +406,12 @@ __device__ __forceinline__ void row_stats(const float* Sw, int k0, int L, int ca
 // pass 2: the chunk's normalised P, rounded to bf16, into the warp's Pw
 template <int OS>
 __device__ __forceinline__ void probs(const float* Sw, bf16* Pw, int k0, int L, int causal,
-                                      int row, int r_w, int par, float m, float inv_l) {
+                                      int row, int r_w, int par, float scale, float m,
+                                      float inv_l) {
   for (int c = par; c < BK; c += 2) {
     const int col = k0 + c;
     float p = 0.f;
-    if (col < L && !(causal && col > row)) p = expf(Sw[r_w * OS + c] - m) * inv_l;
+    if (col < L && !(causal && col > row)) p = expf(Sw[r_w * OS + c] * scale - m) * inv_l;
     Pw[r_w * PP + c] = __float2bfloat16_rn(p);
   }
 }
@@ -472,7 +477,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, bf16* 
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * L * rs;
 
-  {  // Q tile, scaled and rounded to bf16 (as the reference scales it)
+  {  // Q tile as it is: the softmax scales the fp32 scores
     constexpr int CH = HD / 8, PER = BQ * CH / NT;
     uint4 raw[PER];
 #pragma unroll
@@ -485,9 +490,6 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, bf16* 
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int c = threadIdx.x + i * NT, r = c / CH, d = (c % CH) * 8;
-      bf16* e = reinterpret_cast<bf16*>(&raw[i]);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * scale);
       *reinterpret_cast<uint4*>(Qs + r * LD + d) = raw[i];
     }
   }
@@ -502,7 +504,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, bf16* 
     __syncthreads();
     warp_scores<HD>(Qw, Ks, Sw);
     __syncwarp();
-    row_stats<OS>(Sw, k0, L, causal, row, r_w, par, m, l);
+    row_stats<OS>(Sw, k0, L, causal, row, r_w, par, scale, m, l);
   }
 
   const float inv_l = 1.f / l;
@@ -516,7 +518,7 @@ __device__ __forceinline__ void stream_tile(const bf16* __restrict__ qkv, bf16* 
     __syncthreads();
     warp_scores<HD>(Qw, Ks, Sw);
     __syncwarp();
-    probs<OS>(Sw, Pw, k0, L, causal, row, r_w, par, m, inv_l);
+    probs<OS>(Sw, Pw, k0, L, causal, row, r_w, par, scale, m, inv_l);
     __syncwarp();
     pv<HD>(Pw, Vs, o);
   }
@@ -600,12 +602,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// a pair of bf16 times `scale`, rounded to bf16 again
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-  return pack_bf16(f.x * scale, f.y * scale);
-}
-
 // shared memory of one block: Q tile (BQ rows), K_h and V_h (LP rows each),
 // bf16 with row stride HD + 8 (ldmatrix's 8 row addresses fall in distinct
 // banks)
@@ -672,14 +668,11 @@ __device__ __forceinline__ void whole_row(const bf16* __restrict__ qkv, bf16* __
   // under the mask, the warp's keys end at its last row: later tiles skipped
   const int kend = CAUSAL ? min(L, q0w + 16) : LP;
 
-  // Q's A fragments, scaled and rounded to bf16
+  // Q's A fragments as they are (the scale goes into the softmax's exponent)
   uint32_t qa[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  for (int kk = 0; kk < KS; ++kk)
     ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[kk][i] = scale_bf16x2(qa[kk][i], scale);
-  }
 
   // S: n8 tile j holds keys 8j + 2 t4, + 1 of rows g (s[j][0..1]) and g + 8
   float s[2 * NKT][4];
@@ -722,16 +715,18 @@ __device__ __forceinline__ void whole_row(const bf16* __restrict__ qkv, bf16* __
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
-  // key 0 is every row's, so m0 and m1 are finite
-  const float ms0 = m0 * LOG2E, ms1 = m1 * LOG2E;
+  // key 0 is every row's, so m0 and m1 are finite; exp(scale (s - m)) as
+  // 2^(s e - m e), e = scale log2 e (at hd 64 the bits of scaling Q first)
+  const float e = scale * LOG2E;
+  const float ms0 = m0 * e, ms1 = m1 * e;
   float l0 = 0.f, l1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j) {
     if (!CAUSAL || (j >> 1) * 16 < kend) {
-      s[j][0] = fast_exp2(fmaf(s[j][0], LOG2E, -ms0));
-      s[j][1] = fast_exp2(fmaf(s[j][1], LOG2E, -ms0));
-      s[j][2] = fast_exp2(fmaf(s[j][2], LOG2E, -ms1));
-      s[j][3] = fast_exp2(fmaf(s[j][3], LOG2E, -ms1));
+      s[j][0] = fast_exp2(fmaf(s[j][0], e, -ms0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], e, -ms0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], e, -ms1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], e, -ms1));
       l0 += s[j][0] + s[j][1];
       l1 += s[j][2] + s[j][3];
     }

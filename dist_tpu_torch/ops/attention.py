@@ -4,7 +4,9 @@ Port of ``dist_tpu/ops/attention.py``. Every self-attention in both CLIP
 towers calls :func:`fused_attention_qkv` on the output of the fused qkv
 projection, in its native layout, so no head transposes happen around it:
 
-    per head h:  S = (Q_h hd^-1/2) K_h^T   (fp32)
+    per head h:  S = (Q_h hd^-1/2) K_h^T   (fp32; Q scaled in fp32 and
+                                           never rounded, as the TPU
+                                           kernel scales it)
                  P = softmax(S)            (fp32; causal mask optional),
                                            rounded to the input dtype
                  O_h = P V_h               (fp32 accumulation)
@@ -83,7 +85,7 @@ def attention_qkv_plain(qkv, num_heads, causal=False):
     q = q.reshape(b, l, num_heads, hd)
     k = k.reshape(b, l, num_heads, hd)
     v = v.reshape(b, l, num_heads, hd)
-    logits = torch.einsum("blhd,bmhd->bhlm", (q * hd ** -0.5).float(),
+    logits = torch.einsum("blhd,bmhd->bhlm", q.float() * hd ** -0.5,
                           k.float())
     if causal:
         mask = torch.full((l, l), float("-inf"), device=qkv.device).triu(1)

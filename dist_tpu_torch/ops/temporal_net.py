@@ -17,8 +17,11 @@ zero-padded activations times one (C, F) weight block.
 
 Backward: :func:`fused_temporal_net_bwd` launches K3 (the same source; it
 recomputes the forward, as ``_bwd_kernel`` does) or, on a CPU tensor,
-runs :func:`temporal_net_bwd_plain`. :func:`temporal_net` joins the two
-in a ``torch.autograd.Function`` that saves only x and the parameters.
+runs :func:`temporal_net_bwd_plain`. K3's route follows x's dtype
+(:func:`temporal_net_bwd_route`): float32 runs on the CUDA cores, bf16 (the
+train step's) on the tensor cores with bf16 product operands and fp32
+sums and elementwise steps. :func:`temporal_net` joins the two in a
+``torch.autograd.Function`` that saves only x and the parameters.
 """
 
 import ctypes
@@ -36,12 +39,20 @@ _SIGNATURES = {
                             + [ctypes.c_void_p],
     "dtt_temporal_net_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p],
+    "dtt_temporal_net_bwd_occupancy": [ctypes.c_int] * 3
+                                      + [ctypes.POINTER(ctypes.c_int)] * 2,
     "dtt_temporal_net_error_string": [ctypes.c_int],
 }
 # K3 sums its weight-gradient partials over this many fixed chunks of
-# positions (csrc/temporal_net.cu, kBwdChunks)
+# positions (csrc/temporal_net.cu, kBwdChunks and k3::kChunks), and its
+# other partials over tiles of BWD_TILE positions (fp32 route, BM) or
+# BWD_MMA_TILE (bf16 route, k3::BM)
 BWD_CHUNKS = 32
 BWD_TILE = 64
+BWD_MMA_TILE = 128
+# the bf16 route's kernels, in the order its occupancy entry numbers them
+BWD_MMA_KERNELS = ("stage_A", "stage_B", "stage_C", "stage_D",
+                   "weight_grads")
 
 
 def _qgelu(x):
@@ -242,19 +253,60 @@ def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
 fused_temporal_net.launches = 0
 
 
-def bwd_scratch_floats(n, c, f, k):
-    """fp32 scratch of one K3 call on n positions: hb, g, dr, dhb, the
-    weight-gradient partials of BWD_CHUNKS chunks and the LayerNorm
-    partials of each 64-position tile (csrc/temporal_net.cu, bwd_layout)."""
-    tiles = -(-n // BWD_TILE)
-    return (n * (3 * f + c) + BWD_CHUNKS * (k * c * f + 9 * f * c + f + c)
-            + 2 * tiles * c)
+def temporal_net_bwd_route(dtype):
+    """K3's route for x's dtype, by the rule ``csrc/temporal_net.cu``
+    applies: ``"bf16_mma"`` (tensor cores) for bfloat16, ``"fp32"`` (CUDA
+    cores) for float32."""
+    return "bf16_mma" if dtype == torch.bfloat16 else "fp32"
+
+
+def _padded(c, f):
+    """The bf16 route's channel padding (k3::padded): max(C, F) rounded up
+    to a multiple of 32."""
+    return 32 * -(-max(c, f) // 32)
+
+
+def bwd_scratch_floats(n, c, f, k, dtype=torch.float32):
+    """fp32 scratch of one K3 call on n positions, laid out as the C side
+    lays it out for ``dtype``'s route. fp32 (``BwdLayout``): hb, g, dr, dhb,
+    the weight-gradient partials of BWD_CHUNKS chunks and the LayerNorm
+    partials of each 64-position tile. bf16 (``k3::Layout``; a bf16 array
+    takes half a float per element): the packed weight tiles, LN(x), g, dr
+    and dhb in bf16, hb and dr in fp32, the weight-gradient partials and
+    the bias and LayerNorm partials of each 128-position tile."""
+    if temporal_net_bwd_route(dtype) == "fp32":
+        tiles = -(-n // BWD_TILE)
+        return (n * (3 * f + c)
+                + BWD_CHUNKS * (k * c * f + 9 * f * c + f + c)
+                + 2 * tiles * c)
+    p = _padded(c, f)
+    tiles = -(-n // BWD_MMA_TILE)
+    return ((2 * k + 18) * p * p // 2 + 2 * n * (c + f)
+            + BWD_CHUNKS * (k + 9) * c * f + tiles * (f + 3 * c))
+
+
+def bwd_occupancy(c, f):
+    """{kernel: {"blocks_per_sm", "smem_bytes"}} of K3's bf16 route at
+    channels (C, F): blocks resident on one SM from CUDA's occupancy
+    calculator and dynamic shared memory per block (needs the card)."""
+    lib = _build.load("temporal_net", _SIGNATURES)
+    out = {}
+    for which, name in enumerate(BWD_MMA_KERNELS):
+        blocks, nbytes = ctypes.c_int(), ctypes.c_int()
+        err = lib.dtt_temporal_net_bwd_occupancy(
+            c, f, which, ctypes.byref(blocks), ctypes.byref(nbytes))
+        _build.check(lib, "dtt_temporal_net_error_string", err,
+                     "TemporalNet backward occupancy")
+        out[name] = {"blocks_per_sm": blocks.value,
+                     "smem_bytes": nbytes.value}
+    return out
 
 
 def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
     """The block's gradient for the cotangent ``g`` of its output, in the
     order and layouts of :func:`temporal_net_bwd_plain`. CUDA tensor: the
-    hand-written kernel K3 (a few launches behind one count); CPU tensor:
+    hand-written kernel K3 (a few launches behind one count) on the route
+    :func:`temporal_net_bwd_route` names; CPU tensor:
     :func:`temporal_net_bwd_plain`."""
     k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
     if x.device.type == "cpu":
@@ -266,16 +318,32 @@ def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
             or g.device != x.device or not g.is_contiguous()):
         raise ValueError("the cotangent must be contiguous, with x's shape, "
                          "type and device")
-    ln_s, ln_b, w1p, b1f, w2p, b2f = pack_weights(*params)
-    with torch.no_grad():
-        w1t = w1p.reshape(k, c, f).transpose(1, 2).reshape(k * f, c)
-        w2t = w2p.reshape(9, f, c).transpose(1, 2).reshape(9 * c, f)
-        w1t, w2t = w1t.contiguous(), w2t.contiguous()
-    b, t, h, w, _ = x.shape
-    lib = _build.load("temporal_net", _SIGNATURES)
-    nscratch = bwd_scratch_floats(n, c, f, k)
-    if nscratch > 2 ** 31 - 1:
+    if temporal_net_bwd_route(x.dtype) == "bf16_mma" and (c % 8 or f % 8):
+        raise ValueError(f"the bf16 kernel moves rows of 8 channels: C={c} "
+                         f"and F={f} must be multiples of 8")
+    if bwd_scratch_floats(n, c, f, k, x.dtype) > 2 ** 31 - 1:
         raise ValueError(f"{n} positions are too many for one launch")
+    out = launch_bwd(_build.load("temporal_net", _SIGNATURES), x, g, *params)
+    fused_temporal_net_bwd.launches += 1
+    return out
+
+
+def launch_bwd(lib, x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
+    """One launch of ``dtt_temporal_net_bwd`` from the library ``lib`` on
+    inputs :func:`fused_temporal_net_bwd` has checked; counts nothing."""
+    k, c, f = w1_raw.shape[0], w1_raw.shape[-2], w1_raw.shape[-1]
+    ln_s, ln_b, w1p, b1f, w2p, b2f = pack_weights(ln_scale, ln_bias, w1_raw,
+                                                  b1, w2_raw, b2)
+    if temporal_net_bwd_route(x.dtype) == "fp32":
+        with torch.no_grad():
+            w1t = w1p.reshape(k, c, f).transpose(1, 2).reshape(k * f, c)
+            w2t = w2p.reshape(9, f, c).transpose(1, 2).reshape(9 * c, f)
+            w1t, w2t = w1t.contiguous(), w2t.contiguous()
+        w1t_ptr, w2t_ptr = w1t.data_ptr(), w2t.data_ptr()
+    else:       # the bf16 route packs its own bf16 tiles from w1p and w2p
+        w1t_ptr = w2t_ptr = None
+    b, t, h, w, _ = x.shape
+    nscratch = bwd_scratch_floats(b * t * h * w, c, f, k, x.dtype)
     scratch = torch.empty(nscratch, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -287,15 +355,14 @@ def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dtt_temporal_net_bwd(
             x.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-            w1p.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2p.data_ptr(),
-            w2t.data_ptr(), b2f.data_ptr(), scratch.data_ptr(),
+            w1p.data_ptr(), w1t_ptr, b1f.data_ptr(), w2p.data_ptr(),
+            w2t_ptr, b2f.data_ptr(), scratch.data_ptr(),
             dx.data_ptr(), dlns.data_ptr(), dlnb.data_ptr(), dw1.data_ptr(),
             db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
             b, t, h, w, c, f, k, int(x.dtype == torch.bfloat16), nscratch,
             stream)
     _build.check(lib, "dtt_temporal_net_error_string", err,
                  "TemporalNet backward kernel")
-    fused_temporal_net_bwd.launches += 1
     return (dx, dlns.to(ln_scale.dtype), dlnb.to(ln_bias.dtype),
             dw1.reshape(k, 1, 1, c, f).to(w1_raw.dtype), db1.to(b1.dtype),
             dw2.reshape(1, 3, 3, f, c).to(w2_raw.dtype), db2.to(b2.dtype))

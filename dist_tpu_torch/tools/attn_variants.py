@@ -41,7 +41,7 @@ K4_ROWS, K4_NB = 64, 8          # K4 on the first 64 rows (microbench attn)
 
 _COPIES = ("  copy_rows<HD>(Qs, base, rs, q0, BQ, L);",
            "  cp_async_wait<1>();   // Q and K; V may still be landing")
-_MATH = ("  // Q's A fragments, scaled and rounded to bf16",
+_MATH = ("  // Q's A fragments as they are (the scale goes into the softmax's exponent)",
          "  cp_async_wait<0>();   // V")
 _PV = ("#pragma unroll\n  for (int t = 0; t < NKT; ++t) {\n"
        "    if (!CAUSAL || t * 16 < kend) {",
@@ -68,12 +68,13 @@ VARIANTS = {
 COMPUTES = ("shipped", "exp2f", "branch_per_tile")
 
 
-def variant_source(name):
-    """The text of ``csrc/attention.cu`` with variant ``name``'s
-    substitutions; raises if an anchor is not found as often as stated."""
-    with open(os.path.join(_build.SRC_DIR, "attention.cu")) as f:
+def variant_source(name, source="attention", variants=None):
+    """The text of ``csrc/<source>.cu`` with variant ``name``'s
+    substitutions (of ``variants``, by default :data:`VARIANTS`); raises if
+    an anchor is not found as often as stated."""
+    with open(os.path.join(_build.SRC_DIR, f"{source}.cu")) as f:
         src = f.read()
-    for old, new, count in VARIANTS[name]:
+    for old, new, count in (variants or VARIANTS)[name]:
         if src.count(old) != count:
             raise ValueError(f"variant {name}: {old!r} found {src.count(old)} "
                              f"times, not {count}")
@@ -81,16 +82,18 @@ def variant_source(name):
     return src
 
 
-def build_all():
-    """{name: ctypes library}, every variant compiled at once."""
+def build_all(source="attention", variants=None, signatures=None):
+    """{name: ctypes library}, every variant of ``csrc/<source>.cu``
+    compiled at once (by default this tool's, bound with the attention
+    signatures)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     nvcc, procs = _build._nvcc(), {}
-    for name in VARIANTS:
-        src = os.path.join(OUT_DIR, f"attention-{name}.cu")
+    for name in variants or VARIANTS:
+        src = os.path.join(OUT_DIR, f"{source}-{name}.cu")
         with open(src, "w") as f:
-            f.write(variant_source(name))
-        so = os.path.join(OUT_DIR, f"attention-{name}.so")
-        with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as log:
+            f.write(variant_source(name, source, variants))
+        so = os.path.join(OUT_DIR, f"{source}-{name}.so")
+        with open(os.path.join(OUT_DIR, f"{source}-{name}.log"), "w") as log:
             procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", so,
                                              src], stdout=log,
                                             stderr=subprocess.STDOUT), so)
@@ -98,9 +101,9 @@ def build_all():
     for name, (proc, so) in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n"
-                               + _log(name)[-3000:])
+                               + variant_log(name, source)[-3000:])
         lib = ctypes.CDLL(so)
-        for sym, argtypes in att._SIGNATURES.items():
+        for sym, argtypes in (signatures or att._SIGNATURES).items():
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
             fn.restype = (ctypes.c_char_p if sym.endswith("_error_string")
@@ -109,14 +112,15 @@ def build_all():
     return libs
 
 
-def _log(name):
-    with open(os.path.join(OUT_DIR, f"{name}.log")) as f:
+def variant_log(name, source="attention"):
+    """nvcc's output for variant ``name`` of ``csrc/<source>.cu``."""
+    with open(os.path.join(OUT_DIR, f"{source}-{name}.log")) as f:
         return f.read()
 
 
 def _usage(name):
     """ptxas (registers, spill bytes) of the <64, 208> instances."""
-    usage = _build.parse_ptxas(_log(name))
+    usage = _build.parse_ptxas(variant_log(name))
     return {tag: [(v.get("registers"), v.get("spill_stores", 0)
                    + v.get("spill_loads", 0))
                   for k, v in usage.items() if tag in k]

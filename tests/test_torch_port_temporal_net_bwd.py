@@ -139,3 +139,48 @@ def test_misshaped_cotangent_raises(case, shape):
     with pytest.raises(ValueError, match="cotangent"):
         port.fused_temporal_net_bwd(torch.from_numpy(x), torch.zeros(shape),
                                     *_torch(params))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "fp32"),
+                                         (torch.bfloat16, "bf16_mma")])
+def test_bwd_route_follows_the_dtype(dtype, route):
+    assert port.temporal_net_bwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("n,c,f,k", [(100352, 96, 96, 3), (630, 16, 16, 3),
+                                     (105, 40, 24, 5), (1176, 128, 128, 1)])
+def test_bf16_scratch_arrays_start_on_16_bytes(n, c, f, k):
+    """The bf16 route's scratch (csrc/temporal_net.cu, k3::Layout, in this
+    order): its bf16 arrays are read by 16-byte copies, so each starts on a
+    16-byte boundary; the total is what the wrapper allocates."""
+    p = 32 * -(-max(c, f) // 32)
+    halves = [(2 * k + 18) * p * p, n * c, n * f, n * c, n * f]
+    floats = [n * f, n * c]
+    offset = 0
+    for size in halves:
+        assert (offset * 4) % 16 == 0
+        offset += size // 2
+    for size in floats:
+        assert (offset * 4) % 16 == 0
+        offset += size
+    tiles = -(-n // port.BWD_MMA_TILE)
+    offset += port.BWD_CHUNKS * (k + 9) * c * f + tiles * (f + 3 * c)
+    assert port.bwd_scratch_floats(n, c, f, k, torch.bfloat16) == offset
+    assert port.bwd_scratch_floats(n, c, f, k) != offset
+
+
+def test_bf16_on_cpu_takes_any_width():
+    """The multiple-of-8 rule is the bf16 kernel's: a CPU tensor runs the
+    plain version at any width."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 3, 3, 12)).astype(
+        np.float32)).to(torch.bfloat16)
+    r = lambda *s: torch.from_numpy(
+        (rng.standard_normal(s) * 0.3).astype(np.float32))
+    params = (1.0 + r(12), r(12), r(3, 1, 1, 12, 12), r(12),
+              r(1, 3, 3, 12, 12), r(12))
+    got = port.fused_temporal_net_bwd(x, x, *params)
+    want = port.temporal_net_bwd_plain(x, x, *params)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+

@@ -17,6 +17,7 @@ from dist_tpu_torch.tools import (
     microbench,
     profile_eval,
     serve,
+    tnet_bwd,
 )
 
 TINY = "configs/projects/dist/test/tiny_synth.yaml"
@@ -231,3 +232,74 @@ def test_attn_variants_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs the CUDA card"):
         attn_variants.main([])
+
+
+@pytest.mark.parametrize("name", sorted(tnet_bwd.VARIANTS))
+def test_tnet_bwd_variants_apply_to_the_kernel_source(name):
+    """Each K3 variant's substitutions find their anchors in
+    ``csrc/temporal_net.cu`` once, and only the bf16 route's lines move."""
+    src = attn_variants.variant_source(name, "temporal_net",
+                                       tnet_bwd.VARIANTS)
+    with open(os.path.join(attn_variants._build.SRC_DIR,
+                           "temporal_net.cu")) as f:
+        shipped = f.read()
+    assert (src == shipped) == (name == "shipped")
+    moved = [a for a, b in zip(shipped.splitlines(), src.splitlines())
+             if a != b]
+    assert len(moved) == len(tnet_bwd.VARIANTS[name])
+    assert all("rows_times_weights" in ln or "a_t_b" in ln
+               or "cp_async16" in ln for ln in moved)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_12k315k3_stage_kernelILi96ELi1EEEvNS0_4ArgsE",
+     "k3_stage_kernel<96, B>"),
+    ("_ZN12_GLOBAL__N_12k315k3_wgrad_kernelILi128EEEvNS0_4ArgsEi",
+     "k3_wgrad_kernel<128>"),
+    ("_ZN12_GLOBAL__N_12k313k3_sum_kernelEPKfiNS0_8SegmentsE",
+     "k3_sum_kernel"),
+    ("_ZN12_GLOBAL__N_114sum_rows_kernelEPKfPfii",
+     "_ZN12_GLOBAL__N_114sum_rows_kernelEPKfPfii")])
+def test_tnet_bwd_instance_names(mangled, name):
+    assert tnet_bwd.instance_name(mangled) == name
+
+
+@pytest.mark.parametrize("cmd", ["errors", "variants"])
+def test_tnet_bwd_needs_a_card(monkeypatch, cmd):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs the CUDA card"):
+        tnet_bwd.main([cmd])
+
+
+def test_tnet_bwd_readings_and_control_on_cpu():
+    """The readings on the CPU, where the wrapper runs the plain version:
+    the kernel's readings are zero and the control's are not, so the
+    control breaks any limits."""
+    from dist_tpu_torch.ops import temporal_net as tn
+
+    x, g, params = _cpu_inputs()
+
+    got = tn.fused_temporal_net_bwd(x, g, *params)
+    assert all(v == {"max_rel": 0.0, "rel_l2": 0.0}
+               for v in tnet_bwd.errors(got, tn.temporal_net_bwd_plain(
+                   x, g, *params)).values())
+    control = tnet_bwd.errors(got, tn.temporal_net_bwd_plain(
+        x, g, *tnet_bwd.control_params(params)))
+    limits = {n: {"max_rel": 0.0, "rel_l2": 0.0} for n in tnet_bwd.NAMES}
+    assert len(tnet_bwd.breaches(control, limits)) >= 12
+    assert params[4][0, 0, 0].abs().sum() > 0     # the original unchanged
+
+
+def _cpu_inputs():
+    gen = torch.Generator().manual_seed(0)
+    shape, f, k = (1, 4, 5, 6, 16), 8, 3
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(s, generator=gen) * scale
+
+    c = shape[-1]
+    return (rnd(*shape), rnd(*shape),
+            (1.0 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+             rnd(k, 1, 1, c, f, scale=(k * c) ** -0.5), rnd(f, scale=0.1),
+             rnd(1, 3, 3, f, c, scale=(9 * f) ** -0.5), rnd(c, scale=0.1)))
+

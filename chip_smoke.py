@@ -6,16 +6,19 @@
 1. Card: prints the card's name and power limit, builds the hand-written
    CUDA kernels from ``dist_tpu_torch/csrc`` with nvcc (in parallel) and
    fails if ptxas reports spill bytes for any whole-row attention
-   instance or any instance of K3's bf16 route.
+   instance or any instance of the bf16 routes of K2 and K3.
 2. Kernels: calls each kernel on the card at the shapes the serving path
-   and the train step give it (K3, the TemporalNet backward, in fp32 on the
-   CUDA cores and in bf16 on the tensor cores, twice, to show that two
-   launches agree bit for bit) and holds it against its plain PyTorch
-   version on the same inputs (TF32 off), with the tolerance stated beside
-   each check (K3 bf16: per-output limits, ``BWD_BF16_LIMITS``, that a
-   control with one spatial tap dropped must break); times the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (``library_ms``), with CUDA events after warm-up.
+   and the train step give it (K2 and K3, the TemporalNet forward and
+   backward, in fp32 on the CUDA cores and in bf16 on the tensor cores,
+   twice, to show that two launches agree bit for bit) and holds it
+   against its plain PyTorch version on the same inputs (TF32 off), with
+   the tolerance stated beside each check (K2 and K3 bf16: limits,
+   ``tools/tnet_fwd.py::FWD_BF16_LIMITS`` and ``BWD_BF16_LIMITS``, that a
+   control with one spatial tap dropped must break); times the kernel, the
+   plain version and, where one PyTorch call computes the same function,
+   that call (``library_ms``), with CUDA events after warm-up; K2's
+   unfused block (LayerNorm, two cuDNN convolutions, qgelu) is timed
+   beside it as ``unfused_ms``.
 3. Serving: builds ``InferenceEngine`` for the DiST ViT-B/16 8+16f SSV2
    config at full width (174 classes, ``TPU.FUSED_TEMPORAL_NET true``,
    batch size 8, weights made from ``RANDOM_SEED``), warms it up and
@@ -69,7 +72,10 @@ numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them; K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
-main path launches), the card line, and last
+main path launches; K2 and K3 with their route, ``fwd_route`` and
+``bwd_route``, the occupancy and ptxas usage of their bf16 instances, and
+their fp32 route's numbers beside them; K2 with ``unfused_ms``), the card
+line, and last
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
 non-zero without the last line.
 """
@@ -400,49 +406,67 @@ def check_attention_rows(name, b, l, heads, hd, nb, dtype, seed):
 
 
 def check_temporal_net(name, shape, dtype, seed):
+    """K2 against its plain version on seeded inputs, on the route x's
+    dtype takes: fp32 within atol + rtol |ref|; bf16 within
+    ``tnet_fwd.FWD_BF16_LIMITS`` and the control (the plain version with
+    w2's (0, 0) tap zeroed) outside them. Two launches bit for bit, and
+    the unfused block's forward timed beside it (``unfused_ms``)."""
     import torch
     from dist_tpu_torch.ops import temporal_net as tn
+    from dist_tpu_torch.tools import tnet_bwd, tnet_fwd
 
     b, t, h, w, c = shape
     f, k = c, 3
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def rnd(*s, scale=1.0):
-        return torch.randn(s, generator=gen, device="cuda") * scale
-
-    x = rnd(*shape).to(dtype)
-    params = (1.0 + rnd(c, scale=0.1), rnd(c, scale=0.1),
-              rnd(k, 1, 1, c, f, scale=(k * c) ** -0.5), rnd(f, scale=0.1),
-              rnd(1, 3, 3, f, c, scale=(9 * f) ** -0.5), rnd(c, scale=0.1))
+    x, params = tnet_fwd.inputs(shape, f, k, seed, dtype)
+    route = tn.temporal_net_fwd_route(dtype)
     got = tn.fused_temporal_net(x, *params)
+    again = tn.fused_temporal_net(x, *params)
     want = tn.temporal_net_plain(x, *params)
     torch.cuda.synchronize()
-    if dtype == torch.float32:
-        # fp32 inside both; sums of 288 and 864 terms in another order
-        atol, rtol, why = 1e-4, 1e-5, "fp32 summation order"
-    else:
-        # fp32 inside both; the output's rounding to bf16 may fall one
-        # step (<= 2^-7 relative) apart
-        atol, rtol, why = 1e-4, 2 ** -7, "bf16 rounding of the output"
+    # fp32: fp32 inside both; sums of 288 and 864 terms in another order
+    atol, rtol = 1e-4, 1e-5
     err, ok = compare(got, want, atol, rtol)
+    extra = {"atol": atol, "rtol": rtol, "tolerance": "fp32 summation order"}
+    if route == "bf16_mma":
+        limits = tnet_fwd.FWD_BF16_LIMITS
+        reading = tnet_fwd.errors(got, want)
+        control = tnet_fwd.errors(got, tn.temporal_net_plain(
+            x, *tnet_bwd.control_params(params)))
+        ok = (bool(torch.isfinite(got.float()).all())
+              and not tnet_bwd.breaches(reading, limits)
+              and bool(tnet_bwd.breaches(control, limits)))
+        extra = {"reading": reading["out"], "limits": limits["out"],
+                 "tolerance": "bf16 product operands",
+                 "control": control["out"],
+                 "occupancy": tn.fwd_occupancy(c, f)}
+    repeatable = bool(torch.equal(got, again))
     dtname = str(dtype).split(".")[-1]
     n = b * t * h * w
     param_bytes = 4 * (k * c * f + 9 * f * c + 3 * c + f)
-    # the block's arithmetic is fp32 whatever x's type: fp32 peak
+    # reads x and the parameters, writes out; 2 N C F (k + 9) operations,
+    # on the tensor cores in bf16 and on the CUDA cores in fp32
     b_ms, b_by = bound(2 * x.numel() * x.element_size() + param_bytes,
-                       2 * n * c * f * (k + 9), "float32")
+                       2 * n * c * f * (k + 9),
+                       "bfloat16" if route == "bf16_mma" else "float32")
+    with torch.no_grad():
+        block = tnet_fwd.unfused_block(params)
+        unfused_ms = time_ms(lambda: block(x), 20)
     rec = {
         "check": name, "kernel": "temporal_net_fwd", "shape": list(shape),
-        "k": k, "dtype": dtname, "max_abs_err": err, "atol": atol,
-        "rtol": rtol, "tolerance": why,
+        "k": k, "dtype": dtname, "route": route, "max_abs_err": err, **extra,
+        "bitwise_repeatable": repeatable,
         "ms": time_ms(lambda: tn.fused_temporal_net(x, *params), 20),
         "plain_ms": time_ms(lambda: tn.temporal_net_plain(x, *params), 5),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "pass": ok,
+        "unfused_ms": unfused_ms,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "pass": ok and repeatable,
     }
     emit(rec)
-    if not ok:
-        raise AssertionError(f"{name}: kernel and plain version disagree "
-                             f"(max abs err {err})")
+    if not rec["pass"]:
+        raise AssertionError(f"{name}: kernel and plain version disagree, "
+                             f"the control passes or two launches differ "
+                             f"(max abs err {err}, {extra}, repeatable "
+                             f"{repeatable})")
     return rec
 
 
@@ -539,6 +563,8 @@ def kernel_checks():
         check_temporal_net("temporal_net fp32", (8, 16, 14, 14, 96), f32, 5),
         check_temporal_net("temporal_net bf16", (8, 16, 14, 14, 96), bf16, 6),
     ]
+    fwd32 = check_temporal_net("temporal_net train fp32",
+                               (32, 16, 14, 14, 96), f32, 21)
     # the shapes of the train step: batch 32, 8 sparse frames in the vision
     # tower, 16 dense frames in the ladder
     train = {
@@ -548,6 +574,7 @@ def kernel_checks():
         "temporal_net_fwd": check_temporal_net(
             "temporal_net train bf16", (32, 16, 14, 14, 96), bf16, 8),
     }
+    train["temporal_net_fwd"]["fp32_route"] = fwd32
     bwd32 = check_temporal_net_bwd("temporal_net_bwd train fp32",
                                    (32, 16, 14, 14, 96), f32, 9)
     train["temporal_net_bwd"] = check_temporal_net_bwd(
@@ -1273,7 +1300,8 @@ def _attention_entry(rec, kernel):
 
 
 def _k3_usage():
-    """{instance: ptxas usage} of every kernel of K3's bf16 route."""
+    """{instance: ptxas usage} of every kernel of the bf16 routes (K3's and
+    K2's, which share the ``k3`` kernels)."""
     from dist_tpu_torch.ops import _build
     from dist_tpu_torch.tools.tnet_bwd import instance_name
 
@@ -1287,6 +1315,7 @@ def _bwd_entry(rec):
     main stage (B, the 3x3 taps), each kernel's occupancy, and the ptxas
     registers and spill bytes of the instances its shape launches."""
     from dist_tpu_torch.ops.temporal_net import _padded
+    from dist_tpu_torch.tools.tnet_fwd import instances
 
     occ = rec["occupancy"]
     p = _padded(rec["shape"][-1], rec["shape"][-1])
@@ -1298,7 +1327,31 @@ def _bwd_entry(rec):
                           "spill_bytes": v.get("spill_stores", 0)
                           + v.get("spill_loads", 0)}
                       for k, v in sorted(_k3_usage().items())
-                      if f"<{p}" in k or "<" not in k}}
+                      if (f"<{p}" in k or "<" not in k)
+                      and k not in instances(p)}}
+
+
+def _fwd_entry(rec):
+    """K2's route, the blocks per SM and shared bytes per block of its
+    stage F (the 3x3 taps), each stage's occupancy, and the ptxas
+    registers and spill bytes of the instances its shape launches."""
+    from dist_tpu_torch.ops.temporal_net import _padded
+    from dist_tpu_torch.tools.tnet_fwd import instances
+
+    occ = rec["occupancy"]
+    usage = _k3_usage()
+    ptxas = {}
+    for name in instances(_padded(rec["shape"][-1], rec["shape"][-1])):
+        if name not in usage:
+            raise AssertionError(f"no ptxas usage of {name}")
+        v = usage[name]
+        ptxas[name] = {"registers": v.get("registers"),
+                       "spill_bytes": v.get("spill_stores", 0)
+                       + v.get("spill_loads", 0)}
+    return {"fwd_route": rec["route"],
+            "blocks_per_sm": occ["stage_F"]["blocks_per_sm"],
+            "smem_bytes_per_block": occ["stage_F"]["smem_bytes"],
+            "occupancy": occ, "ptxas": ptxas}
 
 
 def _breaches(reading, limits):
@@ -1357,13 +1410,13 @@ def main():
                         for n in names},
               "whole_row_registers": {k: v.get("registers")
                                       for k, v in sorted(whole_row.items())},
-              "k3_registers": {k: v.get("registers")
-                               for k, v in sorted(k3.items())},
+              "bf16_route_registers": {k: v.get("registers")
+                                       for k, v in sorted(k3.items())},
               "spills": spills,
               "pass": bool(whole_row) and bool(k3) and not spills})
         if not whole_row or not k3 or spills:
             raise AssertionError(f"whole-row instances {len(whole_row)}, "
-                                 f"K3 bf16 instances {len(k3)}, "
+                                 f"K2 and K3 bf16 instances {len(k3)}, "
                                  f"spilling: {spills}")
 
         serve_path, train_path, rows = kernel_checks()
@@ -1396,6 +1449,12 @@ def main():
                      "launches": train_launches[name],
                      **{k: rec[k] for k in keys},
                      "shape": rec["shape"], "dtype": rec["dtype"]}
+            if name == "temporal_net_fwd":
+                entry.update(_fwd_entry(rec), unfused_ms=rec["unfused_ms"])
+                fp = rec["fp32_route"]
+                entry["fp32_route"] = {"fwd_route": fp["route"],
+                                       **{k: fp[k] for k in keys},
+                                       "unfused_ms": fp["unfused_ms"]}
             if name == "temporal_net_bwd":
                 entry.update(_bwd_entry(rec))
                 fp = rec["fp32_route"]
@@ -1413,6 +1472,9 @@ def main():
                 entry["serving"] = {"launches": serve_launches[name],
                                     "shape": srv["shape"],
                                     **{k: srv[k] for k in keys}}
+                if name == "temporal_net_fwd":
+                    entry["serving"].update(fwd_route=srv["route"],
+                                            unfused_ms=srv["unfused_ms"])
                 if name == "attention_qkv":
                     entry["serving"].update({k: v for k, v in _attention_entry(
                         srv, "attention_qkv_wr_kernel").items()

@@ -9,9 +9,14 @@
 // (the LayerNorm output is zero there, not LN(0)), zero pixels outside the
 // image for the 3x3 taps.
 //
-// What bounds it on the card: at the ladder's shape (8, 16, 14, 14, 96),
+// The route follows x's type. This head note and the kernels below it are
+// the fp32 route, on the CUDA cores. bf16 inputs (the served and trained
+// model's) take K2's bf16 route on the tensor cores, built from the stages
+// of K3's bf16 route: see the k3 namespace.
+//
+// What bounds the fp32 route on the card: at the ladder's shape (8, 16, 14, 14, 96),
 // k = 3, the block does 2 * N * C * F * (k + 9) = 5.5 GFLOP on N = 25,088
-// positions and moves ~9.6 MB of bf16 in and out, so it is compute-bound:
+// positions and moves ~19 MB of fp32 in and out, so it is compute-bound:
 // ~83 us at the 67 TFLOP/s fp32 CUDA-core peak that this kernel's fp32
 // arithmetic uses.
 //
@@ -747,6 +752,23 @@ cudaError_t dispatch_bwd(int nj, const void* x, const void* gout, const float* l
 // GFLOP on bf16 tensor cores, 0.067 ms, against ~58 MB of inputs and
 // outputs (0.017 ms); what the design leaves is the scratch traffic, each
 // bf16 operand gathered 3 or 9 times through the 50 MB L2.
+//
+// K2 for bf16 inputs: the forward from the same stages, in three launches.
+//   prepare   LN(x) in fp32, rounded to bf16 (xl); only the k + 9 forward
+//             tiles, w1[d] (C x F) then w2[t] (F x C)
+//   stage Af  A's k temporal taps; the epilogue writes g = qgelu(acc + b1)
+//             in bf16 and no fp32 hb
+//   stage F   B's 9 spatial taps of g; the epilogue writes out = qgelu(x +
+//             acc + b2), the sum in fp32, rounded to bf16 once
+// It rounds what K3 rounds: xl, g and the weight tiles, as product
+// operands; every sum, the LayerNorm, qgelu and the residual stay fp32. A
+// runs the same code with the same operands in the same order, so K2's g
+// equals the g that K3 recomputes for the same x and weights, bit for bit:
+// the forward that the backward differentiates is the one that ran.
+// Scratch (FwdLayout): the tiles, xl and g in bf16, 38.6 MB at the train
+// shape. What bounds it: 2 N C F (k + 9) bf16 operations, 22.2 GFLOP at
+// (32, 16, 14, 14, 96), 0.0224 ms (serving, batch 8: 0.0056), against
+// 39 MB of x, out and parameters, 0.0116 ms (0.0030).
 
 namespace k3 {
 
@@ -756,7 +778,9 @@ constexpr int NW = 8;        // warps: 16 positions (or weight-grad rows) each
 constexpr int NTH = 32 * NW;
 constexpr int kChunks = 32;  // fixed split of the positions for the weight grads
 
-enum Stage { kA = 0, kB = 1, kC = 2, kD = 3 };
+// A-D: K3's stages; Af and F: K2's (the forward's A without hb, and its
+// output)
+enum Stage { kA = 0, kB = 1, kC = 2, kD = 3, kAf = 4, kF = 5 };
 
 // 16 bytes global -> shared without the registers; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -821,6 +845,7 @@ struct Args {
   float* ptile;  // per 128-position tile: db1 (F), db2, d ln_scale, d ln_bias (C each)
   bf16* dx;
   int N, T, H, W, C, F, k;
+  bf16* out;  // K2's output (N, C)
 };
 
 // Scratch of one call, in floats (a bf16 array takes half a float per
@@ -843,6 +868,22 @@ struct Layout {
     dr = floats(N * C);
     pw = floats(kChunks * (k + 9) * C * F);
     ptile = floats(tiles * (F + 3 * C));
+    total = (size_t)(f - base);
+  }
+};
+
+// K2's scratch, in floats, in this order (ops/temporal_net.py,
+// fwd_scratch_floats, computes the same total): the k + 9 forward tiles,
+// xl and g, all bf16, each on a 16-byte boundary
+struct FwdLayout {
+  bf16 *wt, *xl, *g;
+  size_t total;
+  FwdLayout(float* base, size_t N, size_t C, size_t F, size_t k, size_t P) {
+    float* f = base;
+    auto halves = [&f](size_t n) { bf16* p = reinterpret_cast<bf16*>(f); f += n / 2; return p; };
+    wt = halves((k + 9) * P * P);
+    xl = halves(N * C);
+    g = halves(N * F);
     total = (size_t)(f - base);
   }
 };
@@ -908,15 +949,22 @@ __device__ __forceinline__ void a_t_b(const bf16* As, const bf16* Bs, int m0,
 }
 
 // xl = LN(x) in bf16, one warp per position; the first (2 k + 18) P^2
-// threads also pack the weight tiles
-template <int P>
+// threads also pack the weight tiles (kFwd, K2: the first (k + 9) P^2, the
+// forward's w1[d] and w2[t] only)
+template <int P, bool kFwd>
 __global__ void __launch_bounds__(NTH) k3_prepare_kernel(const Args a) {
   const int k = a.k, C = a.C, F = a.F;
   const long i = (long)blockIdx.x * NTH + threadIdx.x;
-  if (i < (long)(2 * k + 18) * P * P) {
+  if (i < (long)(kFwd ? k + 9 : 2 * k + 18) * P * P) {
     const int tile = (int)(i / (P * P)), r = (int)(i / P % P), c = (int)(i % P);
     float v = 0.f;
-    if (tile < k) {  // w1[d]: C x F
+    if constexpr (kFwd) {
+      if (tile < k) {  // w1[d]: C x F
+        if (r < C && c < F) v = a.w1[((size_t)tile * C + r) * F + c];
+      } else {  // w2[t]: F x C
+        if (r < F && c < C) v = a.w2[((size_t)(tile - k) * F + r) * C + c];
+      }
+    } else if (tile < k) {  // w1[d]: C x F
       if (r < C && c < F) v = a.w1[((size_t)tile * C + r) * F + c];
     } else if (tile < 2 * k) {  // w1[d]^T: F x C
       if (r < F && c < C) v = a.w1[((size_t)(tile - k) * C + c) * F + r];
@@ -961,14 +1009,20 @@ __global__ void __launch_bounds__(NTH) k3_prepare_kernel(const Args a) {
 //   kC: dhb = qgelu'(hb) acc (bf16); db1's tile partial
 //   kD: the LayerNorm backward with LN recomputed, dx = dr + dx_ln (bf16);
 //       the tile partials of d ln_scale and d ln_bias
-// The taps: kA the temporal ones (LN(x) at frame t + d - k/2), kB the 3x3
-// ones (g at pixel (y + dy, x + dx)); kC and kD their transposes (dr at
-// (y - dy, x - dx), dhb at frame t - d + k/2).
+//   kAf (K2): g = qgelu(acc + b1) (bf16) only
+//   kF (K2): out = qgelu(x + acc + b2) (bf16)
+// The taps: kA and kAf the temporal ones (LN(x) at frame t + d - k/2), kB
+// and kF the 3x3 ones (g at pixel (y + dy, x + dx)); kC and kD their
+// transposes (dr at (y - dy, x - dx), dhb at frame t - d + k/2). The
+// weight tiles: K3's layout (w1, w1^T, w2, w2^T) for A-D, K2's (w1, w2)
+// for kAf and kF.
 template <int P, int S>
 __global__ void __launch_bounds__(NTH, 2) k3_stage_kernel(const Args a) {
   using L = Smem<P>;
   constexpr int LD = L::LD, ES = L::ES, PC = P / 8;
-  constexpr bool kTemporal = S == kA || S == kD;
+  constexpr bool kTemporal = S == kA || S == kD || S == kAf;
+  constexpr bool kFromXl = S == kA || S == kAf;  // the temporal taps of LN(x)
+  constexpr bool kOfG = S == kB || S == kF;      // the 3x3 taps of g
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int srow[2][BM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -976,23 +1030,24 @@ __global__ void __launch_bounds__(NTH, 2) k3_stage_kernel(const Args a) {
   const int HW = a.H * a.W, pad = a.k / 2;
   const int ntaps = kTemporal ? a.k : 9;
   // the gathered operand's width K and the output's width
-  const int K = S == kA || S == kC ? a.C : a.F;
-  const int Nout = S == kA || S == kC ? a.F : a.C;
-  const bf16* src = S == kA ? a.xl : S == kB ? a.g : S == kC ? a.drh : a.dhb;
+  const int K = kFromXl || S == kC ? a.C : a.F;
+  const int Nout = kFromXl || S == kC ? a.F : a.C;
+  const bf16* src = kFromXl ? a.xl : kOfG ? a.g : S == kC ? a.drh : a.dhb;
   const bf16* wt =
-      a.wt + (size_t)(S == kA ? 0 : S == kD ? a.k : S == kB ? 2 * a.k : 2 * a.k + 9) * P * P;
+      a.wt + (size_t)(kFromXl ? 0 : S == kD || S == kF ? a.k : S == kB ? 2 * a.k : 2 * a.k + 9) *
+                 P * P;
 
   // the source row of tile row r for a tap, -1 for zeros
   auto source = [&](int tap, int r) {
     const int p = p0 + r;
     if (p >= a.N) return -1;
     if (kTemporal) {
-      const int dt = S == kA ? tap - pad : pad - tap;
+      const int dt = kFromXl ? tap - pad : pad - tap;
       const int t = (p / HW) % a.T + dt;
       return t >= 0 && t < a.T ? p + dt * HW : -1;
     }
-    const int dy = S == kB ? tap / 3 - 1 : 1 - tap / 3;
-    const int dx = S == kB ? tap % 3 - 1 : 1 - tap % 3;
+    const int dy = kOfG ? tap / 3 - 1 : 1 - tap / 3;
+    const int dx = kOfG ? tap % 3 - 1 : 1 - tap % 3;
     const int yx = p % HW, y = yx / a.W + dy, xx = yx % a.W + dx;
     return y >= 0 && y < a.H && xx >= 0 && xx < a.W ? p + dy * a.W + dx : -1;
   };
@@ -1045,15 +1100,25 @@ __global__ void __launch_bounds__(NTH, 2) k3_stage_kernel(const Args a) {
   __syncthreads();
   const int nrows = min(BM, a.N - p0);
 
-  if constexpr (S == kA) {
+  if constexpr (kFromXl) {
 #pragma unroll 4
     for (int i = threadIdx.x; i < BM * P; i += NTH) {
       const int r = i / P, f = i % P;
       if (r < nrows && f < Nout) {
         const size_t o = (size_t)(p0 + r) * Nout + f;
         const float h = Es[r * ES + f] + a.b1[f];
-        a.hb[o] = h;
+        if constexpr (S == kA) a.hb[o] = h;
         a.g[o] = __float2bfloat16_rn(qgelu(h));
+      }
+    }
+  } else if constexpr (S == kF) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < BM * P; i += NTH) {
+      const int r = i / P, c = i % P;
+      if (r < nrows && c < Nout) {
+        const size_t o = (size_t)(p0 + r) * Nout + c;
+        a.out[o] = __float2bfloat16_rn(
+            qgelu(__bfloat162float(a.x[o]) + Es[r * ES + c] + a.b2[c]));
       }
     }
   } else if constexpr (S == kB || S == kC) {
@@ -1291,6 +1356,13 @@ cudaError_t prepare_all() {
 }
 
 template <int P>
+cudaError_t prepare_fwd() {
+  using L = Smem<P>;
+  DTT_TRY(prepare(k3_stage_kernel<P, kAf>, L::bytes));
+  return prepare(k3_stage_kernel<P, kF>, L::bytes);
+}
+
+template <int P>
 cudaError_t launch(const Args& a, float* dlns, float* dlnb, float* dw1, float* db1, float* dw2,
                    float* db2, cudaStream_t st) {
   using L = Smem<P>;
@@ -1300,7 +1372,7 @@ cudaError_t launch(const Args& a, float* dlns, float* dlnb, float* dw1, float* d
   const int ln_blocks = (a.N + NW - 1) / NW;
   const int pack_blocks = (int)(((long)(2 * a.k + 18) * P * P + NTH - 1) / NTH);
   const int prep_blocks = ln_blocks > pack_blocks ? ln_blocks : pack_blocks;
-  k3_prepare_kernel<P><<<prep_blocks, NTH, 0, st>>>(a);
+  k3_prepare_kernel<P, false><<<prep_blocks, NTH, 0, st>>>(a);
   DTT_TRY(cudaGetLastError());
   k3_stage_kernel<P, kA><<<tiles, NTH, L::bytes, st>>>(a);
   DTT_TRY(cudaGetLastError());
@@ -1333,17 +1405,48 @@ cudaError_t dispatch(const Args& a, float* dlns, float* dlnb, float* dw1, float*
   }
 }
 
-// which: 0-3 the stage kernels A-D, 4 the weight grads
+// K2: prepare (LN(x) and the forward's tiles), Af, F
+template <int P>
+cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
+  using L = Smem<P>;
+  DTT_TRY(prepare_fwd<P>());
+  const int tiles = (a.N + BM - 1) / BM;
+  const int ln_blocks = (a.N + NW - 1) / NW;
+  const int pack_blocks = (int)(((long)(a.k + 9) * P * P + NTH - 1) / NTH);
+  const int prep_blocks = ln_blocks > pack_blocks ? ln_blocks : pack_blocks;
+  k3_prepare_kernel<P, true><<<prep_blocks, NTH, 0, st>>>(a);
+  DTT_TRY(cudaGetLastError());
+  k3_stage_kernel<P, kAf><<<tiles, NTH, L::bytes, st>>>(a);
+  DTT_TRY(cudaGetLastError());
+  k3_stage_kernel<P, kF><<<tiles, NTH, L::bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_fwd(const Args& a, cudaStream_t st) {
+  switch (padded(a.C, a.F)) {
+    case 32: return launch_fwd<32>(a, st);
+    case 64: return launch_fwd<64>(a, st);
+    case 96: return launch_fwd<96>(a, st);
+    case 128: return launch_fwd<128>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// which: 0-3 K3's stage kernels A-D, 4 its weight grads, 5-6 K2's stage
+// kernels Af and F
 template <int P>
 cudaError_t occupancy(int which, int* blocks, int* bytes) {
   using L = Smem<P>;
-  const void* fns[5] = {reinterpret_cast<const void*>(k3_stage_kernel<P, kA>),
+  const void* fns[7] = {reinterpret_cast<const void*>(k3_stage_kernel<P, kA>),
                         reinterpret_cast<const void*>(k3_stage_kernel<P, kB>),
                         reinterpret_cast<const void*>(k3_stage_kernel<P, kC>),
                         reinterpret_cast<const void*>(k3_stage_kernel<P, kD>),
-                        reinterpret_cast<const void*>(k3_wgrad_kernel<P>)};
+                        reinterpret_cast<const void*>(k3_wgrad_kernel<P>),
+                        reinterpret_cast<const void*>(k3_stage_kernel<P, kAf>),
+                        reinterpret_cast<const void*>(k3_stage_kernel<P, kF>)};
   *bytes = (int)(which == 4 ? L::wgrad : L::bytes);
   DTT_TRY(prepare_all<P>());
+  DTT_TRY(prepare_fwd<P>());
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fns[which], NTH, *bytes);
 }
 
@@ -1354,12 +1457,16 @@ cudaError_t occupancy(int which, int* blocks, int* bytes) {
 // x, out: (B, T, H, W, C) contiguous, fp32 (is_bf16 = 0) or bf16 (1).
 // ln_s, ln_b (C); w1 (k*C, F) = the raw (k,1,1,C,F) kernel; b1 (F);
 // w2 (9*F, C) = the raw (1,3,3,F,C) kernel; b2 (C): all fp32 contiguous.
-// g: fp32 scratch of B*T*H*W*F elements. C, F <= 128. Two launches on
-// `stream`; returns cudaGetLastError() after them.
+// C, F <= 128. The route follows the type: fp32 on the CUDA cores (two
+// launches; scratch: the fp32 g, B*T*H*W*F floats), bf16 on the tensor
+// cores (C and F multiples of 8; three launches; scratch 16-byte aligned:
+// k3::FwdLayout). scratch: fp32 of scratch_floats elements. Launches on
+// `stream`; returns the first error.
 extern "C" int dtt_temporal_net_fwd(const void* x, const float* ln_s, const float* ln_b,
                                     const float* w1, const float* b1, const float* w2,
-                                    const float* b2, float* g, void* out, int B, int Tn, int H,
-                                    int W, int C, int F, int k, int is_bf16, void* stream) {
+                                    const float* b2, float* scratch, void* out, int B, int Tn,
+                                    int H, int W, int C, int F, int k, int is_bf16,
+                                    int scratch_floats, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C > 128 || F > 128 ||
       k <= 0)
     return cudaErrorInvalidValue;
@@ -1367,10 +1474,34 @@ extern "C" int dtt_temporal_net_fwd(const void* x, const float* ln_s, const floa
   if (n > 2147483647L / 128) return cudaErrorInvalidValue;
   const int N = (int)n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, g, out, N, Tn, H, W,
-                                           C, F, k, st)
-                 : dispatch<float>(x, ln_s, ln_b, w1, b1, w2, b2, g, out, N, Tn, H, W, C, F,
-                                   k, st);
+  if (is_bf16) {  // the tensor cores; rows move as 16-byte copies
+    if (C % 8 || F % 8) return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(scratch) % 16) return cudaErrorMisalignedAddress;
+    const k3::FwdLayout S(scratch, N, C, F, k, k3::padded(C, F));
+    if (S.total != (size_t)scratch_floats) return cudaErrorInvalidValue;
+    k3::Args a{};
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.ln_s = ln_s;
+    a.ln_b = ln_b;
+    a.w1 = w1;
+    a.b1 = b1;
+    a.w2 = w2;
+    a.b2 = b2;
+    a.wt = S.wt;
+    a.xl = S.xl;
+    a.g = S.g;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.N = N;
+    a.T = Tn;
+    a.H = H;
+    a.W = W;
+    a.C = C;
+    a.F = F;
+    a.k = k;
+    return k3::dispatch_fwd(a, st);
+  }
+  if ((size_t)scratch_floats != (size_t)N * F) return cudaErrorInvalidValue;
+  return dispatch<float>(x, ln_s, ln_b, w1, b1, w2, b2, scratch, out, N, Tn, H, W, C, F, k, st);
 }
 
 // The block's gradient for the cotangent gout of its output (K3).
@@ -1415,11 +1546,12 @@ extern "C" int dtt_temporal_net_bwd(const void* x, const void* gout, const float
                              dlnb, dw1, db1, dw2, db2, N, Tn, H, W, C, F, k, st);
 }
 
-// K3's bf16 route at channels C, F: the blocks of one kernel resident on an
+// The bf16 routes at channels C, F: the blocks of one kernel resident on an
 // SM (occupancy calculator) into *blocks and its dynamic shared memory per
-// block into *bytes. which: 0-3 the stage kernels A-D, 4 the weight grads.
-extern "C" int dtt_temporal_net_bwd_occupancy(int C, int F, int which, int* blocks, int* bytes) {
-  if (C <= 0 || F <= 0 || C > 128 || F > 128 || which < 0 || which > 4)
+// block into *bytes. which: 0-3 K3's stage kernels A-D, 4 its weight
+// grads, 5-6 K2's stage kernels Af and F.
+extern "C" int dtt_temporal_net_occupancy(int C, int F, int which, int* blocks, int* bytes) {
+  if (C <= 0 || F <= 0 || C > 128 || F > 128 || which < 0 || which > 6)
     return cudaErrorInvalidValue;
   switch (k3::padded(C, F)) {
     case 32: return k3::occupancy<32>(which, blocks, bytes);

@@ -9,11 +9,15 @@ inside and the output in x's dtype. The signature and weight layouts are
 the JAX package's: raw kernels ``w1 (k,1,1,C,F)`` and ``w2 (1,3,3,F,C)``.
 
 Forward: on a CUDA tensor :func:`fused_temporal_net` launches the
-hand-written kernel K2 of ``csrc/temporal_net.cu`` (two launches through
-an fp32 scratch the wrapper allocates; one call, one count), or raises. On
-a CPU tensor it runs :func:`temporal_net_plain`, which mirrors
-``_reference`` / ``_chain_fwd``: each conv tap is a shifted view of the
-zero-padded activations times one (C, F) weight block.
+hand-written kernel K2 of ``csrc/temporal_net.cu`` (a few launches through
+a scratch the wrapper allocates; one call, one count), or raises. Its
+route follows x's dtype (:func:`temporal_net_fwd_route`): float32 runs on
+the CUDA cores, bf16 (the served and trained model's) on the tensor cores,
+from the stages of K3's bf16 route, with bf16 product operands and fp32
+sums and elementwise steps. On a CPU tensor it runs
+:func:`temporal_net_plain`, which mirrors ``_reference`` / ``_chain_fwd``:
+each conv tap is a shifted view of the zero-padded activations times one
+(C, F) weight block.
 
 Backward: :func:`fused_temporal_net_bwd` launches K3 (the same source; it
 recomputes the forward, as ``_bwd_kernel`` does) or, on a CPU tensor,
@@ -35,12 +39,12 @@ EPS = 1e-5
 MAX_CHANNELS = 128
 
 _SIGNATURES = {
-    "dtt_temporal_net_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    "dtt_temporal_net_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p],
     "dtt_temporal_net_bwd": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p],
-    "dtt_temporal_net_bwd_occupancy": [ctypes.c_int] * 3
-                                      + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "dtt_temporal_net_occupancy": [ctypes.c_int] * 3
+                                  + [ctypes.POINTER(ctypes.c_int)] * 2,
     "dtt_temporal_net_error_string": [ctypes.c_int],
 }
 # K3 sums its weight-gradient partials over this many fixed chunks of
@@ -50,9 +54,11 @@ _SIGNATURES = {
 BWD_CHUNKS = 32
 BWD_TILE = 64
 BWD_MMA_TILE = 128
-# the bf16 route's kernels, in the order its occupancy entry numbers them
+# the bf16 routes' kernels, in the order the occupancy entry numbers them:
+# K3's, then K2's
 BWD_MMA_KERNELS = ("stage_A", "stage_B", "stage_C", "stage_D",
                    "weight_grads")
+FWD_MMA_KERNELS = ("stage_Af", "stage_F")
 
 
 def _qgelu(x):
@@ -211,18 +217,29 @@ def _check_cuda(x, params, c, f):
     return n
 
 
+def _check_bf16_widths(dtype, c, f):
+    """The bf16 routes move rows of 8 channels as 16-byte copies."""
+    if dtype == torch.bfloat16 and (c % 8 or f % 8):
+        raise ValueError(f"the bf16 kernel moves rows of 8 channels: C={c} "
+                         f"and F={f} must be multiples of 8")
+
+
 def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
                        packed=None):
     """TemporalNet block on x (B, T, H, W, C). CUDA tensor: the
-    hand-written kernel K2, on ``packed`` (:func:`pack_weights` of the same
-    parameters) or on weights packed for this call; CPU tensor:
-    :func:`temporal_net_plain`. Not differentiable itself: see
-    :func:`temporal_net`."""
+    hand-written kernel K2 on the route :func:`temporal_net_fwd_route`
+    names, on ``packed`` (:func:`pack_weights` of the same parameters; the
+    bf16 route packs its own bf16 tiles from them in each call) or on
+    weights packed for this call; CPU tensor: :func:`temporal_net_plain`.
+    Not differentiable itself: see :func:`temporal_net`."""
     k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
     if x.device.type == "cpu":
         return temporal_net_plain(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
     params = (ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
-    _check_cuda(x, params, c, f)
+    n = _check_cuda(x, params, c, f)
+    _check_bf16_widths(x.dtype, c, f)
+    if fwd_scratch_floats(n, c, f, k, x.dtype) > 2 ** 31 - 1:
+        raise ValueError(f"{n} positions are too many for one launch")
     if packed is None:
         packed = pack_weights(*params)
     shapes = [(c,), (c,), (k * c, f), (f,), (9 * f, c), (c,)]
@@ -231,11 +248,21 @@ def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
             or p.device != x.device for p in packed):
         raise ValueError("packed weights must be pack_weights() of the "
                          "block's parameters, on x's device")
+    out = launch_fwd(_build.load("temporal_net", _SIGNATURES), x, packed)
+    fused_temporal_net.launches += 1
+    return out
+
+
+def launch_fwd(lib, x, packed):
+    """One launch of ``dtt_temporal_net_fwd`` from the library ``lib`` on
+    x and its :func:`pack_weights`, checked by :func:`fused_temporal_net`;
+    counts nothing."""
     ln_s, ln_b, w1p, b1f, w2p, b2f = packed
+    c, f = ln_s.shape[0], w1p.shape[1]
+    k = w1p.shape[0] // c
     b, t, h, w, _ = x.shape
-    lib = _build.load("temporal_net", _SIGNATURES)
-    scratch = torch.empty((b * t * h * w, f), dtype=torch.float32,
-                          device=x.device)
+    nscratch = fwd_scratch_floats(b * t * h * w, c, f, k, x.dtype)
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -243,14 +270,20 @@ def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
             x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1p.data_ptr(),
             b1f.data_ptr(), w2p.data_ptr(), b2f.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), b, t, h, w, c, f, k,
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), nscratch, stream)
     _build.check(lib, "dtt_temporal_net_error_string", err,
                  "TemporalNet kernel")
-    fused_temporal_net.launches += 1
     return out
 
 
 fused_temporal_net.launches = 0
+
+
+def temporal_net_fwd_route(dtype):
+    """K2's route for x's dtype, by the rule ``csrc/temporal_net.cu``
+    applies: ``"bf16_mma"`` (tensor cores) for bfloat16, ``"fp32"`` (CUDA
+    cores) for float32."""
+    return "bf16_mma" if dtype == torch.bfloat16 else "fp32"
 
 
 def temporal_net_bwd_route(dtype):
@@ -264,6 +297,17 @@ def _padded(c, f):
     """The bf16 route's channel padding (k3::padded): max(C, F) rounded up
     to a multiple of 32."""
     return 32 * -(-max(c, f) // 32)
+
+
+def fwd_scratch_floats(n, c, f, k, dtype=torch.float32):
+    """fp32 scratch of one K2 call on n positions, laid out as the C side
+    lays it out for ``dtype``'s route. fp32: the fp32 g (n, F). bf16
+    (``k3::FwdLayout``; a bf16 array takes half a float per element): the
+    k + 9 forward weight tiles, LN(x) and g, all bf16."""
+    if temporal_net_fwd_route(dtype) == "fp32":
+        return n * f
+    p = _padded(c, f)
+    return (k + 9) * p * p // 2 + n * c // 2 + n * f // 2
 
 
 def bwd_scratch_floats(n, c, f, k, dtype=torch.float32):
@@ -285,21 +329,30 @@ def bwd_scratch_floats(n, c, f, k, dtype=torch.float32):
             + BWD_CHUNKS * (k + 9) * c * f + tiles * (f + 3 * c))
 
 
+def _occupancy(c, f, names, first):
+    lib = _build.load("temporal_net", _SIGNATURES)
+    out = {}
+    for which, name in enumerate(names, first):
+        blocks, nbytes = ctypes.c_int(), ctypes.c_int()
+        err = lib.dtt_temporal_net_occupancy(
+            c, f, which, ctypes.byref(blocks), ctypes.byref(nbytes))
+        _build.check(lib, "dtt_temporal_net_error_string", err,
+                     "TemporalNet occupancy")
+        out[name] = {"blocks_per_sm": blocks.value,
+                     "smem_bytes": nbytes.value}
+    return out
+
+
 def bwd_occupancy(c, f):
     """{kernel: {"blocks_per_sm", "smem_bytes"}} of K3's bf16 route at
     channels (C, F): blocks resident on one SM from CUDA's occupancy
     calculator and dynamic shared memory per block (needs the card)."""
-    lib = _build.load("temporal_net", _SIGNATURES)
-    out = {}
-    for which, name in enumerate(BWD_MMA_KERNELS):
-        blocks, nbytes = ctypes.c_int(), ctypes.c_int()
-        err = lib.dtt_temporal_net_bwd_occupancy(
-            c, f, which, ctypes.byref(blocks), ctypes.byref(nbytes))
-        _build.check(lib, "dtt_temporal_net_error_string", err,
-                     "TemporalNet backward occupancy")
-        out[name] = {"blocks_per_sm": blocks.value,
-                     "smem_bytes": nbytes.value}
-    return out
+    return _occupancy(c, f, BWD_MMA_KERNELS, 0)
+
+
+def fwd_occupancy(c, f):
+    """:func:`bwd_occupancy` of K2's bf16 route: its stage kernels."""
+    return _occupancy(c, f, FWD_MMA_KERNELS, len(BWD_MMA_KERNELS))
 
 
 def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
@@ -318,9 +371,7 @@ def fused_temporal_net_bwd(x, g, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2):
             or g.device != x.device or not g.is_contiguous()):
         raise ValueError("the cotangent must be contiguous, with x's shape, "
                          "type and device")
-    if temporal_net_bwd_route(x.dtype) == "bf16_mma" and (c % 8 or f % 8):
-        raise ValueError(f"the bf16 kernel moves rows of 8 channels: C={c} "
-                         f"and F={f} must be multiples of 8")
+    _check_bf16_widths(x.dtype, c, f)
     if bwd_scratch_floats(n, c, f, k, x.dtype) > 2 ** 31 - 1:
         raise ValueError(f"{n} positions are too many for one launch")
     out = launch_bwd(_build.load("temporal_net", _SIGNATURES), x, g, *params)

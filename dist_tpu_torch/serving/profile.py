@@ -16,6 +16,7 @@ convolutions, copies and the rest.
 """
 
 import json
+import re
 import sys
 import time
 
@@ -33,8 +34,14 @@ def _group(name):
         return "K4 attention, nb rows per block (csrc/attention.cu)"
     if "attention_qkv" in n:
         return "K1 attention (csrc/attention.cu)"
-    if "temporal_stage_kernel" in n or "spatial_stage_kernel" in n:
+    # K2: the fp32 route's two kernels; the bf16 route's prepare (its flag
+    # true) and stages Af (4) and F (5) of the k3 kernels. K3: the rest
+    if ("temporal_stage_kernel" in n or "spatial_stage_kernel" in n
+            or re.search(r"k3_prepare_kernel<\d+, true>"
+                         r"|k3_stage_kernel<\d+, [45]>", n)):
         return "K2 TemporalNet (csrc/temporal_net.cu)"
+    if "k3_" in n:
+        return "K3 TemporalNet backward (csrc/temporal_net.cu)"
     # cuDNN's convolutions are implicit GEMMs ("fprop"): test them first
     if "fprop" in n or "conv" in n or "cudnn" in n:
         return "convolution (cuDNN)"

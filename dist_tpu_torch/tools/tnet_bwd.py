@@ -49,15 +49,25 @@ _COPY_ROWS = ("    cp_async16(dst + r * LD + ch * 8, src + (ok ? (size_t)s * K "
 _COPY_WTS = "      cp_async16(Ws + r * LD + ch * 8, w + r * P + ch * 8, true);"
 
 
+# csrc/temporal_net.cu's k3::Stage values by name: K3's A-D, K2's Af and F
+STAGES = ("A", "B", "C", "D", "Af", "F")
+
+
 def instance_name(mangled):
-    """``k3_stage_kernel<96, B>`` for the mangled name of a kernel of K3's
-    bf16 route (the stage's number as its letter)."""
-    m = re.search(r"(k3_[a-z_]+?_kernel)(?:ILi(\d+)E(?:Li(\d)E)?)?", mangled)
+    """``k3_stage_kernel<96, B>`` for the mangled name of a kernel of the
+    bf16 routes (K3's and K2's): the stage's number as its name, the
+    prepare kernel's flag as ``bwd`` or ``fwd``."""
+    m = re.search(r"(k3_[a-z_]+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
     if not m:
         return mangled
     if not m[2]:
         return m[1]
-    args = [m[2]] + (["ABCD"[int(m[3])]] if m[3] else [])
+    args = []
+    for kind, v in re.findall(r"L([ib])(\d+)E", m[2]):
+        if kind == "b":
+            args.append(("bwd", "fwd")[int(v)])
+        else:
+            args.append(STAGES[int(v)] if args else v)
     return f"{m[1]}<{', '.join(args)}>"
 
 
@@ -99,11 +109,11 @@ def control_params(params):
     return tuple(p)
 
 
-def errors(got, want):
+def errors(got, want, names=NAMES):
     """{output: {"max_rel", "rel_l2"}}: max |got - want| over max |want|
-    and ||got - want|| / ||want||, in fp64."""
+    and ||got - want|| / ||want||, in fp64, for the outputs ``names``."""
     out = {}
-    for name, a, b in zip(NAMES, got, want):
+    for name, a, b in zip(names, got, want):
         a, b = a.double(), b.double()
         out[name] = {
             "max_rel": float((a - b).abs().max()) / float(b.abs().max()),
@@ -146,15 +156,15 @@ def cmd_errors(args):
                                          for c in controls)}), flush=True)
 
 
-def _profile(x, g, params, calls=5):
-    """{kernel name: device ms per K3 call} over ``calls`` calls, or None
-    if the profiler saw no device time."""
+def profile_calls(fn, calls=5):
+    """{kernel name: device ms per call of ``fn``} over ``calls`` calls, or
+    None if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            tn.fused_temporal_net_bwd(x, g, *params)
+            fn()
         torch.cuda.synchronize()
     out = {}
     for evt in prof.key_averages():
@@ -190,7 +200,8 @@ def cmd_variants(args):
                     rec["equal_to_the_built_kernel"] = all(
                         bool(torch.equal(a, b)) for a, b in zip(got, want))
             print(json.dumps(rec), flush=True)
-    print(json.dumps({"profile": _profile(x, g, params), "device": device,
+    profile = profile_calls(lambda: tn.fused_temporal_net_bwd(x, g, *params))
+    print(json.dumps({"profile": profile, "device": device,
                       "shape": list(shape)}), flush=True)
 
 

@@ -12,7 +12,7 @@ import torch
 
 from dist_tpu_torch.ops import attention as att
 from dist_tpu_torch.ops import temporal_net as tn
-from dist_tpu_torch.tools import tnet_bwd
+from dist_tpu_torch.tools import tnet_bwd, tnet_fwd
 
 pytestmark = pytest.mark.cuda
 
@@ -221,26 +221,71 @@ def _tn_params(c, f, k, seed):
             r(f, sc=0.1), r(1, 3, 3, f, c, sc=(9 * f) ** -0.5), r(c, sc=0.1))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,f,k", [((2, 16, 14, 14, 96), 96, 3),
-                                       ((2, 4, 5, 6, 8), 8, 3),
-                                       ((1, 5, 3, 7, 40), 24, 5),
-                                       ((3, 2, 14, 14, 128), 128, 1)])
-def test_temporal_net_kernel_matches_plain(shape, f, k, dtype):
-    dt = getattr(torch, dtype)
+FWD_SHAPES = [((2, 16, 14, 14, 96), 96, 3), ((2, 4, 5, 6, 8), 8, 3),
+              ((1, 5, 3, 7, 40), 24, 5), ((3, 2, 14, 14, 128), 128, 1)]
+
+
+def _fwd_inputs(shape, f, k, dt):
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    x = x.to("cuda", dt)
-    params = _tn_params(shape[-1], f, k, seed=8)
+    return x.to("cuda", dt), _tn_params(shape[-1], f, k, seed=8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,f,k", FWD_SHAPES)
+def test_temporal_net_kernel_matches_plain(shape, f, k, dtype):
+    dt = getattr(torch, dtype)
+    x, params = _fwd_inputs(shape, f, k, dt)
     before = tn.fused_temporal_net.launches
     got = tn.fused_temporal_net(x, *params)
     torch.cuda.synchronize()
     assert tn.fused_temporal_net.launches == before + 1
     want = tn.temporal_net_plain(x, *params)
+    assert got.dtype == dt and got.shape == want.shape
     if dt == torch.float32:
         _within(got, want, 1e-4, 1e-5)          # summation order only
     else:
-        _within(got, want, 1e-4, 2 ** -7)       # one bf16 step of the output
+        # bf16 product operands (xl, g, w1, w2), fp32 sums, the output
+        # rounded once: tnet_fwd.FWD_BF16_LIMITS, each with its reason
+        assert torch.isfinite(got.float()).all()
+        assert not tnet_bwd.breaches(tnet_fwd.errors(got, want),
+                                     tnet_fwd.FWD_BF16_LIMITS)
+
+
+@pytest.mark.parametrize("shape,f,k", FWD_SHAPES)
+def test_temporal_net_bf16_limits_see_a_dropped_tap(shape, f, k):
+    """The control: the bf16 kernel's output against the plain version
+    with w2's (0, 0) tap zeroed breaks ``FWD_BF16_LIMITS``."""
+    x, params = _fwd_inputs(shape, f, k, torch.bfloat16)
+    got = tn.fused_temporal_net(x, *params)
+    control = tn.temporal_net_plain(x, *tnet_bwd.control_params(params))
+    assert tnet_bwd.breaches(tnet_fwd.errors(got, control),
+                             tnet_fwd.FWD_BF16_LIMITS)
+
+
+@pytest.mark.parametrize("shape,f,k", FWD_SHAPES)
+def test_temporal_net_bf16_repeats_bit_for_bit(shape, f, k):
+    """No atomics and fixed-order sums: two launches, the same bits."""
+    x, params = _fwd_inputs(shape, f, k, torch.bfloat16)
+    assert tn.temporal_net_fwd_route(x.dtype) == "bf16_mma"
+    assert torch.equal(tn.fused_temporal_net(x, *params),
+                       tn.fused_temporal_net(x, *params))
+
+
+def test_temporal_net_bf16_route_refuses_odd_widths():
+    """The bf16 route copies rows in 16-byte pieces: C and F must be
+    multiples of 8, and a bf16 tensor of another width raises rather than
+    taking the fp32 kernels; fp32 takes any width."""
+    x, params = _fwd_inputs((1, 2, 3, 3, 12), 12, 3, torch.bfloat16)
+    before = tn.fused_temporal_net.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tn.fused_temporal_net(x, *params)
+    x8, params8 = _fwd_inputs((1, 2, 3, 3, 8), 12, 3, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):   # F = 12
+        tn.fused_temporal_net(x8, *params8)
+    assert tn.fused_temporal_net.launches == before
+    _within(tn.fused_temporal_net(x.float(), *params),
+            tn.temporal_net_plain(x.float(), *params), 1e-4, 1e-5)
 
 
 def test_temporal_net_kernel_refuses_what_it_cannot_take():
@@ -424,6 +469,17 @@ def test_temporal_net_bwd_occupancy(c, f):
     assert list(occ) == list(tn.BWD_MMA_KERNELS)
     for v in occ.values():
         assert v["blocks_per_sm"] >= 1 and v["smem_bytes"] > 0
+
+
+@pytest.mark.parametrize("c,f", [(96, 96), (8, 8), (40, 24), (128, 128)])
+def test_temporal_net_fwd_occupancy(c, f):
+    """K2's bf16 stages fit as K3's do: the same shared memory a block."""
+    occ = tn.fwd_occupancy(c, f)
+    assert list(occ) == list(tn.FWD_MMA_KERNELS)
+    bwd = tn.bwd_occupancy(c, f)
+    for v in occ.values():
+        assert v["blocks_per_sm"] >= 1
+        assert v["smem_bytes"] == bwd["stage_B"]["smem_bytes"]
 
 
 def _tn_module(fused, seed, c=8):

@@ -86,6 +86,16 @@ def test_profile_groups_kernels_and_unions_busy_time():
             "K4 attention, nb rows per block (csrc/attention.cu)",
         "void (anonymous namespace)::spatial_stage_kernel<float, 6>(x)":
             "K2 TemporalNet (csrc/temporal_net.cu)",
+        "void (anonymous namespace)::k3::k3_prepare_kernel<96, true>(x)":
+            "K2 TemporalNet (csrc/temporal_net.cu)",
+        "void (anonymous namespace)::k3::k3_stage_kernel<96, 4>(x)":
+            "K2 TemporalNet (csrc/temporal_net.cu)",
+        "void (anonymous namespace)::k3::k3_stage_kernel<96, 5>(x)":
+            "K2 TemporalNet (csrc/temporal_net.cu)",
+        "void (anonymous namespace)::k3::k3_stage_kernel<96, 1>(x)":
+            "K3 TemporalNet backward (csrc/temporal_net.cu)",
+        "void (anonymous namespace)::k3::k3_prepare_kernel<96, false>(x)":
+            "K3 TemporalNet backward (csrc/temporal_net.cu)",
         "nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN": "GEMM (cuBLAS)",
         "sm80_xmma_gemm_bf16bf16_bf16f32_f32_tn_n": "GEMM (cuBLAS)",
         "sm80_xmma_fprop_implicit_gemm_indexed_bf16bf16_bf16f32_f32_nhwckrsc":

@@ -18,6 +18,7 @@ from dist_tpu_torch.tools import (
     profile_eval,
     serve,
     tnet_bwd,
+    tnet_fwd,
 )
 
 TINY = "configs/projects/dist/test/tiny_synth.yaml"
@@ -258,6 +259,14 @@ def test_tnet_bwd_variants_apply_to_the_kernel_source(name):
      "k3_wgrad_kernel<128>"),
     ("_ZN12_GLOBAL__N_12k313k3_sum_kernelEPKfiNS0_8SegmentsE",
      "k3_sum_kernel"),
+    ("_ZN12_GLOBAL__N_12k315k3_stage_kernelILi96ELi4EEEvNS0_4ArgsE",
+     "k3_stage_kernel<96, Af>"),
+    ("_ZN12_GLOBAL__N_12k315k3_stage_kernelILi32ELi5EEEvNS0_4ArgsE",
+     "k3_stage_kernel<32, F>"),
+    ("_ZN12_GLOBAL__N_12k317k3_prepare_kernelILi96ELb1EEEvNS0_4ArgsE",
+     "k3_prepare_kernel<96, fwd>"),
+    ("_ZN12_GLOBAL__N_12k317k3_prepare_kernelILi128ELb0EEEvNS0_4ArgsE",
+     "k3_prepare_kernel<128, bwd>"),
     ("_ZN12_GLOBAL__N_114sum_rows_kernelEPKfPfii",
      "_ZN12_GLOBAL__N_114sum_rows_kernelEPKfPfii")])
 def test_tnet_bwd_instance_names(mangled, name):
@@ -303,3 +312,65 @@ def _cpu_inputs():
              rnd(k, 1, 1, c, f, scale=(k * c) ** -0.5), rnd(f, scale=0.1),
              rnd(1, 3, 3, f, c, scale=(9 * f) ** -0.5), rnd(c, scale=0.1)))
 
+
+
+@pytest.mark.parametrize("cmd", ["errors", "variants", "host"])
+def test_tnet_fwd_needs_a_card(monkeypatch, cmd):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs the CUDA card"):
+        tnet_fwd.main([cmd])
+
+
+@pytest.mark.parametrize("argv,cmd,opts", [
+    (["errors"], "errors", {"seeds": 3}),
+    (["errors", "--seeds", "1"], "errors", {"seeds": 1}),
+    (["variants"], "variants", {"reps": 20}),
+    (["variants", "--reps", "5"], "variants", {"reps": 5}),
+    (["host"], "host", {"calls": 50}),
+    (["host", "--calls", "7"], "host", {"calls": 7})])
+def test_tnet_fwd_arguments(monkeypatch, argv, cmd, opts):
+    """Each command gets its own options, with their defaults; an unknown
+    command or option is refused."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tnet_fwd, f"cmd_{cmd}", seen.append)
+    tnet_fwd.main(argv)
+    assert len(seen) == 1 and seen[0].cmd == cmd
+    assert {k: v for k, v in vars(seen[0]).items() if k != "cmd"} == opts
+    with pytest.raises(SystemExit):
+        tnet_fwd.main([cmd, "--bogus", "1"])
+
+
+def test_tnet_fwd_readings_and_control_on_cpu():
+    """The readings on the CPU, where the wrapper runs the plain version:
+    the kernel's reading is zero and within any limits, the control's is
+    not, so it breaks them; the instances the kernels line reads are K2's
+    three."""
+    from dist_tpu_torch.ops import temporal_net as tn
+
+    x, _, params = _cpu_inputs()
+    got = tn.fused_temporal_net(x, *params)
+    reading = tnet_fwd.errors(got, tn.temporal_net_plain(x, *params))
+    assert reading == {"out": {"max_rel": 0.0, "rel_l2": 0.0}}
+    assert not tnet_bwd.breaches(reading, tnet_fwd.FWD_BF16_LIMITS)
+    control = tnet_fwd.errors(got, tn.temporal_net_plain(
+        x, *tnet_bwd.control_params(params)))
+    assert [b[:2] for b in tnet_bwd.breaches(
+        control, tnet_fwd.FWD_BF16_LIMITS)] == [("out", "max_rel"),
+                                                ("out", "rel_l2")]
+    assert tnet_fwd.instances(96) == (
+        "k3_prepare_kernel<96, fwd>", "k3_stage_kernel<96, Af>",
+        "k3_stage_kernel<96, F>")
+
+
+def test_tnet_fwd_unfused_block_is_the_plain_version():
+    """``unfused_ms``'s yardstick computes the block: the model's unfused
+    TemporalNet holding the same parameters equals the plain version to
+    fp32 summation order (atol 1e-5)."""
+    from dist_tpu_torch.ops import temporal_net as tn
+
+    x, _, params = _cpu_inputs()
+    with torch.no_grad():
+        got = tnet_fwd.unfused_block(params)(x)
+    torch.testing.assert_close(got, tn.temporal_net_plain(x, *params),
+                               atol=1e-5, rtol=0)

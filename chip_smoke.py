@@ -31,7 +31,18 @@
    (both bf16, as served), and the card against the CPU with both in
    fp32, held to ``AGREEMENT_LIMITS``; controls (the unfused model with
    one of K2's spatial taps dropped) must break those limits.
-5. Train: the same config's train step at full width (batch 32,
+5. Multi-view test: the port's test run list, through the code of
+   ``python -m dist_tpu_torch.run``, on the same config at full width
+   with synthetic clips (``MULTIVIEW_OPTS``) and the served engine's
+   weights written to a ``.pyth``: the single-view test (16 clips) and the
+   automatic 3-view test (48 clips), batch 16. Checks every view counted
+   once, each video's ensembled score the sum of its views', each clip's
+   scores within ``HTTP_SCORE_LIMIT`` of the engine's ``predict`` of the
+   same clip, the launches per run (K1 12 per batch and 12 at set-up, K2
+   12 per batch) and the refusal of ``TRAIN.ENABLE``; prints top-1/5 (a
+   smoke value), clips/s, the loader-wait share, the card's time per
+   batch and the video decoder the machine has.
+6. Train: the same config's train step at full width (batch 32,
    bf16, AdamW with the DiST groups, cosine LR with warmup, mixup/cutmix,
    label smoothing, ``TPU.FUSED_TEMPORAL_NET true``): 2 warm-up and 5
    timed steps on seeded uint8 clips. Checks finite losses, that every
@@ -39,13 +50,13 @@
    and the launches per step (K1 12 in the frozen vision tower, K2 12,
    K3 12); K1's 12 text-tower launches at set-up are counted apart. Then
    times 3 steps with the unfused TemporalNet beside them.
-6. Train agreement: for three weight seeds, one step's dist_net gradients
+7. Train agreement: for three weight seeds, one step's dist_net gradients
    and loss (mixup off) of the fused path against the unfused path (cuDNN
    convs), both bf16 on the card at batch 32, and of the card against the
    CPU plain versions, both fp32 at batch 2, held to
    ``TRAIN_AGREEMENT_LIMITS``; a control with one spatial tap of the first
    block dropped must break them.
-7. Tools, at full width (launch counts zeroed just before, read just
+8. Tools, at full width (launch counts zeroed just before, read just
    after the in-process part): ``microbench attn`` in this process (REPS
    small, stdout captured): every variant has ``ms`` and no ``error``, and
    K4 (``attn_rows{2,4,8}``) lies within the bf16 tolerance of K1; an HTTP
@@ -69,7 +80,8 @@ version at the lengths on the edges of the routes (``ROUTE_EDGE_LENGTHS``).
 
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
-phase, the serving shapes' numbers beside them; K4's from the tools phase
+phase, the serving shapes' numbers beside them, the multi-view test's
+launches as ``test_launches``; K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
 main path launches; K2 and K3 with their route, ``fwd_route`` and
@@ -152,6 +164,12 @@ TRAIN_AGREEMENT_LIMITS = {
                  "loss_rel_diff": 5.8e-7},
 }
 
+
+# the multi-view test phase: the flagship's run list on synthetic clips,
+# with the config's TEST.BATCH_SIZE (16): 16 clips, then 3 views of each
+MULTIVIEW_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.ENABLE", "false",
+                  "TEST.ENABLE", "true", "TPU.FUSED_TEMPORAL_NET", "true",
+                  "TEST.NUM_SAMPLES_LIMIT", "16"]
 
 # the tools phase: microbench repetitions, each tool subprocess's time
 # limit, and the HTTP round trip's limit on a returned score against the
@@ -805,6 +823,160 @@ def agreement(repo, engine):
         raise AssertionError("agreement: " + "; ".join(problems))
 
 
+def multiview_test(repo, engine, card):
+    """The port's test run list at full width, through the code of
+    ``python -m dist_tpu_torch.run``: the served engine's weights written
+    to a ``.pyth``, then the flagship config on synthetic clips
+    (``MULTIVIEW_OPTS``): the single-view test (16 clips, one batch of 16)
+    and the automatic 3-view test (48 clips, 3 batches), 16 frames at 224
+    px, bf16, K2 fused. Launch counts zeroed before and read after each
+    run. Checks: 3 views counted for every video, each video's ensembled
+    score the sum of its views' scores, each clip within
+    ``HTTP_SCORE_LIMIT`` of the engine's ``predict`` of the same uint8
+    clip, K1 launched 12 times per batch and 12 at set-up and K2 12 times
+    per batch in each run, and the run list refusing ``TRAIN.ENABLE``.
+    Prints top-1/5 (random weights, synthetic labels: a smoke value), the
+    3-view loop's clips/s and the share of it spent waiting on the loader,
+    the card's time for one batch of 16 (the eval step on a batch already
+    on the card) and the video decoder the machine has."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch import run
+    from dist_tpu_torch.config import load_from_args
+    from dist_tpu_torch.data import native_decoder
+    from dist_tpu_torch.data.datasets import Synthetic
+    from dist_tpu_torch.tasks import test as test_task
+    from dist_tpu_torch.tasks.state import compute_text_features, make_eval_step
+    from dist_tpu_torch.utils.meters import TestMeter
+
+    class Recorded(TestMeter):
+        """Also keeps each clip's scores, as first seen (the view that the
+        meter counts), by clip id."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.clip_preds = {}
+
+        def update_stats(self, preds, labels, clip_ids):
+            for p, i in zip(preds, clip_ids):
+                self.clip_preds.setdefault(int(i), np.array(p))
+            super().update_stats(preds, labels, clip_ids)
+
+    t0 = time.perf_counter()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    problems, runs, launches = [], [], []
+    test_task.TestMeter = Recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "served.pyth")
+            torch.save(engine.model.module.state_dict(), ckpt)
+            argv = ["--cfg", os.path.join(repo, FLAGSHIP),
+                    "TEST.CHECKPOINT_FILE_PATH", ckpt, "OUTPUT_DIR", tmp]
+            cfg = load_from_args(argv + MULTIVIEW_OPTS)
+            for run_cfg, func in run._prepare_data(cfg):
+                counts = _zero_counts()
+                meter = func(run_cfg, device=cfg.args.device)
+                launches.append(counts())
+                runs.append((run_cfg, meter))
+            try:   # the flagship config trains first
+                run._prepare_data(load_from_args(argv))
+                problems.append("the run list took TRAIN.ENABLE true")
+            except NotImplementedError:
+                pass
+    finally:
+        test_task.TestMeter = TestMeter
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+
+    arch = engine.model.module.arch
+    ladder = len(engine.model.module.dist.selected_layers)
+    # the synthetic dataset's label prompts, not the engine's generic ones
+    served_text = engine.text_features
+    engine.text_features = compute_text_features(
+        engine.model, Synthetic(runs[0][0], "test").text_tokens)
+    out = []
+    worst_engine, worst_sum = 0.0, 0.0
+    for (run_cfg, meter), got in zip(runs, launches):
+        views = meter.num_clips
+        batches = meter.timing["batches"]
+        want = {"attention_qkv": arch.vision_layers * batches
+                + arch.transformer_layers,
+                "attention_qkv_rows": 0,
+                "temporal_net_fwd": ladder * batches,
+                "temporal_net_bwd": 0}
+        if got != want:
+            problems.append(f"{views} views: launches {got} != {want}")
+        if not np.all(meter.clip_count == views):
+            problems.append(f"{views} views: clip counts {meter.clip_count}")
+        if not np.isfinite(meter.video_preds).all():
+            problems.append(f"{views} views: non-finite scores")
+        ids = sorted(meter.clip_preds)
+        clips = np.stack([meter.clip_preds[i] for i in ids])
+        sums = clips.reshape(-1, views, clips.shape[-1]).sum(axis=1,
+                                                             dtype=np.float64)
+        worst_sum = max(worst_sum, float(np.abs(sums - meter.video_preds).max()))
+        dataset = Synthetic(run_cfg, "test")
+        for s in range(0, len(ids), engine.batch_size):
+            chunk = ids[s:s + engine.batch_size]
+            video = np.stack([dataset[i]["video"] for i in chunk])
+            direct = engine.predict(video)
+            worst_engine = max(worst_engine, float(np.abs(
+                direct - clips[s:s + len(chunk)]).max()))
+        t = meter.timing
+        out.append({"views": views, "videos": len(meter.clip_count),
+                    "clips": len(ids), "batches": batches,
+                    "batch_size": int(run_cfg.TEST.BATCH_SIZE),
+                    "launches": got, "expected_launches": want,
+                    "top1_acc": meter.stats["top1_acc"],
+                    "top5_acc": meter.stats["top5_acc"],
+                    "loop_s": t["loop_s"], "loader_wait_s": t["loader_wait_s"],
+                    "loader_wait_share": t["loader_wait_s"] / t["loop_s"],
+                    "clips_per_s": len(ids) / t["loop_s"]})
+    engine.text_features = served_text
+    if [r["views"] for r in out] != [1, 3]:
+        problems.append(f"run list views {[r['views'] for r in out]}")
+    if worst_sum > 1e-9:
+        problems.append(f"ensembled scores off the sum of views by {worst_sum}")
+    if worst_engine > HTTP_SCORE_LIMIT:
+        problems.append(f"clip scores off the engine's predict by "
+                        f"{worst_engine}")
+
+    # the card's time for one batch of 16 clips already on it
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    size = int(engine.cfg.TEST.BATCH_SIZE)
+    video = torch.randint(0, 256, (size, engine.num_frames, engine.crop,
+                                   engine.crop, 3), generator=gen,
+                          device=engine.device,
+                          dtype=torch.int32).to(torch.uint8)
+    step = make_eval_step(engine.model, engine.cfg)
+    batch = {"video": video, "text_features": engine.text_features}
+    card_ms = time_ms(lambda: step(batch), TIMED_REPEATS)
+
+    multi = out[-1] if out else {}
+    rec = {"phase": "multiview_test", "nvidia_smi": card,
+           "config": FLAGSHIP, "overrides": MULTIVIEW_OPTS, "runs": out,
+           "top1_acc": multi.get("top1_acc"), "top5_acc": multi.get("top5_acc"),
+           "clips_per_s": multi.get("clips_per_s"),
+           "loader_wait_share": multi.get("loader_wait_share"),
+           "card_ms_per_batch": card_ms, "card_batch_size": size,
+           "max_abs_score_diff_engine": worst_engine,
+           "engine_limit": HTTP_SCORE_LIMIT,
+           "max_abs_ensemble_diff": worst_sum,
+           "decoder": native_decoder.status(),
+           "seconds": time.perf_counter() - t0, "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("multiview_test: " + "; ".join(problems))
+    return {name: sum(c[name] for c in launches) for name in launches[0]}
+
+
 def _train_cfg(repo, *opts):
     from dist_tpu_torch.config import load_config
 
@@ -1422,6 +1594,7 @@ def main():
         serve_path, train_path, rows = kernel_checks()
         engine, serve_launches = serve(repo)
         agreement(repo, engine)
+        test_launches = multiview_test(repo, engine, card)
         del engine
         torch.cuda.empty_cache()
         train_launches, tokens = train(repo)
@@ -1480,6 +1653,7 @@ def main():
                         srv, "attention_qkv_wr_kernel").items()
                         if k in att_keys})
             entry["tools_launches"] = tools_launches[name]
+            entry["test_launches"] = test_launches[name]
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
         # phase's, its numbers nb = 8's, each nb's beside them
@@ -1488,6 +1662,7 @@ def main():
             "source": "dist_tpu_torch/csrc/attention.cu",
             "replaces": "tools/microbench.py:154",
             "launches": tools_launches["attention_qkv_rows"],
+            "test_launches": test_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

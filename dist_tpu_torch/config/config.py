@@ -179,3 +179,30 @@ def load_config(cfg_file, opts=(), init_method=None, make_output_dir=True):
     if make_output_dir and cfg.get("OUTPUT_DIR"):
         os.makedirs(os.path.join(cfg.OUTPUT_DIR, "checkpoints"), exist_ok=True)
     return cfg
+
+
+def parse_args(argv=None):
+    """The CLI contract of ``runs/run.py``: ``--cfg`` + ``--init_method``
+    + KEY VALUE overrides; the port adds ``--device`` (default: the CUDA
+    card; ``cpu`` runs on the CPU)."""
+    parser = argparse.ArgumentParser(description="dist_tpu_torch config")
+    parser.add_argument("--cfg", dest="cfg_file", default=None,
+                        help="Path to the configuration file")
+    parser.add_argument("--init_method", default=None, type=str,
+                        help="kept for CLI compatibility; unused")
+    parser.add_argument("--device", default=None, type=str,
+                        help="torch device to run on (default: the CUDA "
+                             "card; raises without one)")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return parser.parse_args(argv)
+
+
+def load_from_args(argv=None):
+    """The Config of a command line; ``cfg.args`` holds ``cfg_file``,
+    ``init_method``, ``opts`` and ``device``."""
+    args = parse_args(argv)
+    if args.cfg_file is None:
+        raise ValueError("--cfg is required")
+    cfg = load_config(args.cfg_file, args.opts or [], args.init_method)
+    cfg.args.device = args.device
+    return cfg

@@ -23,7 +23,8 @@ BACKBONE_REGISTRY = Registry("Backbone")
 HEAD_REGISTRY = Registry("Head")
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port serves the CLIP+DiST "
-               "path only (ROADMAP.md queue A, 'other backbones')")
+               "path only (ROADMAP.md queue A, item 5: other backbones "
+               "and heads)")
 
 
 @HEAD_REGISTRY.register()
@@ -58,10 +59,16 @@ class VideoModel:
     def device(self):
         return next(self.module.parameters()).device
 
-    def apply(self, inputs, train=False):
+    def apply(self, inputs, train=False, state_dict=None):
         """``preds, logits`` for ``inputs = {"video", "text_features"}``;
-        ``train=True`` gives the head's training output (no softmax)."""
-        out = self.module(inputs["video"], inputs.get("text_features"))
+        ``train=True`` gives the head's training output (no softmax).
+        ``state_dict`` (e.g. an EMA copy) stands in for the module's own
+        weights in this call."""
+        args = (inputs["video"], inputs.get("text_features"))
+        if state_dict is None:
+            out = self.module(*args)
+        else:
+            out = torch.func.functional_call(self.module, state_dict, args)
         if self.head is None:
             return out, out
         return self.head(out, train=train)

@@ -7,8 +7,8 @@ import torch
 import torch.nn.functional as F
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
-               "path only (ROADMAP.md queue A, 'other backbones and "
-               "breadth': SSL/HiCo and TAL)")
+               "path only (ROADMAP.md queue A, item 5: SSL/HiCo and "
+               "TAL)")
 
 
 def soft_target_cross_entropy(logits, target):

@@ -38,7 +38,7 @@ BN = "bn_group"             # bn/norm params (BN.WEIGHT_DECAY, lr_reduce)
 REDUCE_SCALE = 0.1
 
 _LARS = ("LARS is not ported yet: the PyTorch port has no layer-wise "
-         "trust-ratio optimizer (ROADMAP.md queue A, item 1)")
+         "trust-ratio optimizer (ROADMAP.md queue A, item 2.5)")
 
 
 def _is_bn_param(name):

@@ -1,0 +1,82 @@
+"""CLI entry of the port: the test and the automatic multi-view test run
+list (port of ``runs/run.py``).
+
+    python -m dist_tpu_torch.run --cfg configs/projects/dist/ssv2/vit-b16-8+16f.yaml \
+        [--device cpu] TRAIN.ENABLE false [KEY VALUE ...]
+
+Builds the run list exactly as ``runs/run.py::_prepare_data`` does: the
+single-view test, then the automatic multi-view test with the
+per-dataset view policy (SSV2 3 x 1, Kinetics and EPIC 10 x 3, ...),
+overridable with ``TEST.OVERRIDE_MULTI_SCALE_TEST``. Each entry runs in
+this process on one card (``--device``, default the CUDA card). Training
+and the submission test are not ported yet and raise.
+"""
+
+import os
+
+from dist_tpu_torch.config.config import load_from_args
+
+_TRAIN_TODO = ("TRAIN.ENABLE: train(cfg) is not ported yet (ROADMAP.md queue "
+               "A, item 2: the train run); pass TRAIN.ENABLE false to run "
+               "the test run list")
+_SUBMISSION_TODO = ("the submission test (tasks/submission.py) is not ported "
+                    "yet (ROADMAP.md queue A, item 5)")
+
+
+def _prepare_data(cfg):
+    """[(cfg, task)] in run order; each cfg a copy of ``cfg`` as it stood
+    when its entry was added."""
+    from dist_tpu_torch.tasks.test import test
+
+    if cfg.TASK_TYPE == "submission":
+        cfg.TRAIN.ENABLE = False
+        cfg.TEST.ENABLE = False
+    elif cfg.TASK_TYPE != "classification":
+        raise ValueError(f"unknown TASK_TYPE {cfg.TASK_TYPE}")
+    if cfg.SUBMISSION.ENABLE:
+        raise NotImplementedError(_SUBMISSION_TODO)
+    if cfg.TRAIN.ENABLE:
+        raise NotImplementedError(_TRAIN_TODO)
+
+    run_list = []
+    if cfg.TEST.ENABLE:
+        run_list.append([cfg.deep_copy(), test])
+        if cfg.TEST.AUTOMATIC_MULTI_SCALE_TEST:
+            cfg.LOG_MODEL_INFO = False
+            cfg.LOG_CONFIG_INFO = False
+            cfg.TEST.NUM_ENSEMBLE_VIEWS = 10
+            cfg.TEST.NUM_SPATIAL_CROPS = 1
+            ds = str(cfg.TEST.DATASET)
+            if "kinetics" in ds or "epickitchen" in ds:
+                cfg.TEST.NUM_SPATIAL_CROPS = 3
+            if "imagenet" in ds and not cfg.PRETRAIN.ENABLE:
+                cfg.TEST.NUM_ENSEMBLE_VIEWS = 1
+                cfg.TEST.NUM_SPATIAL_CROPS = 3
+            if "ssv2" in ds:
+                cfg.TEST.NUM_ENSEMBLE_VIEWS = 3
+                cfg.TEST.NUM_SPATIAL_CROPS = 1
+            if cfg.TEST.OVERRIDE_MULTI_SCALE_TEST.ENABLE:
+                cfg.TEST.NUM_ENSEMBLE_VIEWS = (
+                    cfg.TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_ENSEMBLE_VIEWS)
+                cfg.TEST.NUM_SPATIAL_CROPS = (
+                    cfg.TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_SPATIAL_CROPS)
+            cfg.TEST.LOG_FILE = "val_{}clipsx{}crops.log".format(
+                cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS)
+            run_list.append([cfg.deep_copy(), test])
+    return run_list
+
+
+def main(argv=None):
+    """Run the run list of a command line; returns each task's result (a
+    test's meter) in order."""
+    cfg = load_from_args(argv)
+    run_list = _prepare_data(cfg)
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    results = [func(run_cfg, device=cfg.args.device)
+               for run_cfg, func in run_list]
+    print(f"Finish running with config: {cfg.args.cfg_file}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Train state and steps (port of ``dist_tpu/tasks/state.py``): video
-preparation, the once-per-engine label-text features, the eval step's
-predictions and the supervised train step.
+preparation, the once-per-run label-text features, the eval step with its
+top-k errors over the pad mask, and the supervised train step.
 
 The JAX package's step is one jitted function; here it is eager PyTorch
 that queues its work on the card and returns its metrics as 0-d device
@@ -10,6 +10,7 @@ import dataclasses
 import os
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from dist_tpu_torch.data import mixup
@@ -17,7 +18,7 @@ from dist_tpu_torch.data.transforms import normalize_device
 from dist_tpu_torch.optim.losses import calculate_loss
 from dist_tpu_torch.optim.optimizer import set_lr
 from dist_tpu_torch.utils.logging import get_logger
-from dist_tpu_torch.utils.metrics import topks_correct
+from dist_tpu_torch.utils.metrics import joint_topks_correct, topks_correct
 
 logger = get_logger(__name__)
 
@@ -43,6 +44,13 @@ def compute_text_features(model, text_tokens):
     return model.encode_text(tokens)
 
 
+def to_device(x, device, dtype=None):
+    """A host array (numpy or a CPU tensor, pinned or not) on ``device``;
+    the copy from a pinned tensor is asynchronous."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return t.to(device=device, dtype=dtype, non_blocking=True)
+
+
 def _prep_video(cfg, video):
     """uint8 batches are normalised on the device."""
     if video.dtype == torch.uint8:
@@ -50,16 +58,69 @@ def _prep_video(cfg, video):
     return video
 
 
-def make_eval_step(model, cfg):
-    """eval step: batch {"video", "text_features"} -> {"preds"} (the
-    metrics of the JAX step come with the eval run-list slice)."""
+def _epic_errors(preds, verb_labels, noun_labels, normalized, weights=None):
+    """Joint verb/noun/action top-1/5 errors for dict predictions: the
+    action (joint) errors are the headline top1/top5, the per-head errors
+    ride beside them. ``weights``: optional per-sample validity (the
+    loader's pad mask)."""
+    counts = joint_topks_correct(preds["verb_class"], preds["noun_class"],
+                                 verb_labels, noun_labels, (1, 5),
+                                 normalized=normalized, weights=weights)
+    if weights is not None:
+        n = weights.float().sum().clamp(min=1.0)
+    else:
+        n = preds["verb_class"].shape[0]
+    err = {k: (1.0 - v / n) * 100.0 for k, v in counts.items()}
+    return (err.pop("action_top1"), err.pop("action_top5"),
+            {f"{k.rsplit('_', 1)[1]}_err_{k.rsplit('_', 1)[0]}": v
+             for k, v in err.items()})
+
+
+def make_eval_step(model, cfg, use_ema=False):
+    """eval step: ``step(batch, state=None) -> metrics``.
+
+    ``batch`` = {"video", "text_features"} and optionally "labels" (N,)
+    and "mask" (N,), the loader's pad mask (0 for a pad duplicate), all
+    on the model's device. Returns {"preds"} (per-clip scores), and with
+    labels "top1_err" and "top5_err" over the rows the mask keeps, and
+    with a mask "num_valid", as 0-d device tensors. Dict predictions
+    (EPIC verb/noun heads) give the joint action errors when the batch has
+    "label_verb" and "label_noun". ``use_ema`` runs the forward with the
+    EMA copy of ``state`` (a :class:`TrainState`)."""
+    # heads emit softmax scores at eval only with the softmax activation;
+    # the joint metric must not softmax those again
+    head_normalized = str(
+        cfg.VIDEO.HEAD.get("ACTIVATION", "softmax") or "") == "softmax"
 
     @torch.no_grad()
-    def step(batch):
+    def step(batch, state=None):
+        ema = None
+        if use_ema:
+            if state is None or state.ema is None:
+                raise ValueError("use_ema needs a TrainState with an EMA copy")
+            ema = state.ema
         inputs = {"video": _prep_video(cfg, batch["video"]),
                   "text_features": batch.get("text_features")}
-        preds, _ = model.apply(inputs, train=False)
-        return {"preds": preds}
+        preds, _ = model.apply(inputs, train=False, state_dict=ema)
+        mask = batch.get("mask")
+        out = {"preds": preds}
+        if mask is not None:
+            out["num_valid"] = mask.float().sum()
+        if isinstance(preds, dict):
+            if "label_verb" in batch:
+                top1, top5, head_errs = _epic_errors(
+                    preds, batch["label_verb"], batch["label_noun"],
+                    normalized=head_normalized, weights=mask)
+                out.update(top1_err=top1, top5_err=top5, **head_errs)
+            return out
+        if "labels" in batch:
+            c1, c5 = topks_correct(preds, batch["labels"], (1, 5),
+                                   weights=mask)
+            n = (mask.float().sum().clamp(min=1.0) if mask is not None
+                 else preds.shape[0])
+            out["top1_err"] = (1.0 - c1 / n) * 100.0
+            out["top5_err"] = (1.0 - c5 / n) * 100.0
+        return out
 
     return step
 
@@ -93,7 +154,7 @@ def create_train_state(model, optimizer, ema_decay=None):
 
 
 _DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
-               "ported yet (ROADMAP.md queue A, item 1)")
+               "ported yet (ROADMAP.md queue A, item 2.4)")
 
 
 def make_train_step(model, cfg, optimizer, lr_fn):

@@ -1,17 +1,12 @@
 """The train loop's epoch (port of ``train_epoch`` of
 ``dist_tpu/tasks/train.py``). Preemption, multi-host polling, checkpoint
-save and resume, and ``train(cfg)`` with the data loader come with later
-slices (ROADMAP.md queue A, item 1)."""
+save and resume, and ``train(cfg)`` come with the train run (ROADMAP.md
+queue A, item 2)."""
 
-import numpy as np
 import torch
 
+from dist_tpu_torch.tasks.state import to_device
 from dist_tpu_torch.utils import misc
-
-
-def _to_device(x, device, dtype=None):
-    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-    return t.to(device=device, dtype=dtype, non_blocking=True)
 
 
 def train_epoch(cfg, state, train_step, loader, meter, cur_epoch, generator,
@@ -40,9 +35,9 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch, generator,
 
     pending = None
     for cur_iter, batch in enumerate(loader):
-        device_batch = {"video": _to_device(batch["video"], device),
-                        "labels": _to_device(batch["label"], device,
-                                             torch.long)}
+        device_batch = {"video": to_device(batch["video"], device),
+                        "labels": to_device(batch["label"], device,
+                                            torch.long)}
         if text_features is not None:
             device_batch["text_features"] = text_features
         metrics = train_step(state, device_batch, generator)

@@ -22,7 +22,7 @@
              names or the name ``parity``). The JAX tool's rolled and
              unrolled variants are a choice of XLA's compile with no eager
              counterpart; the remat variants wait for TPU.REMAT
-             (``ROADMAP.md`` list A, item 1.6) and print a ``not_ported``
+             (``ROADMAP.md`` list A, item 2.7) and print a ``not_ported``
              line.
   bwd_parts  forward + backward of one ladder step's modules (names as
              for ``dist``); ``ms`` is one module of one step
@@ -361,7 +361,7 @@ def cmd_dist(bench, names):
 # ----------------------------------------------------------------- bwd ----
 
 REMAT_NOT_PORTED = ("TPU.REMAT is not ported yet (ROADMAP.md list A, "
-                    "item 1.6)")
+                    "item 2.7)")
 
 
 def cmd_bwd(bench, names):

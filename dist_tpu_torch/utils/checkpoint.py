@@ -2,8 +2,10 @@
 of ``dist_tpu/utils/checkpoint.py::load_test_checkpoint``.
 
 Orbax checkpoints written by the JAX package (directories under
-``OUTPUT_DIR/checkpoints``) are not read by the port yet; meeting one is
-an error that names the ROADMAP item, never a silent random model.
+``OUTPUT_DIR/checkpoints``) are not read by the port, which cannot import
+``orbax``; meeting one is an error that says how to convert it, never a
+silent random model. A JAX-trained tree reaches the port through
+``models/clip/convert.py::state_dict_from_jax`` and a ``.pyth`` file.
 """
 
 import os
@@ -16,10 +18,12 @@ from dist_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-_ORBAX_TODO = ("reading the JAX package's Orbax checkpoints is not ported "
-               "yet (ROADMAP.md queue A, 'eval run-list'); convert it to a "
-               "torch state dict or point TEST.CHECKPOINT_FILE_PATH at a "
-               ".pyth/.pt file")
+_ORBAX_TODO = ("the port does not read the JAX package's Orbax checkpoints "
+               "(ROADMAP.md queue A, item 2.1: checkpoints); restore the "
+               "JAX TrainState, convert its params with "
+               "dist_tpu_torch.models.clip.convert.state_dict_from_jax, "
+               "torch.save them as a .pyth and point "
+               "TEST.CHECKPOINT_FILE_PATH at it")
 
 
 def _is_torch_ckpt(path):

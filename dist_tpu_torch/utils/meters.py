@@ -1,7 +1,7 @@
-"""Training meters (port of ``ScalarMeter`` and ``TrainMeter`` of
-``dist_tpu/utils/meters.py``); ``ValMeter`` and ``TestMeter`` come with the
-eval run-list slice. Host-side aggregation of the scalars a train step
-returns."""
+"""Meters (port of ``ScalarMeter``, ``TrainMeter``, ``TestMeter`` and
+``EpicKitchenMeter`` of ``dist_tpu/utils/meters.py``; ``ValMeter`` comes
+with the train run). Host-side aggregation, in numpy, of what the train
+and eval steps return."""
 
 import datetime
 from collections import deque
@@ -10,6 +10,8 @@ import numpy as np
 
 from dist_tpu_torch.utils import logging
 from dist_tpu_torch.utils.timer import Timer
+
+logger = logging.get_logger(__name__)
 
 
 class ScalarMeter:
@@ -129,3 +131,149 @@ class TrainMeter:
             "top5_err": self.num_top5_mis / self.num_samples,
         }
         logging.log_json_stats(stats)
+
+
+class EpicKitchenMeter:
+    """EPIC-KITCHENS verb/noun/action multi-view meter: per-video score
+    ensembling of the verb and noun heads plus the joint action, the outer
+    product of per-clip scores; final top-1/top-5 for verb, noun and
+    action."""
+
+    def __init__(self, num_videos, num_clips, num_cls, cfg,
+                 ensemble_method="sum"):
+        if ensemble_method not in ("sum", "max"):
+            raise ValueError(f"ensemble method {ensemble_method!r}")
+        self.cfg = cfg
+        self.num_clips = num_clips
+        self.ensemble_method = ensemble_method
+        self.num_cls = tuple(num_cls)
+        self.video_preds = {
+            "verb_class": np.zeros((num_videos, num_cls[0]), np.float64),
+            "noun_class": np.zeros((num_videos, num_cls[1]), np.float64),
+            "action": np.zeros((num_videos, num_cls[0] * num_cls[1]),
+                               np.float64),
+        }
+        self.video_labels = {
+            "verb_class": np.zeros((num_videos,), np.int64),
+            "noun_class": np.zeros((num_videos,), np.int64),
+        }
+        self.clip_count = np.zeros((num_videos,), np.int64)
+        # the loader pads the final batch by cycling earlier indices; each
+        # view counts exactly once
+        self.seen = np.zeros((num_videos * num_clips,), bool)
+        self.stats = {}
+        self.timing = {}
+
+    def reset(self):
+        for v in self.video_preds.values():
+            v[:] = 0
+        self.clip_count[:] = 0
+        self.seen[:] = False
+
+    def update_stats(self, preds, labels, clip_ids):
+        """preds: {"verb_class": (N, V), "noun_class": (N, Nn)} softmax
+        scores; labels: {"verb_class": (N,), "noun_class": (N,)}."""
+        verb = np.asarray(preds["verb_class"])
+        noun = np.asarray(preds["noun_class"])
+        clip_ids = np.asarray(clip_ids)
+        action = (verb[:, :, None] * noun[:, None, :]).reshape(verb.shape[0], -1)
+        for i in range(verb.shape[0]):
+            if self.seen[int(clip_ids[i])]:
+                continue  # padded duplicate view
+            self.seen[int(clip_ids[i])] = True
+            vid = int(clip_ids[i]) // self.num_clips
+            if self.clip_count[vid] == 0:
+                self.video_labels["verb_class"][vid] = labels["verb_class"][i]
+                self.video_labels["noun_class"][vid] = labels["noun_class"][i]
+            for key, scores in (("verb_class", verb[i]), ("noun_class", noun[i]),
+                                ("action", action[i])):
+                if self.ensemble_method == "sum":
+                    self.video_preds[key][vid] += scores
+                else:
+                    self.video_preds[key][vid] = np.maximum(
+                        self.video_preds[key][vid], scores)
+            self.clip_count[vid] += 1
+
+    def finalize_metrics(self, ks=(1, 5)):
+        stats = {"_type": "test_final_epic"}
+        action_labels = (self.video_labels["verb_class"] * self.num_cls[1]
+                         + self.video_labels["noun_class"])
+        for name, preds, labels in (
+                ("verb", self.video_preds["verb_class"],
+                 self.video_labels["verb_class"]),
+                ("noun", self.video_preds["noun_class"],
+                 self.video_labels["noun_class"]),
+                ("action", self.video_preds["action"], action_labels)):
+            order = np.argsort(-preds, axis=1)
+            for k in ks:
+                correct = (order[:, :k] == labels[:, None]).any(axis=1)
+                stats[f"{name}_top{k}_acc"] = f"{100.0 * correct.mean():.2f}"
+        self.stats = stats
+        logging.log_json_stats(stats)
+        return stats
+
+
+class TestMeter:
+    """Multi-view ensembling test meter: per-clip scores summed (or
+    maxed) per video, each view counted once.
+
+    ``timing`` holds what the test loop measured: its batches, its wall
+    time and the part of it spent waiting on the loader (seconds)."""
+
+    def __init__(self, num_videos, num_clips, num_cls, cfg, ensemble_method="sum"):
+        if ensemble_method not in ("sum", "max"):
+            raise ValueError(f"ensemble method {ensemble_method!r}")
+        self.cfg = cfg
+        self.num_clips = num_clips
+        self.ensemble_method = ensemble_method
+        self.video_preds = np.zeros((num_videos, num_cls), np.float64)
+        self.video_labels = np.zeros((num_videos,), np.int64)
+        self.clip_count = np.zeros((num_videos,), np.int64)
+        # padded duplicate views (the loader cycles indices to keep the
+        # batch shape) count exactly once
+        self.seen = np.zeros((num_videos * num_clips,), bool)
+        self.stats = {}
+        self.timing = {}
+
+    def reset(self):
+        self.video_preds[:] = 0
+        self.video_labels[:] = 0
+        self.clip_count[:] = 0
+        self.seen[:] = False
+
+    def update_stats(self, preds, labels, clip_ids):
+        """preds (N, C) scores per clip view; clip_ids = global dataset index
+        = vid_id * num_clips + view_id."""
+        preds = np.asarray(preds)
+        labels = np.asarray(labels)
+        clip_ids = np.asarray(clip_ids)
+        for i in range(preds.shape[0]):
+            if self.seen[int(clip_ids[i])]:
+                continue  # padded duplicate view
+            self.seen[int(clip_ids[i])] = True
+            vid_id = int(clip_ids[i]) // self.num_clips
+            if self.clip_count[vid_id] == 0:
+                self.video_labels[vid_id] = labels[i]
+            elif self.video_labels[vid_id] != labels[i]:
+                raise ValueError(f"label mismatch for video {vid_id}")
+            if self.ensemble_method == "sum":
+                self.video_preds[vid_id] += preds[i]
+            else:
+                self.video_preds[vid_id] = np.maximum(
+                    self.video_preds[vid_id], preds[i])
+            self.clip_count[vid_id] += 1
+
+    def finalize_metrics(self, ks=(1, 5)):
+        if not np.all(self.clip_count == self.num_clips):
+            incomplete = np.argwhere(self.clip_count != self.num_clips).flatten()
+            logger.warning(
+                "clip count incomplete for videos %s (%s)",
+                incomplete[:16], self.clip_count[incomplete][:16])
+        order = np.argsort(-self.video_preds, axis=1)
+        stats = {"_type": "test_final"}
+        for k in ks:
+            correct = (order[:, :k] == self.video_labels[:, None]).any(axis=1)
+            stats[f"top{k}_acc"] = f"{100.0 * correct.mean():.2f}"
+        self.stats = stats
+        logging.log_json_stats(stats)
+        return stats

@@ -25,6 +25,18 @@ def _card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+# The tiny run list (tiny_synth.yaml: test, then the 3-view test) in bf16,
+# the TemporalNet fused, against the same weights in fp32 on the CPU: the
+# largest difference of a video's ensembled score divided by its views.
+# 3 times the worst reading of weight seeds 0-2 (python -m
+# dist_tpu_torch.tools.run_list_errors): bf16 on the CPU 0.0079, 0.0084,
+# 0.0090; on an H100 0.0070, 0.0087, 0.0105; the scores of 12 classes sum
+# to 1 a view. tests/test_torch_port_test_task.py holds the CPU's bf16
+# run list to the JAX package's fp32 one with it, and the card test below
+# the card's to the CPU's fp32 one.
+RUN_LIST_BF16_LIMIT = 0.032
+
+
 def _within(got, want, atol, rtol):
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
@@ -580,3 +592,44 @@ def test_tiny_train_step_runs_through_all_kernels():
             assert p.grad is None and torch.equal(p, before[k]), k
         elif bool(p.grad.abs().max() > 0):
             assert not torch.equal(p, before[k]), k
+
+
+def test_tiny_run_list_on_the_card(tmp_path):
+    """The tiny run list (test, then the 3-view test) on the card in bf16
+    with the fused TemporalNet, against the CPU's fp32 run list on the
+    same .pyth: per-video scores within ``RUN_LIST_BF16_LIMIT`` per view,
+    every view counted once, and per run K1 launched once per vision
+    layer per batch plus once per text layer at set-up, K2 once per
+    ladder step per batch."""
+    import os
+
+    from dist_tpu_torch import run
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml")
+    ckpt = str(tmp_path / "weights.pyth")
+    opts = ["TRAIN.ENABLE", "false", "TPU.FUSED_TEMPORAL_NET", "true",
+            "OUTPUT_DIR", str(tmp_path), "TEST.CHECKPOINT_FILE_PATH", ckpt]
+    cfg = load_config(path, opts, make_output_dir=False)
+    torch.save(build_model(cfg, device="cpu", seed=0).module.state_dict(),
+               ckpt)
+    layers, steps = 2, len(cfg.VIDEO.BACKBONE.DIST.SELECTED_LAYERS)
+    card = []
+    for run_cfg, func in run._prepare_data(cfg):
+        att.fused_attention_qkv.launches = 0
+        tn.fused_temporal_net.launches = 0
+        meter = func(run_cfg)
+        batches = meter.timing["batches"]
+        assert att.fused_attention_qkv.launches == layers * batches + layers
+        assert tn.fused_temporal_net.launches == steps * batches
+        card.append(meter)
+    cpu = run.main(["--cfg", path, "--device", "cpu", *opts,
+                    "TRAIN.MIXED_PRECISION", "false"])
+    assert [m.num_clips for m in card] == [1, 3]
+    for got, want in zip(card, cpu):
+        np.testing.assert_array_equal(got.clip_count, got.num_clips)
+        np.testing.assert_array_equal(got.video_labels, want.video_labels)
+        err = np.abs(got.video_preds - want.video_preds).max() / got.num_clips
+        assert err <= RUN_LIST_BF16_LIMIT, err

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``dist_tpu_torch`` (and
 ``chip_smoke.py`` as a module) pulls in no JAX, no flax/optax/orbax, no
-PyYAML/regex/simplejson and nothing of the JAX package; and no source of
-the port names them in an import."""
+PyYAML/regex/simplejson, no OpenCV (the card's machine has none) and
+nothing of the JAX package; and no source of the port names them in an
+import."""
 
 import ast
 import json
@@ -14,7 +15,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "regex",
-             "simplejson", "dist_tpu")
+             "simplejson", "cv2", "dist_tpu")
 
 
 def _port_modules():

@@ -1,0 +1,244 @@
+"""The gate of the port's test run list: ``python -m dist_tpu_torch.run``
+(test, then the automatic multi-view test) against the JAX package's
+``runs/run.py::_prepare_data`` run list on ``tiny_synth.yaml``, both
+pointed at one ``.pyth`` made by the port from a seed.
+
+- fp32: per-video ensembled scores within 1e-4 (float32 sums in another
+  order), the same labels and clip counts, and the same top-1 wherever
+  its margin over the second exceeds 1e-3.
+- bf16 (the config's policy), the port's TemporalNet fused as on the
+  card, against the JAX package's fp32 scores: within
+  ``RUN_LIST_BF16_LIMIT`` per view.
+
+The JAX run list runs once for the file (~50 s). Beside it: the run
+list's view policy against the JAX package's for other datasets, the
+refusals (training, submission, multi-GPU options), the eval step's
+metrics and EMA weights, and the entry points' need of a card."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import dist_tpu.tasks.test as jax_test
+from dist_tpu.config import config as jax_config
+from dist_tpu_torch import run
+from dist_tpu_torch.config import config
+from dist_tpu_torch.data.base_dataset import resolve_label_texts
+from dist_tpu_torch.data.builder import build_loader
+from dist_tpu_torch.models.base.models import build_model
+from dist_tpu_torch.tasks import test as port_test
+from dist_tpu_torch.tasks.state import (
+    TrainState,
+    compute_text_features,
+    make_eval_step,
+)
+from tests.test_torch_port_cuda import RUN_LIST_BF16_LIMIT
+
+TINY = "configs/projects/dist/test/tiny_synth.yaml"
+FP32_ATOL = 1e-4
+TOP1_MARGIN = 1e-3
+
+
+def _jax_run_module(repo_root):
+    spec = importlib.util.spec_from_file_location(
+        "jax_run", os.path.join(repo_root, "runs", "run.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _opts(out, ckpt, precision):
+    return ["TRAIN.ENABLE", "false", "TRAIN.MIXED_PRECISION", precision,
+            "OUTPUT_DIR", out, "TEST.CHECKPOINT_FILE_PATH", ckpt]
+
+
+@pytest.fixture(scope="module")
+def runs(repo_root, tmp_path_factory):
+    """{"jax": [meters], "fp32": [meters], "bf16": [meters]}, one meter
+    per entry of the run list (single view, then 3 views)."""
+    out = str(tmp_path_factory.mktemp("run_list"))
+    cfg_path = os.path.join(repo_root, TINY)
+    ckpt = os.path.join(out, "weights.pyth")
+    cfg = config.load_config(cfg_path, ["TRAIN.MIXED_PRECISION", "false"],
+                             make_output_dir=False)
+    torch.save(build_model(cfg, device="cpu", seed=0).module.state_dict(),
+               ckpt)
+
+    jax_meters = []
+
+    class Recorded(jax_test.TestMeter):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            jax_meters.append(self)
+
+    jax_run = _jax_run_module(repo_root)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_test, "TestMeter", Recorded)
+        jcfg = jax_config.load_config(cfg_path, _opts(out, ckpt, "false"))
+        for run_cfg, func in jax_run._prepare_data(jcfg):
+            func(run_cfg)
+    argv = ["--cfg", cfg_path, "--device", "cpu"]
+    return {"jax": jax_meters,
+            "fp32": run.main(argv + _opts(out, ckpt, "false")),
+            "bf16": run.main(argv + _opts(out, ckpt, "true")
+                             + ["TPU.FUSED_TEMPORAL_NET", "true"]),
+            "out": out}
+
+
+@pytest.mark.parametrize("entry", [0, 1])
+def test_fp32_run_list_matches_jax(runs, entry):
+    got, want = runs["fp32"][entry], runs["jax"][entry]
+    assert got.num_clips == want.num_clips == (1, 3)[entry]
+    np.testing.assert_allclose(got.video_preds, want.video_preds,
+                               atol=FP32_ATOL, rtol=0)
+    np.testing.assert_array_equal(got.video_labels, want.video_labels)
+    np.testing.assert_array_equal(got.clip_count, want.clip_count)
+    np.testing.assert_array_equal(got.clip_count, got.num_clips)
+    top2 = np.sort(want.video_preds, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > TOP1_MARGIN
+    np.testing.assert_array_equal(got.video_preds.argmax(1)[clear],
+                                  want.video_preds.argmax(1)[clear])
+
+
+@pytest.mark.parametrize("entry", [0, 1])
+def test_bf16_run_list_within_its_limit(runs, entry):
+    got, want = runs["bf16"][entry], runs["jax"][entry]
+    err = np.abs(got.video_preds - want.video_preds).max() / got.num_clips
+    assert err <= RUN_LIST_BF16_LIMIT, err
+    np.testing.assert_array_equal(got.clip_count, got.num_clips)
+
+
+def test_run_list_logs_and_times_each_entry(runs):
+    for meter, batches in zip(runs["fp32"], (8, 24)):
+        t = meter.timing
+        assert t["batches"] == batches
+        assert 0 <= t["loader_wait_s"] <= t["loop_s"]
+        assert set(meter.stats) == {"_type", "top1_acc", "top5_acc"}
+    logs = os.listdir(runs["out"])
+    assert "val.log" in logs and "val_3clipsx1crops.log" in logs
+
+
+@pytest.mark.parametrize("opts", [
+    [], ["TEST.DATASET", "kinetics400"], ["TEST.DATASET", "epickitchen100"],
+    ["TEST.DATASET", "imagenet"], ["TEST.AUTOMATIC_MULTI_SCALE_TEST", "false"],
+    ["TEST.OVERRIDE_MULTI_SCALE_TEST.ENABLE", "true",
+     "TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_ENSEMBLE_VIEWS", "2",
+     "TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_SPATIAL_CROPS", "3"],
+    ["TEST.ENABLE", "false"]])
+def test_run_list_views_match_jax(repo_root, opts):
+    path = os.path.join(repo_root, TINY)
+    opts = ["TRAIN.ENABLE", "false"] + opts
+    got = run._prepare_data(config.load_config(path, opts,
+                                               make_output_dir=False))
+    want = _jax_run_module(repo_root)._prepare_data(
+        jax_config.load_config(path, opts, make_output_dir=False))
+    assert len(got) == len(want)
+    for (g, gf), (w, _) in zip(got, want):
+        assert gf is port_test.test
+        assert g.cfg_dict == w.cfg_dict
+
+
+def test_training_and_submission_are_refused(repo_root):
+    path = os.path.join(repo_root, TINY)
+    with pytest.raises(NotImplementedError, match="TRAIN.ENABLE false"):
+        run._prepare_data(config.load_config(path, make_output_dir=False))
+    cfg = config.load_config(path, ["TRAIN.ENABLE", "false",
+                                    "SUBMISSION.ENABLE", "true"],
+                             make_output_dir=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+        run._prepare_data(cfg)
+
+
+@pytest.mark.parametrize("opts", [["TPU.SHARD_FRAMES", "true"],
+                                  ["VISUALIZATION.ENABLE", "true"]])
+def test_unported_test_options_are_refused(repo_root, opts):
+    cfg = config.load_config(os.path.join(repo_root, TINY), opts,
+                             make_output_dir=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+        port_test.test(cfg, device="cpu")
+
+
+def test_parse_args_matches_jax(repo_root):
+    argv = ["--cfg", os.path.join(repo_root, TINY), "TEST.BATCH_SIZE", "3"]
+    got = config.load_from_args(argv)
+    want = jax_config.load_from_args(argv)
+    assert got.cfg_dict == want.cfg_dict and got.args.device is None
+    got = config.load_from_args(["--device", "cpu"] + argv)
+    assert got.args.device == "cpu" and got.TEST.BATCH_SIZE == 3
+    with pytest.raises(ValueError, match="--cfg"):
+        config.load_from_args([])
+
+
+def test_entry_points_need_a_card_unless_told(repo_root, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = os.path.join(repo_root, TINY)
+    cfg = config.load_config(path, ["TRAIN.ENABLE", "false"],
+                             make_output_dir=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_test.test(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_loader(cfg, "test")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(["--cfg", path, "TRAIN.ENABLE", "false"])
+
+
+def test_cli_without_a_card_fails(repo_root, tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-m", "dist_tpu_torch.run", "--cfg",
+         os.path.join(repo_root, TINY), "TRAIN.ENABLE", "false",
+         "OUTPUT_DIR", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=repo_root)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+
+
+def test_eval_step_metrics_over_the_mask_and_ema(repo_root):
+    cfg = config.load_config(os.path.join(repo_root, TINY),
+                             ["TRAIN.MIXED_PRECISION", "false"],
+                             make_output_dir=False)
+    model = build_model(cfg, device="cpu", seed=0)
+    other = build_model(cfg, device="cpu", seed=1)
+    rng = np.random.default_rng(0)
+    _, tokens = resolve_label_texts(cfg, 12)
+    batch = {"video": torch.from_numpy(rng.integers(
+                 0, 256, (4, 4, 64, 64, 3), dtype=np.uint8)),
+             "text_features": compute_text_features(model, tokens),
+             "labels": torch.tensor([0, 5, 7, 11]),
+             "mask": torch.tensor([1.0, 1.0, 1.0, 0.0])}
+    out = make_eval_step(model, cfg)(batch)
+    preds = out["preds"].numpy()
+    order = np.argsort(-preds, axis=1)
+    keep = batch["mask"].numpy() > 0
+    labels = batch["labels"].numpy()
+    for k, key in ((1, "top1_err"), (5, "top5_err")):
+        hit = (order[:, :k] == labels[:, None]).any(1)[keep]
+        assert float(out[key]) == pytest.approx(100 * (1 - hit.mean()))
+    assert float(out["num_valid"]) == 3
+    served = {k: batch[k] for k in ("video", "text_features")}
+    assert set(make_eval_step(model, cfg)(served)) == {"preds"}
+    # the EMA copy stands in for the module's weights
+    state = TrainState(model=model, optimizer=None,
+                       ema=other.module.state_dict())
+    ema_preds = make_eval_step(model, cfg, use_ema=True)(batch, state)["preds"]
+    torch.testing.assert_close(ema_preds, make_eval_step(other, cfg)(
+        batch)["preds"], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="EMA"):
+        make_eval_step(model, cfg, use_ema=True)(batch)
+
+
+def test_run_list_error_readings_on_the_cpu(repo_root):
+    """The readings tool behind ``RUN_LIST_BF16_LIMIT``, one seed on the
+    CPU: one reading per entry of the run list, inside the limit."""
+    from dist_tpu_torch.tools import run_list_errors
+
+    recs = run_list_errors.readings("cpu", 1, repo_root)
+    assert [r["views"] for r in recs] == [1, 3]
+    assert all(0 < r["max_abs_diff_per_view"] <= RUN_LIST_BF16_LIMIT
+               for r in recs)

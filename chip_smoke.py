@@ -39,9 +39,10 @@
    once, each video's ensembled score the sum of its views', each clip's
    scores within ``HTTP_SCORE_LIMIT`` of the engine's ``predict`` of the
    same clip, the launches per run (K1 12 per batch and 12 at set-up, K2
-   12 per batch) and the refusal of ``TRAIN.ENABLE``; prints top-1/5 (a
-   smoke value), clips/s, the loader-wait share, the card's time per
-   batch and the video decoder the machine has.
+   12 per batch) and that the flagship's own run list is [train, test,
+   test] (not run here); prints top-1/5 (a smoke value), clips/s, the
+   loader-wait share, the card's time per batch and the video decoder
+   the machine has.
 6. Train: the same config's train step at full width (batch 32,
    bf16, AdamW with the DiST groups, cosine LR with warmup, mixup/cutmix,
    label smoothing, ``TPU.FUSED_TEMPORAL_NET true``): 2 warm-up and 5
@@ -56,7 +57,22 @@
    CPU plain versions, both fp32 at batch 2, held to
    ``TRAIN_AGREEMENT_LIMITS``; a control with one spatial tap of the first
    block dropped must break them.
-8. Tools, at full width (launch counts zeroed just before, read just
+8. Train run: the run list of ``python -m dist_tpu_torch.run`` with
+   training first, on the same config at full width with synthetic clips
+   (``tools/train_run_errors.py::TRAIN_RUN_OPTS``: 2 fold-epochs of 4
+   steps at batch 32, mixup and cutmix on, EMA on, a checkpoint and a
+   val eval after each fold-epoch, then the single-view and 3-view
+   tests), in a temporary OUTPUT_DIR:
+   uninterrupted, preempted after 5 steps (``SystemExit(0)``, a mid-epoch
+   checkpoint) and resumed, whose dist_net weights are held to the
+   uninterrupted run's within ``TRAIN_RUN_RESUME_LIMIT``; a control whose
+   checkpoint's loader signature was altered replays the fold-epoch and
+   must break it. Checks the launches per entry, the checkpoint names and
+   their retention, and that the test entries load the last checkpoint
+   bit for bit; prints the loop's step ms, clips/s and loader-wait share,
+   peak memory, the checkpoint's bytes, save and load ms and the val
+   eval's clips/s.
+9. Tools, at full width (launch counts zeroed just before, read just
    after the in-process part): ``microbench attn`` in this process (REPS
    small, stdout captured): every variant has ``ms`` and no ``error``, and
    K4 (``attn_rows{2,4,8}``) lies within the bf16 tolerance of K1; an HTTP
@@ -81,7 +97,8 @@ version at the lengths on the edges of the routes (``ROUTE_EDGE_LENGTHS``).
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them, the multi-view test's
-launches as ``test_launches``; K4's from the tools phase
+launches as ``test_launches`` and the train run's (a) as
+``train_run_launches``; K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
 main path launches; K2 and K3 with their route, ``fwd_route`` and
@@ -170,6 +187,14 @@ TRAIN_AGREEMENT_LIMITS = {
 MULTIVIEW_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.ENABLE", "false",
                   "TEST.ENABLE", "true", "TPU.FUSED_TEMPORAL_NET", "true",
                   "TEST.NUM_SAMPLES_LIMIT", "16"]
+
+# the train_run phase runs the flagship with the settings of
+# dist_tpu_torch/tools/train_run_errors.py::TRAIN_RUN_OPTS; the preempted
+# run stops after this many steps, the first of the second fold-epoch
+TRAIN_RUN_PREEMPT_AFTER = 5
+# the resumed run's dist_net weights against the uninterrupted run's: the
+# largest absolute difference
+TRAIN_RUN_RESUME_LIMIT = 0.0
 
 # the tools phase: microbench repetitions, each tool subprocess's time
 # limit, and the HTTP round trip's limit on a returned score against the
@@ -834,7 +859,8 @@ def multiview_test(repo, engine, card):
     score the sum of its views' scores, each clip within
     ``HTTP_SCORE_LIMIT`` of the engine's ``predict`` of the same uint8
     clip, K1 launched 12 times per batch and 12 at set-up and K2 12 times
-    per batch in each run, and the run list refusing ``TRAIN.ENABLE``.
+    per batch in each run, and the flagship's own run list (training
+    on) being [train, test, test], which is not run here.
     Prints top-1/5 (random weights, synthetic labels: a smoke value), the
     3-view loop's clips/s and the share of it spent waiting on the loader,
     the card's time for one batch of 16 (the eval step on a batch already
@@ -882,11 +908,11 @@ def multiview_test(repo, engine, card):
                 meter = func(run_cfg, device=cfg.args.device)
                 launches.append(counts())
                 runs.append((run_cfg, meter))
-            try:   # the flagship config trains first
-                run._prepare_data(load_from_args(argv))
-                problems.append("the run list took TRAIN.ENABLE true")
-            except NotImplementedError:
-                pass
+            # the flagship config trains first (not run here)
+            order = [f.__name__ for _, f in
+                     run._prepare_data(load_from_args(argv))]
+            if order != ["train", "test", "test"]:
+                problems.append(f"the flagship's run list is {order}")
     finally:
         test_task.TestMeter = TestMeter
         for h in root.handlers:
@@ -1053,7 +1079,6 @@ def train(repo):
     before = {k: p.detach().clone() for k, p in params.items()}
     steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
     batches = _train_batches(cfg, steps, int(cfg.RANDOM_SEED))
-    gen = torch.Generator().manual_seed(int(cfg.RANDOM_SEED))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1061,7 +1086,7 @@ def train(repo):
     times, losses = [], []
     for batch in batches:
         t0 = time.perf_counter()
-        metrics = step(state, {**batch, "text_features": text}, gen)
+        metrics = step(state, {**batch, "text_features": text})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"])
@@ -1106,7 +1131,7 @@ def train(repo):
     unfused = []
     for batch in batches[:TRAIN_WARMUP_STEPS + 3]:
         t0 = time.perf_counter()
-        step(state, {**batch, "text_features": text}, gen)
+        step(state, {**batch, "text_features": text})
         torch.cuda.synchronize()
         unfused.append((time.perf_counter() - t0) * 1e3)
     unfused = sorted(unfused[TRAIN_WARMUP_STEPS:])
@@ -1150,7 +1175,7 @@ def _step_grads(model, cfg, batch, text):
                                        TRAIN_STEPS_PER_EPOCH)
     step = make_train_step(model, cfg, optimizer, lambda _: 0.0)
     metrics = step(create_train_state(model, optimizer),
-                   {**batch, "text_features": text}, None)
+                   {**batch, "text_features": text})
     grads = {k: p.grad.detach().double().cpu()
              for k, p in model.module.named_parameters() if p.requires_grad}
     return float(metrics["loss"]), grads
@@ -1254,6 +1279,255 @@ def train_agreement(repo, tokens):
           "limits": TRAIN_AGREEMENT_LIMITS, "pass": not problems})
     if problems:
         raise AssertionError("train_agreement: " + "; ".join(problems))
+
+
+def train_run(repo, card):
+    """The port's run list with training, through the code of ``python -m
+    dist_tpu_torch.run``, on the flagship at full width (12 + 12 layers,
+    12 ladder steps, batch 32, bf16, K2 and K3 fused, mixup and cutmix
+    on, EMA on; ``tools/train_run_errors.py::TRAIN_RUN_OPTS``), in a
+    temporary OUTPUT_DIR:
+
+    (a) uninterrupted: train (8 steps, 2 fold-epochs, a checkpoint and a
+        val eval of the plain and the EMA weights after each) -> test ->
+        3-view test. Checks finite losses; launches per entry (K1 12 per
+        train step and per eval batch and 12 for the text tower, K2 12
+        per step and per eval batch, K3 12 per step); the checkpoint
+        names; the test entries' weights equal to the last checkpoint's,
+        bit for bit.
+    (b) preempted after ``TRAIN_RUN_PREEMPT_AFTER`` steps: exits through
+        ``SystemExit(0)`` with ``checkpoint_epoch_00004_iter_0000001.pyth``.
+    (c) resumed (auto-resume): ends at step 8; its dist_net weights within
+        ``TRAIN_RUN_RESUME_LIMIT`` of (a)'s, and retention leaves the two
+        newest checkpoints.
+    A control resumes a copy of (b)'s checkpoint whose loader signature
+    was altered, so the fold-epoch replays from iter 0: it must break the
+    limit. Prints the loop's median step ms (host clock), clips/s and
+    loader-wait share, the peak device memory, one checkpoint's bytes,
+    the sync save ms and how long an async save blocks the caller, the
+    resume's load ms, the val eval's clips/s and the phase's seconds."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from dist_tpu_torch import run
+    from dist_tpu_torch.config import load_from_args
+    from dist_tpu_torch.tasks import test as test_task
+    from dist_tpu_torch.tasks import train as train_task
+    from dist_tpu_torch.tools.train_run_errors import (
+        TRAIN_RUN_OPTS,
+        dist_net_weights,
+        max_abs_diff,
+    )
+    from dist_tpu_torch.utils import checkpoint as cu
+
+    t_phase = time.perf_counter()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    argv = ["--cfg", os.path.join(repo, FLAGSHIP)] + TRAIN_RUN_OPTS
+    problems, rec = [], {"phase": "train_run", "nvidia_smi": card,
+                         "config": FLAGSHIP, "overrides": TRAIN_RUN_OPTS}
+    meters, evals, loads, tested = [], [], [], []
+
+    class Recorded(train_task.TrainMeter):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            meters.append(self)
+            self.losses = []
+
+        def update_stats(self, top1, top5, loss, lr, mb):
+            self.losses.append(loss)
+            super().update_stats(top1, top5, loss, lr, mb)
+
+    def timed_eval(cfg, state, step, loader, meter, *args):
+        t0 = time.perf_counter()
+        stats = eval_epoch(cfg, state, step, loader, meter, *args)
+        torch.cuda.synchronize()
+        evals.append((len(loader.dataset), time.perf_counter() - t0))
+        return stats
+
+    def timed_load(cfg, state, **kw):
+        t0 = time.perf_counter()
+        out = load_train_checkpoint(cfg, state, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    def checked_test_load(cfg, model):
+        model = load_test_checkpoint(cfg, model)
+        path = cu.get_last_checkpoint(cfg)
+        saved = torch.load(path, map_location="cpu",
+                           weights_only=True)["model_state"]
+        own = model.module.state_dict()
+        tested.append((os.path.basename(path), sorted(saved) == sorted(own)
+                       and all(torch.equal(own[k].cpu(), v)
+                               for k, v in saved.items())))
+        return model
+
+    def run_list(out, *opts):
+        cfg = load_from_args(argv + ["OUTPUT_DIR", out, *opts])
+        results, launches = [], []
+        for run_cfg, func in run._prepare_data(cfg):
+            counts = _zero_counts()
+            try:
+                results.append(func(run_cfg, device=cfg.args.device))
+            except SystemExit as e:
+                results.append(e)
+            torch.cuda.synchronize()
+            launches.append(counts())
+        return cfg, results, launches
+
+    def names(out):
+        return sorted(n for n in os.listdir(os.path.join(out, "checkpoints"))
+                      if n.endswith(".pyth"))
+
+    train_meter = train_task.TrainMeter
+    eval_epoch = train_task.eval_epoch
+    load_train_checkpoint = cu.load_train_checkpoint
+    load_test_checkpoint = test_task.load_test_checkpoint
+    train_task.TrainMeter = Recorded
+    train_task.eval_epoch = timed_eval
+    cu.load_train_checkpoint = timed_load
+    test_task.load_test_checkpoint = checked_test_load
+    tmp = tempfile.mkdtemp(prefix="train_run_")
+    try:
+        # (a) uninterrupted: train -> test -> 3-view test
+        out_a = os.path.join(tmp, "a")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, results, launches = run_list(out_a)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        state = results[0]
+        ref = dist_net_weights(state)
+        arch = state.model.module.arch
+        ladder = len(state.model.module.dist.selected_layers)
+        steps = int(state.step)
+        val_batches = len(evals) * math.ceil(
+            int(cfg.TRAIN.NUM_SAMPLES_LIMIT) / int(cfg.TRAIN.BATCH_SIZE))
+        want = [{"attention_qkv": arch.vision_layers * (steps + val_batches)
+                 + arch.transformer_layers, "attention_qkv_rows": 0,
+                 "temporal_net_fwd": ladder * (steps + val_batches),
+                 "temporal_net_bwd": ladder * steps}]
+        for meter in results[1:]:
+            b = meter.timing["batches"]
+            want.append({"attention_qkv": arch.vision_layers * b
+                         + arch.transformer_layers, "attention_qkv_rows": 0,
+                         "temporal_net_fwd": ladder * b,
+                         "temporal_net_bwd": 0})
+        if steps != 8 or len(evals) != 4:
+            problems.append(f"(a) {steps} steps, {len(evals)} val evals")
+        if launches != want:
+            problems.append(f"(a) launches {launches} != {want}")
+        losses = [v for m in meters for v in m.losses]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            problems.append(f"(a) losses {losses}")
+        if names(out_a) != ["checkpoint_epoch_00004.pyth",
+                            "checkpoint_epoch_00008.pyth"]:
+            problems.append(f"(a) checkpoints {names(out_a)}")
+        if tested != [("checkpoint_epoch_00008.pyth", True)] * 2:
+            problems.append(f"(a) test entries' weights {tested}")
+        if [m.num_clips for m in results[1:]] != [1, 3]:
+            problems.append("(a) test views "
+                            f"{[m.num_clips for m in results[1:]]}")
+        timing = [t for m in meters for t in m.timing]
+        iters = sorted(s for t in timing for s in t["iter_s"][1:])
+        step_ms = iters[len(iters) // 2] * 1e3
+        batch = int(cfg.TRAIN.BATCH_SIZE)
+        ckpt = os.path.join(out_a, "checkpoints", "checkpoint_epoch_00008.pyth")
+        rec.update(
+            losses=losses, launches=launches, expected_launches=want,
+            checkpoints=names(out_a), test_entries_loaded=tested,
+            step_ms=[s * 1e3 for t in timing for s in t["iter_s"]],
+            step_ms_median=step_ms, clips_per_s=batch * 1e3 / step_ms,
+            loader_wait_share=sum(t["loader_wait_s"] for t in timing)
+            / sum(t["loop_s"] for t in timing),
+            val_clips_per_s=[n / s for n, s in evals],
+            test_clips_per_s=[len(m.seen) / m.timing["loop_s"]
+                              for m in results[1:]],
+            checkpoint_bytes=os.path.getsize(ckpt),
+            top1_acc=results[2].stats["top1_acc"])
+        # a sync save and an async one of the final state: the sync save's
+        # time, and how long the async one holds the caller
+        for mode in ("sync", "async"):
+            out = os.path.join(tmp, mode)
+            save_cfg = load_from_args(argv + [
+                "OUTPUT_DIR", out, "TRAIN.CHECKPOINT_ASYNC",
+                str(mode == "async").lower()])
+            t0 = time.perf_counter()
+            cu.save_checkpoint(save_cfg, state, 0)
+            t1 = time.perf_counter()
+            cu.wait_until_finished()
+            rec[f"{mode}_save_call_ms"] = (t1 - t0) * 1e3
+            rec[f"{mode}_save_total_ms"] = (time.perf_counter() - t0) * 1e3
+            shutil.rmtree(out)
+        del state, results
+        shutil.rmtree(out_a)
+        torch.cuda.empty_cache()
+
+        # (b) preempted after TRAIN_RUN_PREEMPT_AFTER steps
+        out_b = os.path.join(tmp, "b")
+        no_test = ["TEST.ENABLE", "false"]
+        _, results, _ = run_list(out_b, *no_test, "TRAIN.PREEMPT_AFTER_ITERS",
+                                 str(TRAIN_RUN_PREEMPT_AFTER))
+        mid = "checkpoint_epoch_00004_iter_0000001.pyth"
+        if not (isinstance(results[0], SystemExit) and results[0].code == 0):
+            problems.append(f"(b) ended with {results[0]!r}")
+        if names(out_b) != ["checkpoint_epoch_00004.pyth", mid]:
+            problems.append(f"(b) checkpoints {names(out_b)}")
+        del results
+        # the control's copy, its loader signature altered
+        out_ctl = os.path.join(tmp, "control")
+        os.makedirs(os.path.join(out_ctl, "checkpoints"))
+        blob = torch.load(os.path.join(out_b, "checkpoints", mid),
+                          map_location="cpu", weights_only=True)
+        blob["loader_sig"][0] += 1
+        torch.save(blob, os.path.join(out_ctl, "checkpoints", mid))
+        del blob
+
+        # (c) resumed to the end
+        _, results, _ = run_list(out_b, *no_test)
+        resumed = int(results[0].step)
+        diff = max_abs_diff(dist_net_weights(results[0]), ref)
+        rec["resume_load_ms"] = loads[-1] * 1e3
+        del results
+        if resumed != 8:
+            problems.append(f"(c) ended at step {resumed}")
+        if diff > TRAIN_RUN_RESUME_LIMIT:
+            problems.append(f"(c) dist_net weights off (a)'s by {diff}")
+        if names(out_b) != [mid, "checkpoint_epoch_00008.pyth"]:
+            problems.append(f"(c) checkpoints after retention {names(out_b)}")
+        shutil.rmtree(out_b)
+
+        # the control: the fold-epoch replays from iter 0
+        _, results, _ = run_list(out_ctl, *no_test)
+        ctl_steps = int(results[0].step)
+        ctl = max_abs_diff(dist_net_weights(results[0]), ref)
+        del results
+        if ctl <= TRAIN_RUN_RESUME_LIMIT or ctl_steps != 9:
+            problems.append(f"control: {ctl_steps} steps, within the limit "
+                            f"({ctl})")
+        rec.update(resumed_steps=resumed, resume_max_abs_diff=diff,
+                   control_steps=ctl_steps, control_max_abs_diff=ctl,
+                   resume_limit=TRAIN_RUN_RESUME_LIMIT)
+    finally:
+        train_task.TrainMeter = train_meter
+        train_task.eval_epoch = eval_epoch
+        cu.load_train_checkpoint = load_train_checkpoint
+        test_task.load_test_checkpoint = load_test_checkpoint
+        shutil.rmtree(tmp, ignore_errors=True)
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+        torch.cuda.empty_cache()
+    rec.update({"seconds": time.perf_counter() - t_phase,
+                "pass": not problems})
+    emit(rec)
+    if problems:
+        raise AssertionError("train_run: " + "; ".join(problems))
+    return {name: sum(c[name] for c in launches) for name in launches[0]}
 
 
 def _http(port, path, body=None):
@@ -1600,6 +1874,7 @@ def main():
         train_launches, tokens = train(repo)
         train_agreement(repo, tokens)
         torch.cuda.empty_cache()
+        train_run_launches = train_run(repo, card)
         tools_launches = tools(repo)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
@@ -1654,6 +1929,7 @@ def main():
                         if k in att_keys})
             entry["tools_launches"] = tools_launches[name]
             entry["test_launches"] = test_launches[name]
+            entry["train_run_launches"] = train_run_launches[name]
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
         # phase's, its numbers nb = 8's, each nb's beside them
@@ -1663,6 +1939,7 @@ def main():
             "replaces": "tools/microbench.py:154",
             "launches": tools_launches["attention_qkv_rows"],
             "test_launches": test_launches["attention_qkv_rows"],
+            "train_run_launches": train_run_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

@@ -1,24 +1,22 @@
-"""CLI entry of the port: the test and the automatic multi-view test run
-list (port of ``runs/run.py``).
+"""CLI entry of the port: the train, test and automatic multi-view test
+run list (port of ``runs/run.py``).
 
     python -m dist_tpu_torch.run --cfg configs/projects/dist/ssv2/vit-b16-8+16f.yaml \
-        [--device cpu] TRAIN.ENABLE false [KEY VALUE ...]
+        [--device cpu] [KEY VALUE ...]
 
-Builds the run list exactly as ``runs/run.py::_prepare_data`` does: the
-single-view test, then the automatic multi-view test with the
-per-dataset view policy (SSV2 3 x 1, Kinetics and EPIC 10 x 3, ...),
-overridable with ``TEST.OVERRIDE_MULTI_SCALE_TEST``. Each entry runs in
-this process on one card (``--device``, default the CUDA card). Training
-and the submission test are not ported yet and raise.
+Builds the run list exactly as ``runs/run.py::_prepare_data`` does:
+training (``TRAIN.ENABLE``), the single-view test, then the automatic
+multi-view test with the per-dataset view policy (SSV2 3 x 1, Kinetics
+and EPIC 10 x 3, ...), overridable with ``TEST.OVERRIDE_MULTI_SCALE_TEST``.
+The test entries load the last checkpoint that training wrote. Each entry
+runs in this process on one card (``--device``, default the CUDA card).
+The submission test is not ported yet and raises.
 """
 
 import os
 
 from dist_tpu_torch.config.config import load_from_args
 
-_TRAIN_TODO = ("TRAIN.ENABLE: train(cfg) is not ported yet (ROADMAP.md queue "
-               "A, item 2: the train run); pass TRAIN.ENABLE false to run "
-               "the test run list")
 _SUBMISSION_TODO = ("the submission test (tasks/submission.py) is not ported "
                     "yet (ROADMAP.md queue A, item 5)")
 
@@ -27,6 +25,7 @@ def _prepare_data(cfg):
     """[(cfg, task)] in run order; each cfg a copy of ``cfg`` as it stood
     when its entry was added."""
     from dist_tpu_torch.tasks.test import test
+    from dist_tpu_torch.tasks.train import train
 
     if cfg.TASK_TYPE == "submission":
         cfg.TRAIN.ENABLE = False
@@ -35,10 +34,10 @@ def _prepare_data(cfg):
         raise ValueError(f"unknown TASK_TYPE {cfg.TASK_TYPE}")
     if cfg.SUBMISSION.ENABLE:
         raise NotImplementedError(_SUBMISSION_TODO)
-    if cfg.TRAIN.ENABLE:
-        raise NotImplementedError(_TRAIN_TODO)
 
     run_list = []
+    if cfg.TRAIN.ENABLE:
+        run_list.append([cfg.deep_copy(), train])
     if cfg.TEST.ENABLE:
         run_list.append([cfg.deep_copy(), test])
         if cfg.TEST.AUTOMATIC_MULTI_SCALE_TEST:
@@ -67,8 +66,8 @@ def _prepare_data(cfg):
 
 
 def main(argv=None):
-    """Run the run list of a command line; returns each task's result (a
-    test's meter) in order."""
+    """Run the run list of a command line; returns each task's result in
+    order (training's final ``TrainState``, each test's meter)."""
     cfg = load_from_args(argv)
     run_list = _prepare_data(cfg)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)

@@ -153,6 +153,13 @@ def create_train_state(model, optimizer, ema_decay=None):
     return TrainState(model=model, optimizer=optimizer, ema=ema)
 
 
+def step_generator(seed, step):
+    """A CPU ``torch.Generator`` seeded from (``seed``, ``step``) alone:
+    the step's random stream, as the JAX step's ``fold_in(rng, step)``."""
+    return torch.Generator().manual_seed(
+        hash((int(seed), int(step))) & 0x7FFFFFFFFFFFFFFF)
+
+
 _DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
                "ported yet (ROADMAP.md queue A, item 2.4)")
 
@@ -160,11 +167,13 @@ _DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
 def make_train_step(model, cfg, optimizer, lr_fn):
     """The supervised train step.
 
-    ``step(state, batch, generator) -> metrics``, with ``batch`` =
-    {"video": (B, T, H, W, 3) uint8 or float, "labels": (B,) int,
-    "text_features": optional}, all on the model's device, and
-    ``generator`` a CPU ``torch.Generator`` for the mixup draws. It
-    normalises the video, mixes it, runs the forward with ``train=True``
+    ``step(state, batch) -> metrics``, with ``batch`` = {"video": (B, T,
+    H, W, 3) uint8 or float, "labels": (B,) int, "text_features":
+    optional}, all on the model's device. It normalises the video, mixes
+    it with draws that are a pure function of (``RANDOM_SEED + 1``,
+    ``state.step``), as the JAX step's ``fold_in(rng, state.step)``, so
+    that a run resumed from a checkpoint draws what an uninterrupted run
+    draws; then it runs the forward with ``train=True``
     and the loss, back-propagates, sets each group's LR from
     ``lr_fn(state.step)``, steps the optimizer, updates the EMA copy and
     returns {"loss", "top1_err", "top5_err", "lr"} as 0-d device tensors
@@ -176,14 +185,16 @@ def make_train_step(model, cfg, optimizer, lr_fn):
                     or cfg.AUGMENTATION.CUTMIX.ENABLE)
     mc = mixup.MixupConfig.from_cfg(cfg) if mixup_on else None
     decay = ema_decay(cfg)
+    mix_seed = int(cfg.RANDOM_SEED) + 1
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def step(state, batch, generator):
+    def step(state, batch):
         model.module.train()
         video = _prep_video(cfg, batch["video"])
         labels = {"supervised": batch["labels"]}
         if mc is not None and mc.enabled:
-            d = mixup.draw(mc, generator, video.shape[2], video.shape[3])
+            d = mixup.draw(mc, step_generator(mix_seed, state.step),
+                           video.shape[2], video.shape[3])
             video, labels["supervised_mixup"] = mixup.apply(
                 video, batch["labels"], d, mc)
         inputs = {"video": video, "text_features": batch.get("text_features")}

@@ -99,10 +99,9 @@ def run(mode, cfg, built, device):
         batch = {"video": video, "text_features": text,
                  "labels": torch.zeros((BATCH,), dtype=torch.long,
                                        device=device)}
-        gen = torch.Generator().manual_seed(0)
 
         def forward():
-            return step(state, batch, gen)["loss"]
+            return step(state, batch)["loss"]
     else:
         step = make_eval_step(model, cfg)
 

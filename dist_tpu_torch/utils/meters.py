@@ -1,7 +1,7 @@
-"""Meters (port of ``ScalarMeter``, ``TrainMeter``, ``TestMeter`` and
-``EpicKitchenMeter`` of ``dist_tpu/utils/meters.py``; ``ValMeter`` comes
-with the train run). Host-side aggregation, in numpy, of what the train
-and eval steps return."""
+"""Meters (port of ``ScalarMeter``, ``TrainMeter``, ``ValMeter``,
+``TestMeter`` and ``EpicKitchenMeter`` of ``dist_tpu/utils/meters.py``).
+Host-side aggregation, in numpy, of what the train and eval steps
+return."""
 
 import datetime
 from collections import deque
@@ -44,7 +44,12 @@ class ScalarMeter:
 
 class TrainMeter:
     """Loss / top-k error / lr / ETA tracking over a fold-epoch of
-    ``epoch_iters`` steps."""
+    ``epoch_iters`` steps.
+
+    ``timing`` holds one record per fold-epoch that the train loop ran
+    (``tasks/train.py::train_epoch``): its batches, its loop seconds, the
+    seconds blocked on the loader and each iteration's host seconds;
+    ``reset`` leaves it."""
 
     def __init__(self, epoch_iters, cfg):
         self.cfg = cfg
@@ -57,6 +62,7 @@ class TrainMeter:
         self.loss = ScalarMeter(cfg.LOG_PERIOD)
         self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
         self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.timing = []
         self.reset()
 
     def reset(self):
@@ -131,6 +137,59 @@ class TrainMeter:
             "top5_err": self.num_top5_mis / self.num_samples,
         }
         logging.log_json_stats(stats)
+
+
+class ValMeter:
+    """Eval-during-train meter: top-k errors weighted by each batch's
+    valid count, their minimum over the run's eval epochs, and custom
+    scalars weighted the same way."""
+
+    def __init__(self, max_iter, cfg):
+        self.cfg = cfg
+        self.max_iter = max_iter
+        self.min_top1_err = 100.0
+        self.min_top5_err = 100.0
+        self.reset()
+
+    def reset(self):
+        self.num_top1_mis = 0
+        self.num_top5_mis = 0
+        self.num_samples = 0
+        self.custom_sums = {}
+        self.custom_counts = {}
+
+    def update_stats(self, top1_err, top5_err, mb_size):
+        self.num_top1_mis += top1_err * mb_size
+        self.num_top5_mis += top5_err * mb_size
+        self.num_samples += mb_size
+
+    def update_custom_stats(self, stats, mb_size=1):
+        """Custom scalars (EPIC's per-head errors), each batch weighted by
+        ``mb_size`` as the headline errors are."""
+        for k, v in stats.items():
+            self.custom_sums[k] = self.custom_sums.get(k, 0.0) + float(v) * mb_size
+            self.custom_counts[k] = self.custom_counts.get(k, 0) + mb_size
+
+    def log_epoch_stats(self, cur_epoch):
+        """Log and return the epoch's stats ({} when nothing was seen)."""
+        if self.num_samples == 0:
+            return {}
+        top1_err = self.num_top1_mis / self.num_samples
+        top5_err = self.num_top5_mis / self.num_samples
+        self.min_top1_err = min(self.min_top1_err, top1_err)
+        self.min_top5_err = min(self.min_top5_err, top5_err)
+        stats = {
+            "_type": "val_epoch",
+            "epoch": f"{cur_epoch + 1}/{self.cfg.OPTIMIZER.MAX_EPOCH}",
+            "top1_err": top1_err,
+            "top5_err": top5_err,
+            "min_top1_err": self.min_top1_err,
+            "min_top5_err": self.min_top5_err,
+        }
+        for k, s in self.custom_sums.items():
+            stats[k] = s / max(self.custom_counts[k], 1)
+        logging.log_json_stats(stats)
+        return stats
 
 
 class EpicKitchenMeter:

@@ -11,9 +11,10 @@ pointed at one ``.pyth`` made by the port from a seed.
   ``RUN_LIST_BF16_LIMIT`` per view.
 
 The JAX run list runs once for the file (~50 s). Beside it: the run
-list's view policy against the JAX package's for other datasets, the
-refusals (training, submission, multi-GPU options), the eval step's
-metrics and EMA weights, and the entry points' need of a card."""
+list's view policy against the JAX package's for other datasets and
+with training first, the refusals (submission, multi-GPU options), the
+eval step's metrics and EMA weights, and the entry points' need of a
+card."""
 
 import importlib.util
 import os
@@ -32,6 +33,7 @@ from dist_tpu_torch.data.base_dataset import resolve_label_texts
 from dist_tpu_torch.data.builder import build_loader
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.tasks import test as port_test
+from dist_tpu_torch.tasks import train as port_train
 from dist_tpu_torch.tasks.state import (
     TrainState,
     compute_text_features,
@@ -129,8 +131,11 @@ def test_run_list_logs_and_times_each_entry(runs):
     ["TEST.OVERRIDE_MULTI_SCALE_TEST.ENABLE", "true",
      "TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_ENSEMBLE_VIEWS", "2",
      "TEST.OVERRIDE_MULTI_SCALE_TEST.NUM_SPATIAL_CROPS", "3"],
-    ["TEST.ENABLE", "false"]])
+    ["TEST.ENABLE", "false"], ["TRAIN.ENABLE", "true"],
+    ["TRAIN.ENABLE", "true", "TEST.ENABLE", "false"]])
 def test_run_list_views_match_jax(repo_root, opts):
+    """The run list's entries, their order and their configs; with
+    ``TRAIN.ENABLE true`` training comes first."""
     path = os.path.join(repo_root, TINY)
     opts = ["TRAIN.ENABLE", "false"] + opts
     got = run._prepare_data(config.load_config(path, opts,
@@ -138,15 +143,16 @@ def test_run_list_views_match_jax(repo_root, opts):
     want = _jax_run_module(repo_root)._prepare_data(
         jax_config.load_config(path, opts, make_output_dir=False))
     assert len(got) == len(want)
-    for (g, gf), (w, _) in zip(got, want):
-        assert gf is port_test.test
+    ports = {"train": port_train.train, "test": port_test.test}
+    for (g, gf), (w, wf) in zip(got, want):
+        assert gf is ports[wf.__name__]
         assert g.cfg_dict == w.cfg_dict
 
 
 def test_training_and_submission_are_refused(repo_root):
+    """The submission test is refused. Training no longer is: its run
+    list is ``test_run_list_views_match_jax``'s ``TRAIN.ENABLE`` cases."""
     path = os.path.join(repo_root, TINY)
-    with pytest.raises(NotImplementedError, match="TRAIN.ENABLE false"):
-        run._prepare_data(config.load_config(path, make_output_dir=False))
     cfg = config.load_config(path, ["TRAIN.ENABLE", "false",
                                     "SUBMISSION.ENABLE", "true"],
                              make_output_dir=False)

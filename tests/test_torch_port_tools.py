@@ -19,6 +19,7 @@ from dist_tpu_torch.tools import (
     serve,
     tnet_bwd,
     tnet_fwd,
+    train_run_errors,
 )
 
 TINY = "configs/projects/dist/test/tiny_synth.yaml"
@@ -210,7 +211,9 @@ def test_profiling_helpers(tmp_path):
     lambda: bench.main([]),
     lambda: bench_serving.main(["--cfg", TINY]),
     lambda: serve.main(["--cfg", TINY, "--port", "0"]),
-], ids=["microbench", "profile_eval", "bench", "bench_serving", "serve"])
+    lambda: train_run_errors.main(["--cfg", TINY]),
+], ids=["microbench", "profile_eval", "bench", "bench_serving", "serve",
+        "train_run_errors"])
 def test_tools_need_a_card_unless_told(monkeypatch, run):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -374,3 +377,17 @@ def test_tnet_fwd_unfused_block_is_the_plain_version():
         got = tnet_fwd.unfused_block(params)(x)
     torch.testing.assert_close(got, tn.temporal_net_plain(x, *params),
                                atol=1e-5, rtol=0)
+
+
+def test_train_run_errors_on_the_cpu(capsys):
+    """The readings tool behind chip_smoke.py's TRAIN_RUN_RESUME_LIMIT, one
+    repeat at the tiny size (4 steps a fold-epoch, as on the flagship):
+    both runs take 8 steps and, on the CPU, end bit for bit equal."""
+    train_run_errors.main(["--device", "cpu", "--repeats", "1", "--cfg", TINY,
+                           "TRAIN.BATCH_SIZE", "8", "TRAIN.NUM_FOLDS", "4",
+                           "TRAIN.NUM_SAMPLES_LIMIT", "8"])
+    # the train loop logs to stdout too
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('{"device"')]
+    assert lines[0]["steps"] == [8, 8] and lines[0]["max_abs_diff"] == 0.0
+    assert lines[-1] == {"device": "cpu", "worst_max_abs_diff": 0.0}

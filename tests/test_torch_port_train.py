@@ -105,12 +105,11 @@ def _run_port(cfg, params, batches):
     state = create_train_state(model, optimizer, ema_decay(cfg))
     step = make_train_step(model, cfg, optimizer, lr_fn)
     metrics, grads = [], []
-    gen = torch.Generator().manual_seed(0)
     for b in batches:
         tb = {"video": torch.from_numpy(b["video"]),
               "labels": torch.from_numpy(b["labels"]).long(),
               "text_features": torch.from_numpy(b["text_features"])}
-        metrics.append({k: float(v) for k, v in step(state, tb, gen).items()})
+        metrics.append({k: float(v) for k, v in step(state, tb).items()})
         grads.append({k: p.grad.clone() for k, p in
                       model.module.named_parameters() if p.requires_grad})
     return metrics, grads, model.module, start, state.ema
@@ -189,11 +188,12 @@ def test_train_epoch_logs_through_train_meter(repo_root, caplog):
     text = torch.from_numpy(_batches(cfg)[0]["text_features"])
     meter = meters.TrainMeter(len(batches), cfg)
     with caplog.at_level(logging.INFO, logger="dist_tpu_torch"):
-        train_epoch(cfg, state, step, batches, meter, 0,
-                    torch.Generator().manual_seed(0), text)
+        _, preempt_iter = train_epoch(cfg, state, step, batches, meter, 0,
+                                      text)
     lines = [r.getMessage() for r in caplog.records
              if r.getMessage().startswith("json_stats: ")]
-    assert state.step == 3
+    assert state.step == 3 and preempt_iter is None
+    assert meter.timing[0]["batches"] == 3
     assert [('"train_iter"' in ln, f'"iter": "{i + 1}/3"' in ln)
             for i, ln in enumerate(lines[:3])] == [(True, True)] * 3
     assert len(lines) == 4 and '"train_epoch"' in lines[3]
@@ -206,7 +206,7 @@ def test_nan_loss_stops_the_epoch(repo_root):
         misc.check_nan_losses(float("nan"))
     misc.check_nan_losses(1.0)
 
-    def nan_step(state, batch, generator):
+    def nan_step(state, batch):
         z = torch.zeros(())
         return {"loss": z + float("nan"), "top1_err": z, "top5_err": z,
                 "lr": z}
@@ -216,7 +216,7 @@ def test_nan_loss_stops_the_epoch(repo_root):
     batch = {"video": np.zeros((1, 4, 8, 8, 3), np.uint8), "label": [0]}
     with pytest.raises(RuntimeError, match="NaN"):
         train_epoch(cfg, state, nan_step, [batch, batch],
-                    meters.TrainMeter(2, cfg), 0, None)
+                    meters.TrainMeter(2, cfg), 0)
 
 
 def test_train_meter_and_eval_cadence_match_jax(repo_root):

@@ -71,8 +71,27 @@
    their retention, and that the test entries load the last checkpoint
    bit for bit; prints the loop's step ms, clips/s and loader-wait share,
    peak memory, the checkpoint's bytes, save and load ms and the val
-   eval's clips/s.
-9. Tools, at full width (launch counts zeroed just before, read just
+   eval's clips/s. (The train and train run phases also print the
+   allocator's readings beside their peaks: the bytes allocated before
+   the first step, the peak over them, and what each holds beside the
+   model: the train phase's weight copies and batches, the run's EMA.)
+9. L/14: DiST ViT-L/14 32+64f (``L14``) at full width (24 vision layers
+   of 1024, 257 tokens, 24 ladder steps over 64 dense and 32 sparse
+   frames), one model built once: served by ``InferenceEngine`` at batch
+   8 (requests of 1, 3 and 8 clips; K1 24 and K2 24 launches per request
+   batch; median latency and clips/s; for three weight seeds one batch-8
+   request against the unfused TemporalNet on the card, held to
+   ``L14_AGREEMENT_LIMITS``, which a control with a spatial tap dropped
+   in every block must break), then trained with ``TPU.REMAT`` at the
+   first of ``L14_TRAIN_BATCHES`` that fits (each batch tried recorded; 2
+   warm-up and 3 timed steps; K1 24, K2 48 and K3 24 launches per step;
+   step ms, clips/s, peak memory), and one step with remat held to the
+   same step without at the largest batch at which both fit
+   (``L14_REMAT_LIMITS``: bit for bit), with both peaks and times; then
+   the run list with training (``L14_RUN_OPTS``: 4 steps at batch 32
+   with remat on synthetic clips, a val eval, a checkpoint): launches,
+   the loop's step ms and loader-wait share, the checkpoint's bytes.
+10. Tools, at full width (launch counts zeroed just before, read just
    after the in-process part): ``microbench attn`` in this process (REPS
    small, stdout captured): every variant has ``ms`` and no ``error``, and
    K4 (``attn_rows{2,4,8}``) lies within the bf16 tolerance of K1; an HTTP
@@ -93,12 +112,17 @@ bit, equal to K1 bit for bit, K1's time on the same input beside it, and
 at the train shape K1's streaming kernel is timed on the same input
 (``streaming_ms``), and at L = 577 (ViT-L/14 at 336 px) it is the route. A bf16 sweep at batch 4, 4 heads holds K1 to its plain
 version at the lengths on the edges of the routes (``ROUTE_EDGE_LENGTHS``).
+K1, K2 and K3 are also held to their plain versions at the L/14 phase's
+shapes (``l14_kernel_checks``): the train step at batch 32 (K1 (1024,
+257, 3072) with 16 heads, K2 and K3 (32, 64, 16, 16, 96)), a served batch
+of 8 and the text tower (174, 77, 2304) with 12 heads, causal.
 
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them, the multi-view test's
 launches as ``test_launches`` and the train run's (a) as
-``train_run_launches``; K4's from the tools phase
+``train_run_launches``; under ``l14`` each L/14 shape's numbers with the
+l14 phase's launches there; K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
 main path launches; K2 and K3 with their route, ``fwd_route`` and
@@ -195,6 +219,39 @@ TRAIN_RUN_PREEMPT_AFTER = 5
 # the resumed run's dist_net weights against the uninterrupted run's: the
 # largest absolute difference
 TRAIN_RUN_RESUME_LIMIT = 0.0
+
+# the l14 phase: DiST ViT-L/14 32+64f at full width (24 + 12 layers, 24
+# ladder steps, 64 dense and 32 sparse frames, 257 tokens), the TemporalNet
+# fused; served at batch 8, then trained with TPU.REMAT at the config's
+# batch, halved while a step does not fit
+L14 = "configs/projects/dist/ssv2/vit-l14-32+64f.yaml"
+L14_SERVE_BATCH = 8
+L14_TRAIN_BATCHES = (32, 16, 8)
+L14_TRAIN_WARMUP_STEPS = 2
+L14_TRAIN_TIMED_STEPS = 3
+# One batch-8 request of the served model (K2) against the same weights
+# with the unfused TemporalNet on the card, for weight seeds RANDOM_SEED +
+# 0, 1, 2. Limits: 3 times the worst reading of the three seeds on an H100
+# (score, logit, 1 - cosine):
+#   unfused_card           7.9e-6            0.0052          7.6e-6
+#   control, every block   1.5e-5 - 1.8e-5   0.0071 - 0.0129  4.3e-5 - 6.4e-5
+# The control's scores and logits lie within the limits; its cosine breaks
+# them by 1.9 times or more.
+L14_AGREEMENT_LIMITS = {"max_abs_score_diff": 2.4e-5,
+                        "max_abs_logit_diff": 0.0155,
+                        "min_embedding_cosine": 1 - 2.3e-5}
+# one step with TPU.REMAT against the same step without, same weights and
+# inputs: every kernel on the path runs the same launches on the same
+# values, so the gradients and the loss are equal bit for bit
+L14_REMAT_LIMITS = {"max_grad_rel_err": 0.0, "loss_rel_diff": 0.0}
+# the run list with training at L/14 (the code of python -m
+# dist_tpu_torch.run) on synthetic clips: one fold-epoch of 4 steps at
+# batch 32 with remat, a val eval and a checkpoint after it, no test
+L14_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TPU.FUSED_TEMPORAL_NET", "true",
+                "TPU.REMAT", "true", "TRAIN.ENABLE", "true",
+                "TRAIN.NUM_SAMPLES_LIMIT", "32", "OPTIMIZER.MAX_EPOCH", "4",
+                "TRAIN.EVAL_PERIOD", "4", "TRAIN.CHECKPOINT_PERIOD", "4",
+                "TEST.ENABLE", "false", "LOG_CONFIG_INFO", "false"]
 
 # the tools phase: microbench repetitions, each tool subprocess's time
 # limit, and the HTTP round trip's limit on a returned score against the
@@ -637,6 +694,31 @@ def kernel_checks():
             rows)
 
 
+def l14_kernel_checks():
+    """K1, K2 and K3 at the shapes of the l14 phase (bf16): the train step
+    at batch 32 (1,024 frames of 257 tokens, 16 heads; the ladder's
+    (32, 64, 16, 16, 96)), a served batch of 8, and the text tower (174
+    prompts, 12 heads of 64, causal)."""
+    bf16 = __import__("torch").bfloat16
+    return {
+        "attention_qkv": {
+            "train": check_attention("attention L/14 train bf16", 1024, 257,
+                                     16, 64, False, bf16, 30),
+            "serving": check_attention("attention L/14 serving bf16", 256,
+                                       257, 16, 64, False, bf16, 31),
+            "text": check_attention("attention L/14 text causal bf16", 174,
+                                    77, 12, 64, True, bf16, 32)},
+        "temporal_net_fwd": {
+            "train": check_temporal_net("temporal_net L/14 train bf16",
+                                        (32, 64, 16, 16, 96), bf16, 33),
+            "serving": check_temporal_net("temporal_net L/14 serving bf16",
+                                          (8, 64, 16, 16, 96), bf16, 34)},
+        "temporal_net_bwd": {
+            "train": check_temporal_net_bwd("temporal_net_bwd L/14 train bf16",
+                                            (32, 64, 16, 16, 96), bf16, 35)},
+    }
+
+
 def serve(repo):
     import numpy as np
     import torch
@@ -848,6 +930,58 @@ def agreement(repo, engine):
         raise AssertionError("agreement: " + "; ".join(problems))
 
 
+def _restore_logging(handlers, level):
+    """The root logger's handlers and level as they were before a run
+    list, whose file handlers are closed."""
+    import logging
+
+    root = logging.getLogger()
+    for h in root.handlers:
+        if h not in handlers:
+            h.close()
+    root.handlers[:] = handlers
+    root.setLevel(level)
+
+
+def _run_list(argv):
+    """The run list of ``python -m dist_tpu_torch.run`` for ``argv``, the
+    launch counts zeroed before and read after each entry: (cfg, [each
+    entry's result, or the SystemExit it raised], [its launches])."""
+    import torch
+    from dist_tpu_torch import run
+    from dist_tpu_torch.config import load_from_args
+
+    cfg = load_from_args(argv)
+    results, launches = [], []
+    for run_cfg, func in run._prepare_data(cfg):
+        counts = _zero_counts()
+        try:
+            results.append(func(run_cfg, device=cfg.args.device))
+        except SystemExit as e:
+            results.append(e)
+        torch.cuda.synchronize()
+        launches.append(counts())
+    return cfg, results, launches
+
+
+def _recorded_train_meter(meters):
+    """A ``TrainMeter`` that appends itself to ``meters`` and keeps each
+    step's loss in ``losses``."""
+    from dist_tpu_torch.tasks import train as train_task
+
+    class Recorded(train_task.TrainMeter):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            meters.append(self)
+            self.losses = []
+
+        def update_stats(self, top1, top5, loss, lr, mb):
+            self.losses.append(loss)
+            super().update_stats(top1, top5, loss, lr, mb)
+
+    return Recorded
+
+
 def multiview_test(repo, engine, card):
     """The port's test run list at full width, through the code of
     ``python -m dist_tpu_torch.run``: the served engine's weights written
@@ -915,11 +1049,7 @@ def multiview_test(repo, engine, card):
                 problems.append(f"the flagship's run list is {order}")
     finally:
         test_task.TestMeter = TestMeter
-        for h in root.handlers:
-            if h not in handlers:
-                h.close()
-        root.handlers[:] = handlers
-        root.setLevel(level)
+        _restore_logging(handlers, level)
 
     arch = engine.model.module.arch
     ladder = len(engine.model.module.dist.selected_layers)
@@ -1046,6 +1176,32 @@ def _zero_counts():
     return lambda: {name: fn.launches for name, fn in fns.items()}
 
 
+def _nbytes(tensors):
+    """Bytes of the tensors in a dict or list of tensors or of dicts."""
+    import torch
+
+    if torch.is_tensor(tensors):
+        return tensors.numel() * tensors.element_size()
+    values = tensors.values() if isinstance(tensors, dict) else tensors
+    return sum(_nbytes(v) for v in values)
+
+
+def _memory(base, **held):
+    """The allocator's readings (``torch.cuda.memory_stats``, GB) after a
+    run that began with ``base`` bytes allocated: its peak, the peak over
+    the base, the reserved peak and the allocator's retries; and the bytes
+    of what the run held beside the model and its optimizer (``held``)."""
+    import torch
+
+    st, gb = torch.cuda.memory_stats(), 2 ** 30
+    peak = st["allocated_bytes.all.peak"]
+    return {"base_gb": base / gb, "peak_gb": peak / gb,
+            "peak_over_base_gb": (peak - base) / gb,
+            "reserved_peak_gb": st["reserved_bytes.all.peak"] / gb,
+            "alloc_retries": st["num_alloc_retries"],
+            **{f"{k}_gb": _nbytes(v) / gb for k, v in held.items()}}
+
+
 def train(repo):
     """The flagship's train step at full width: set-up (weights from
     RANDOM_SEED, label-text features once), then warm-up and timed steps
@@ -1082,6 +1238,7 @@ def train(repo):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     counts = _zero_counts()
     times, losses = [], []
     for batch in batches:
@@ -1092,6 +1249,9 @@ def train(repo):
         losses.append(metrics["loss"])
     launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # beside the model: the copies of the weights taken for the moved
+    # check and the 7 batches, made up front
+    memory = _memory(base, param_copies=before, batches=batches)
 
     arch = model.module.arch
     ladder = len(model.module.dist.selected_layers)
@@ -1154,7 +1314,7 @@ def train(repo):
         "clips_per_s": b * 1e3 / timed[len(timed) // 2],
         "unfused_step_ms": unfused,
         "unfused_step_ms_median": unfused[len(unfused) // 2],
-        "peak_mem_gb": peak, "launches": launches,
+        "peak_mem_gb": peak, "memory": memory, "launches": launches,
         "expected_launches": want, "setup_launches": setup,
         "zero_grad_params": zero_grad, "pass": not problems,
     }
@@ -1311,7 +1471,6 @@ def train_run(repo, card):
     import tempfile
 
     import torch
-    from dist_tpu_torch import run
     from dist_tpu_torch.config import load_from_args
     from dist_tpu_torch.tasks import test as test_task
     from dist_tpu_torch.tasks import train as train_task
@@ -1329,16 +1488,6 @@ def train_run(repo, card):
     problems, rec = [], {"phase": "train_run", "nvidia_smi": card,
                          "config": FLAGSHIP, "overrides": TRAIN_RUN_OPTS}
     meters, evals, loads, tested = [], [], [], []
-
-    class Recorded(train_task.TrainMeter):
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            meters.append(self)
-            self.losses = []
-
-        def update_stats(self, top1, top5, loss, lr, mb):
-            self.losses.append(loss)
-            super().update_stats(top1, top5, loss, lr, mb)
 
     def timed_eval(cfg, state, step, loader, meter, *args):
         t0 = time.perf_counter()
@@ -1366,27 +1515,33 @@ def train_run(repo, card):
         return model
 
     def run_list(out, *opts):
-        cfg = load_from_args(argv + ["OUTPUT_DIR", out, *opts])
-        results, launches = [], []
-        for run_cfg, func in run._prepare_data(cfg):
-            counts = _zero_counts()
-            try:
-                results.append(func(run_cfg, device=cfg.args.device))
-            except SystemExit as e:
-                results.append(e)
-            torch.cuda.synchronize()
-            launches.append(counts())
-        return cfg, results, launches
+        return _run_list(argv + ["OUTPUT_DIR", out, *opts])
 
     def names(out):
         return sorted(n for n in os.listdir(os.path.join(out, "checkpoints"))
                       if n.endswith(".pyth"))
 
+    bases = []
+
+    def based_train_step(*args):
+        """make_train_step's step; the bytes allocated before its first
+        call are kept."""
+        step = make_train_step(*args)
+
+        def first(state, batch):
+            if not bases:
+                torch.cuda.synchronize()
+                bases.append(torch.cuda.memory_allocated())
+            return step(state, batch)
+        return first
+
     train_meter = train_task.TrainMeter
     eval_epoch = train_task.eval_epoch
+    make_train_step = train_task.make_train_step
     load_train_checkpoint = cu.load_train_checkpoint
     load_test_checkpoint = test_task.load_test_checkpoint
-    train_task.TrainMeter = Recorded
+    train_task.TrainMeter = _recorded_train_meter(meters)
+    train_task.make_train_step = based_train_step
     train_task.eval_epoch = timed_eval
     cu.load_train_checkpoint = timed_load
     test_task.load_test_checkpoint = checked_test_load
@@ -1399,6 +1554,10 @@ def train_run(repo, card):
         cfg, results, launches = run_list(out_a)
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         state = results[0]
+        # beside the model and its optimizer at the first step: the EMA
+        # copy (the loader's batches come one at a time)
+        rec["memory"] = _memory(bases[0], ema=state.ema)
+        train_task.make_train_step = make_train_step
         ref = dist_net_weights(state)
         arch = state.model.module.arch
         ladder = len(state.model.module.dist.selected_layers)
@@ -1513,14 +1672,11 @@ def train_run(repo, card):
     finally:
         train_task.TrainMeter = train_meter
         train_task.eval_epoch = eval_epoch
+        train_task.make_train_step = make_train_step
         cu.load_train_checkpoint = load_train_checkpoint
         test_task.load_test_checkpoint = load_test_checkpoint
         shutil.rmtree(tmp, ignore_errors=True)
-        for h in root.handlers:
-            if h not in handlers:
-                h.close()
-        root.handlers[:] = handlers
-        root.setLevel(level)
+        _restore_logging(handlers, level)
         torch.cuda.empty_cache()
     rec.update({"seconds": time.perf_counter() - t_phase,
                 "pass": not problems})
@@ -1528,6 +1684,375 @@ def train_run(repo, card):
     if problems:
         raise AssertionError("train_run: " + "; ".join(problems))
     return {name: sum(c[name] for c in launches) for name in launches[0]}
+
+
+def _l14_agree_one_seed(model, text, seed, frames, crop):
+    """One batch-8 request of the fused model against the same weights
+    with the unfused TemporalNet, and the control (the unfused model with
+    one spatial tap dropped in every block); the weights are restored
+    after."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    clips = rng.integers(0, 256, (L14_SERVE_BATCH, frames, crop, crop, 3),
+                         dtype=np.uint8)
+    nets = model.module.dist_net.temporal_nets
+    saved = [net.temporal_net["c_fc2"].weight.detach().clone()
+             for net in nets]
+    served = _run(model, clips, text)
+    _set_fused(model, False)
+    try:
+        rec = {"seed": seed,
+               "unfused_card": _diff(served, _run(model, clips, text))}
+        _drop_spatial_tap(model, None)
+        rec["control"] = _diff(served, _run(model, clips, text))
+    finally:
+        _set_fused(model, True)
+        with torch.no_grad():
+            for net, w in zip(nets, saved):
+                net.temporal_net["c_fc2"].weight.copy_(w)
+    return rec
+
+
+def _oom_free(fn, *args):
+    """``fn(*args)``, or None when the card runs out of memory (the
+    traceback's tensors freed and the cache emptied)."""
+    import gc
+
+    import torch
+
+    try:
+        return fn(*args)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
+
+
+def l14(repo, card):
+    """DiST ViT-L/14 32+64f at full width (``L14``: 24 vision layers of
+    1024, 16 heads, 257 tokens; 12 text layers of 768; 24 ladder steps
+    over 64 dense and 32 sparse frames; 174 classes; bf16;
+    ``TPU.FUSED_TEMPORAL_NET true``), one model built once for both parts:
+
+    (a) served by ``InferenceEngine`` at batch 8: requests of 1, 3 and 8
+        seeded clips (64, 224, 224, 3); K1 24 and K2 24 launches per
+        request batch, K1 12 at set-up (the text tower); median latency of
+        batch-8 requests and clips/s; for three weight seeds, one batch-8
+        request against the same weights with the unfused TemporalNet on
+        the card, held to ``L14_AGREEMENT_LIMITS``, which the control (one
+        spatial tap dropped in every block) must break.
+    (b) trained with ``TPU.REMAT true`` through ``make_train_step`` (the
+        config's AdamW groups, mixup/cutmix, label smoothing) at the first
+        of ``L14_TRAIN_BATCHES`` whose steps fit: 2 warm-up and 3 timed
+        steps; finite losses, every dist_net parameter with a gradient
+        moved, the frozen ones equal bit for bit, K1 24, K2 48 (the
+        forward and remat's recompute) and K3 24 launches per step. Then,
+        at the largest batch at which both fit, one step with remat
+        against the same step without (same weights and inputs, LR 0):
+        dist_net gradients and loss within ``L14_REMAT_LIMITS``, each
+        step's peak memory and time.
+    (c) the run list with training (``_l14_run_list``): 4 steps with
+        remat, a val eval and a checkpoint, through the code of ``python
+        -m dist_tpu_torch.run``.
+    Returns ({kernel: launches} of the served request batches, of the
+    train steps, of the text set-up and of the run list)."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.tasks.state import (
+        compute_text_features,
+        create_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    opts = ["TPU.FUSED_TEMPORAL_NET", "true"]
+    cfg = load_config(os.path.join(repo, L14), opts, make_output_dir=False)
+    problems = []
+    rec = {"phase": "l14", "nvidia_smi": card, "config": L14,
+           "overrides": opts}
+
+    # (a) serving
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, batch_size=L14_SERVE_BATCH)
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    setup = counts()
+    engine.warmup()
+    model = engine.model
+    arch, ladder = model.module.arch, len(model.module.dist.selected_layers)
+    rng = np.random.default_rng(int(cfg.RANDOM_SEED))
+    shape = (engine.num_frames, engine.crop, engine.crop, 3)
+    requests = [rng.integers(0, 256, (n,) + shape, dtype=np.uint8)
+                for n in SERVE_REQUESTS]
+    counts = _zero_counts()
+    results = [engine.predict(clips) for clips in requests]
+    serve_launches = counts()
+    want = {"attention_qkv": arch.vision_layers * len(requests),
+            "attention_qkv_rows": 0,
+            "temporal_net_fwd": ladder * len(requests),
+            "temporal_net_bwd": 0}
+    if setup["attention_qkv"] != arch.transformer_layers:
+        problems.append(f"text set-up launches {setup}")
+    if serve_launches != want:
+        problems.append(f"serving launches {serve_launches} != {want}")
+    for clips, scores in zip(requests, results):
+        if scores.shape != (clips.shape[0], engine.num_classes) or not (
+                np.isfinite(scores).all()
+                and np.allclose(scores.sum(axis=1), 1.0, atol=1e-4)):
+            problems.append(f"scores of {clips.shape[0]} clips: "
+                            f"{scores.shape}, sums {scores.sum(axis=1)}")
+    steady = []
+    for _ in range(TIMED_REPEATS):
+        t0 = time.perf_counter()
+        engine.predict(requests[-1])
+        steady.append((time.perf_counter() - t0) * 1e3)
+    steady.sort()
+    median = steady[len(steady) // 2]
+    rec["serving"] = {
+        "batch_size": engine.batch_size, "buckets": engine.buckets(),
+        "classes": engine.num_classes, "frames": engine.num_frames,
+        "request_clips": list(SERVE_REQUESTS),
+        "batch8_ms": steady, "batch8_ms_median": median,
+        "clips_per_s": L14_SERVE_BATCH * 1e3 / median,
+        "launches": serve_launches, "expected_launches": want,
+        "text_setup_launches": setup,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    # the serving agreement, three weight seeds; the served model is seed 0
+    _, tokens = resolve_label_texts(cfg, engine.num_classes)
+    base = int(cfg.RANDOM_SEED)
+    runs = []
+    for i in range(AGREEMENT_SEEDS):
+        if i == 0:
+            other, text = model, engine.text_features
+        else:
+            other = build_model(cfg, seed=base + i)
+            text = compute_text_features(other, tokens)
+        runs.append(_l14_agree_one_seed(other, text, base + i,
+                                        engine.num_frames, engine.crop))
+        del other
+        torch.cuda.empty_cache()
+    for run in runs:
+        for metric, worst in _breaches(run["unfused_card"],
+                                       L14_AGREEMENT_LIMITS):
+            problems.append(f"seed {run['seed']} unfused_card: {metric} "
+                            f"{worst}")
+        if not _breaches(run["control"], L14_AGREEMENT_LIMITS):
+            problems.append(f"seed {run['seed']} control passes the limits")
+    rec["agreement"] = {"runs": runs, "limits": L14_AGREEMENT_LIMITS}
+
+    # (b) training with TPU.REMAT, the same model
+    tcfg = load_config(os.path.join(repo, L14),
+                       opts + ["TPU.REMAT", "true"], make_output_dir=False)
+    text = engine.text_features
+    del engine
+    model.cfg = tcfg
+    model.module.dist_net.remat = True
+    optimizer, lr_fn = construct_optimizer(tcfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, tcfg, optimizer, lr_fn)
+    params = dict(model.module.named_parameters())
+    frozen = {k: p.detach().cpu() for k, p in params.items()
+              if not p.requires_grad}
+    steps = L14_TRAIN_WARMUP_STEPS + L14_TRAIN_TIMED_STEPS
+
+    def run_steps(b):
+        batches = _train_batches(tcfg, steps, base, clips=b)
+        before = {k: p.detach().clone() for k, p in params.items()
+                  if p.requires_grad}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _zero_counts()
+        times, losses = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            metrics = step(state, {**batch, "text_features": text})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        return (times, losses, counts(),
+                torch.cuda.max_memory_allocated() / 2 ** 30, before)
+
+    tried, done = [], None
+    for b in L14_TRAIN_BATCHES:
+        done = _oom_free(run_steps, b)
+        tried.append({"batch": b, "remat": True, "fits": done is not None})
+        if done is not None:
+            batch_size = b
+            break
+        model.module.zero_grad(set_to_none=True)
+    if done is None:
+        raise AssertionError(f"l14: no train batch fits: {tried}")
+    times, losses, launches, peak, before = done
+    want_train = {"attention_qkv": arch.vision_layers * steps,
+                  "attention_qkv_rows": 0,
+                  "temporal_net_fwd": 2 * ladder * steps,
+                  "temporal_net_bwd": ladder * steps}
+    if launches != want_train:
+        problems.append(f"train launches {launches} != {want_train}")
+    if not all(math.isfinite(v) for v in losses):
+        problems.append(f"train losses {losses}")
+    # a parameter whose gradient lies below AdamW's eps steps by LR * |g| /
+    # (|g| + eps), which may round away in fp32 at the warm-up LR: it is
+    # listed with its largest |gradient|; one above eps must move
+    eps = min(g["eps"] for g in optimizer.param_groups)
+    trainable = [k for k, p in params.items() if p.requires_grad]
+    grad_max = {k: float(params[k].grad.abs().max()) for k in trainable}
+    unmoved = {k: g for k, g in grad_max.items()
+               if g > 0 and torch.equal(params[k], before[k])}
+    stuck = [k for k, g in unmoved.items() if g >= eps]
+    changed = [k for k, v in frozen.items()
+               if not torch.equal(params[k].detach().cpu(), v)]
+    if stuck or changed or not trainable or any(
+            not k.startswith("dist_net.") for k in trainable):
+        problems.append(f"trainable parameters with a gradient above eps "
+                        f"that did not move {stuck}, frozen ones that "
+                        f"changed {changed}")
+    del before, frozen
+    timed = sorted(times[L14_TRAIN_WARMUP_STEPS:])
+    rec["train"] = {
+        "batches_tried": tried, "batch_size": batch_size,
+        "optimizer": tcfg.OPTIMIZER.OPTIM_METHOD,
+        "trainable_params": sum(params[k].numel() for k in trainable),
+        "frozen_params": sum(p.numel() for p in params.values()
+                             if not p.requires_grad),
+        "step_ms": times, "losses": losses,
+        "step_ms_median": timed[len(timed) // 2],
+        "clips_per_s": batch_size * 1e3 / timed[len(timed) // 2],
+        "peak_mem_gb": peak, "launches": launches,
+        "expected_launches": want_train, "adam_eps": eps,
+        "unmoved_below_eps": unmoved,
+        "zero_grad_params": [k for k, g in grad_max.items() if g == 0]}
+    torch.cuda.empty_cache()
+
+    # one step with remat against the same step without, at the largest
+    # batch at which both fit
+    def one_step(batch, remat):
+        model.module.dist_net.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = _step_grads(model, tcfg, batch, text)
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    compared = None
+    for b in [b for b in L14_TRAIN_BATCHES if b <= batch_size]:
+        batch = _train_batches(tcfg, 1, base + 1, clips=b)[0]
+        with_remat = _oom_free(one_step, batch, True)
+        without = with_remat and _oom_free(one_step, batch, False)
+        tried.append({"batch": b, "remat": False, "fits": bool(without)})
+        model.module.zero_grad(set_to_none=True)
+        if without:
+            compared = {"batch_size": b,
+                        **_grad_diff(without[0], with_remat[0]),
+                        "remat_step_ms": with_remat[1],
+                        "remat_peak_mem_gb": with_remat[2],
+                        "no_remat_step_ms": without[1],
+                        "no_remat_peak_mem_gb": without[2]}
+            break
+        del batch
+    model.module.dist_net.remat = True
+    if compared is None:
+        problems.append("no batch fits a step without remat")
+    else:
+        for metric, worst in _breaches(compared, L14_REMAT_LIMITS):
+            problems.append(f"remat against no remat: {metric} {worst}")
+    rec["remat_vs_no_remat"] = compared
+    rec["remat_limits"] = L14_REMAT_LIMITS
+    del model, state, optimizer, step, params
+    torch.cuda.empty_cache()
+
+    # (c) the run list with training
+    rec["run_list"], run_launches = _l14_run_list(repo, problems)
+    rec.update({"seconds": time.perf_counter() - t_phase,
+                "pass": not problems})
+    emit(rec)
+    if problems:
+        raise AssertionError("l14: " + "; ".join(problems))
+    return serve_launches, launches, setup, run_launches
+
+
+def _l14_run_list(repo, problems):
+    """The run list of ``python -m dist_tpu_torch.run`` on ``L14`` with
+    ``L14_RUN_OPTS`` in a temporary OUTPUT_DIR: 4 train steps at batch 32
+    with remat, a val eval of 32 clips, a checkpoint. Checks finite losses,
+    the launches (K1 24 per step and per val batch and 12 for the text
+    tower, K2 48 per step and 24 per val batch, K3 24 per step) and the
+    checkpoint's name; returns its record (the loop's step ms, clips/s and
+    loader-wait share, peak memory, the checkpoint's bytes) and the
+    launches, appending what fails to ``problems``."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from dist_tpu_torch.tasks import train as train_task
+
+    meters = []
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    train_meter = train_task.TrainMeter
+    train_task.TrainMeter = _recorded_train_meter(meters)
+    tmp = tempfile.mkdtemp(prefix="l14_run_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, results, launches = _run_list(
+            ["--cfg", os.path.join(repo, L14), *L14_RUN_OPTS,
+             "OUTPUT_DIR", tmp])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state = results[0]
+        arch = state.model.module.arch
+        ladder = len(state.model.module.dist.selected_layers)
+        steps, batch = int(state.step), int(cfg.TRAIN.BATCH_SIZE)
+        del state, results
+        ckpts = sorted(n for n in os.listdir(os.path.join(tmp, "checkpoints"))
+                       if n.endswith(".pyth"))
+        nbytes = [os.path.getsize(os.path.join(tmp, "checkpoints", n))
+                  for n in ckpts]
+    finally:
+        train_task.TrainMeter = train_meter
+        shutil.rmtree(tmp, ignore_errors=True)
+        _restore_logging(handlers, level)
+        torch.cuda.empty_cache()
+    launches = launches[0]
+    want = {"attention_qkv": arch.vision_layers * (steps + 1)
+            + arch.transformer_layers, "attention_qkv_rows": 0,
+            "temporal_net_fwd": ladder * (2 * steps + 1),
+            "temporal_net_bwd": ladder * steps}
+    losses = [v for m in meters for v in m.losses]
+    if len(meters) != 1 or steps != 4:
+        problems.append(f"L/14 run list: {steps} steps")
+    if launches != want:
+        problems.append(f"L/14 run list launches {launches} != {want}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        problems.append(f"L/14 run list losses {losses}")
+    if ckpts != ["checkpoint_epoch_00004.pyth"]:
+        problems.append(f"L/14 run list checkpoints {ckpts}")
+    timing = [t for m in meters for t in m.timing]
+    iters = sorted(s for t in timing for s in t["iter_s"][1:])
+    step_ms = iters[len(iters) // 2] * 1e3
+    return {"overrides": L14_RUN_OPTS, "steps": steps, "losses": losses,
+            "launches": launches, "expected_launches": want,
+            "step_ms": [s * 1e3 for t in timing for s in t["iter_s"]],
+            "step_ms_median": step_ms, "clips_per_s": batch * 1e3 / step_ms,
+            "loader_wait_share": sum(t["loader_wait_s"] for t in timing)
+            / sum(t["loop_s"] for t in timing),
+            "peak_mem_gb": peak, "checkpoints": ckpts,
+            "checkpoint_bytes": nbytes}, launches
 
 
 def _http(port, path, body=None):
@@ -1866,6 +2391,7 @@ def main():
                                  f"spilling: {spills}")
 
         serve_path, train_path, rows = kernel_checks()
+        l14_path = l14_kernel_checks()
         engine, serve_launches = serve(repo)
         agreement(repo, engine)
         test_launches = multiview_test(repo, engine, card)
@@ -1875,6 +2401,8 @@ def main():
         train_agreement(repo, tokens)
         torch.cuda.empty_cache()
         train_run_launches = train_run(repo, card)
+        l14_launches = dict(zip(("serving", "train", "text", "run_list"),
+                                l14(repo, card)))
         tools_launches = tools(repo)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
@@ -1930,6 +2458,20 @@ def main():
             entry["tools_launches"] = tools_launches[name]
             entry["test_launches"] = test_launches[name]
             entry["train_run_launches"] = train_run_launches[name]
+            # the l14 phase: its launches per part, each shape's numbers
+            entry["l14"] = {}
+            for where, r in l14_path[name].items():
+                entry["l14"][where] = {"shape": r["shape"],
+                                       "launches": l14_launches[where][name],
+                                       **{k: r[k] for k in keys}}
+                if name == "attention_qkv":
+                    entry["l14"][where].update(
+                        {k: v for k, v in _attention_entry(
+                            r, "attention_qkv_wr_kernel").items()
+                         if k in att_keys})
+                else:
+                    entry["l14"][where]["kernel_route"] = r["route"]
+            entry["l14_run_list_launches"] = l14_launches["run_list"][name]
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
         # phase's, its numbers nb = 8's, each nb's beside them
@@ -1940,6 +2482,8 @@ def main():
             "launches": tools_launches["attention_qkv_rows"],
             "test_launches": test_launches["attention_qkv_rows"],
             "train_run_launches": train_run_launches["attention_qkv_rows"],
+            "l14_launches": sum(c["attention_qkv_rows"]
+                                for c in l14_launches.values()),
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

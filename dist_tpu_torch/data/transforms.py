@@ -6,10 +6,10 @@ horizontal flip and colour jitter. Decode, resize and crop stay on the
 host in uint8, so a clip crosses to the card at one byte per value.
 
 The JAX package resizes with OpenCV (``cv2.INTER_LINEAR``); the card's
-machine has no OpenCV, so the port resizes with ``F.interpolate``
-(bilinear, half-pixel centres, no antialias) on all frames of a clip at
-once, in float32, rounded to uint8. OpenCV rounds its bilinear weights to
-11 bits, so the two differ by at most 1 in some values.
+machine has no OpenCV, so :func:`_resize` computes OpenCV's uint8 bilinear
+arithmetic itself, in integers, on all frames of a clip at once: 11-bit
+fixed-point weights and OpenCV's vectorised rounding, equal to
+``cv2.resize`` bit for bit.
 
 Device side: :func:`normalize_device`, the float conversion and mean/std
 normalisation, runs on the video's device inside the step.
@@ -17,7 +17,6 @@ normalisation, runs on the video's device inside the step.
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 _BLUR_TODO = ("gaussian_blur_clip (SSL pretraining views) is not ported yet "
               "(ROADMAP.md queue A, item 5: SSL/HiCo)")
@@ -27,14 +26,62 @@ _BLUR_TODO = ("gaussian_blur_clip (SSL pretraining views) is not ported yet "
 # host side (numpy, uint8 THWC)
 
 
+# OpenCV's fixed point for uint8 bilinear resizes (INTER_RESIZE_COEF_BITS)
+_COEF_SCALE = 2048
+
+
+def _linear_taps(src, dst, clamp):
+    """OpenCV's source indices and 11-bit weights of one axis: -> (i0, i1,
+    w0, w1), so that output position d reads i0[d] and i1[d] with weights
+    w0[d] + w1[d] ~ 2048. The position is computed in float64 and cast to
+    float32, as OpenCV does. ``clamp`` (the columns) pins a position left
+    of the first or right of the last source pixel to that pixel with
+    weight 0 on its neighbour; the rows keep their fraction at the borders
+    and only their two indices are clipped."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    if clamp:
+        low, high = s < 0, s >= src - 1
+        f[low | high] = 0
+        s[low], s[high] = 0, src - 1
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+
 def _resize(frames, nh, nw):
     """Bilinear resize of every frame of a uint8 (T, H, W, C) clip to
-    (nh, nw), as one batched interpolation in float32, rounded."""
-    x = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2)
-    y = F.interpolate(x.float(), size=(nh, nw), mode="bilinear",
-                      align_corners=False, antialias=False)
-    y = y.round_().clamp_(0, 255).to(torch.uint8)
-    return y.permute(0, 2, 3, 1).contiguous().numpy()
+    (nh, nw), equal to ``cv2.resize(frame, (nw, nh), INTER_LINEAR)`` bit
+    for bit: the horizontal pass sums two taps with 11-bit weights exactly
+    in int32; the vertical pass rounds as OpenCV's vector code does,
+    ``(((b0 (S0 >> 4)) >> 16) + ((b1 (S1 >> 4)) >> 16) + 2) >> 2``. (An
+    exact 2x downscale, which OpenCV hands to INTER_AREA, gives the same
+    values: each output is its four pixels' rounded mean either way.)"""
+    t, h, w, c = frames.shape
+    y0, y1, b0, b1 = _linear_taps(h, nh, clamp=False)
+    x0, x1, a0, a1 = _linear_taps(w, nw, clamp=True)
+    # the horizontal pass on each source row the output reads, once
+    rows, which = np.unique(np.concatenate([y0, y1]), return_inverse=True)
+    x = frames[:, rows].reshape(t, len(rows), w * c)
+    channels = np.arange(c)
+    s = np.take(x, (x0[:, None] * c + channels).ravel(), axis=2)
+    s = s.astype(np.int32) * np.repeat(a0, c)
+    s1 = np.take(x, (x1[:, None] * c + channels).ravel(), axis=2)
+    s += s1.astype(np.int32) * np.repeat(a1, c)
+    s >>= 4
+    out = np.take(s, which[:nh], axis=1)
+    out *= b0[:, None]
+    out >>= 16
+    lower = np.take(s, which[nh:], axis=1)
+    lower *= b1[:, None]
+    lower >>= 16
+    out += lower
+    out += 2
+    out >>= 2
+    np.minimum(out, 255, out=out)
+    return out.astype(np.uint8).reshape(t, nh, nw, c)
 
 
 def resize_short_side(frames, length):

@@ -43,7 +43,7 @@ class CLIPDiSTModel(TextTransformer):
     def __init__(self, arch: CLIPArchitecture, dist: Optional[DiSTConfig] = None,
                  num_frames=16, sparse_alpha=1, freeze_visual=True,
                  freeze_text=True, prediction_fusion=False, fusion_weight=0.5,
-                 dtype=torch.float32, fused_temporal=False):
+                 dtype=torch.float32, fused_temporal=False, remat=False):
         super().__init__(arch)
         self.dist = dist
         self.num_frames = num_frames
@@ -57,7 +57,8 @@ class CLIPDiSTModel(TextTransformer):
         if dist is not None:
             self.dist_net = DiSTNetwork(dist, d_model=arch.vision_width,
                                         output_dim=arch.embed_dim,
-                                        fused_temporal=fused_temporal)
+                                        fused_temporal=fused_temporal,
+                                        remat=remat)
         self.logit_scale = nn.Parameter(torch.empty(()))
 
     def init_own(self, generator):
@@ -126,8 +127,13 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     """The model definition from a Config (and an optional sniffed
     architecture; else the preset ``VIDEO.BACKBONE.META_ARCH_NAME``).
 
-    Of the ``TPU.*`` keys only ``FUSED_TEMPORAL_NET`` means something on
-    one GPU; the others (mesh, remat, unroll, pipeline) are ignored."""
+    Of the ``TPU.*`` keys ``FUSED_TEMPORAL_NET`` and ``REMAT`` mean
+    something on one GPU; the others (mesh, unroll, pipeline) are ignored.
+    ``REMAT`` recomputes the ladder's steps in the backward
+    (``DiSTNetwork``). The JAX package also remats the CLIP towers' scan
+    body; here a frozen tower runs under ``no_grad`` and keeps nothing for
+    a backward, and an unfrozen one cannot train on the card until the
+    attention kernel has a backward (ROADMAP.md queue A, item 4)."""
     if arch is None:
         name = cfg.VIDEO.BACKBONE.META_ARCH_NAME
         if name not in ARCHITECTURES:
@@ -162,4 +168,5 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
         prediction_fusion=zeroshot,
         dtype=torch.bfloat16 if use_bf16 else torch.float32,
         fused_temporal=fused,
+        remat=bool(tpu.get("REMAT", False)),
     )

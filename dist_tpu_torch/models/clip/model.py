@@ -94,14 +94,18 @@ class Transformer(nn.Module):
             for _ in range(layers))
 
     def forward(self, x, collect_taps=False):
-        """-> (final x, stacked per-layer outputs (layers, B, L, D) or
-        None)."""
-        taps = []
-        for block in self.resblocks:
+        """-> (final x, per-layer outputs (layers, B, L, D) or None). Each
+        layer's output is written into one buffer as it comes, as the JAX
+        scan's ``ys`` is, so the taps are held once (ViT-L/14 at 1,024
+        frames: 12.9 GB in bf16), not in a list and again in its stack."""
+        taps = None
+        for i, block in enumerate(self.resblocks):
             x = block(x)
             if collect_taps:
-                taps.append(x)
-        return x, (torch.stack(taps) if collect_taps else None)
+                if taps is None:
+                    taps = x.new_empty((len(self.resblocks),) + x.shape)
+                taps[i] = x
+        return x, taps
 
 
 class VisionTransformer(nn.Module):

@@ -16,10 +16,12 @@ The dense stream is channels-last (B, T, H', W', C) as in the JAX package.
 """
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from dist_tpu_torch.models.base.blocks import (
     Conv3d,
@@ -290,14 +292,23 @@ class AdaPooling(nn.Module):
 
 
 class DiSTNetwork(nn.Module):
-    """The full side network."""
+    """The full side network.
 
-    def __init__(self, cfg, d_model, output_dim, fused_temporal=False):
+    ``remat`` (``TPU.REMAT``, the JAX package's ``nn.remat`` of the ladder
+    step): under grad, each ladder step keeps only its inputs and runs its
+    forward again in the backward (``torch.utils.checkpoint``), so the
+    ladder's activations live one step at a time; the values and gradients
+    are those without it. A fused TemporalNet then launches its forward
+    kernel twice a step. Under ``no_grad`` it changes nothing."""
+
+    def __init__(self, cfg, d_model, output_dim, fused_temporal=False,
+                 remat=False):
         super().__init__()
         n = len(cfg.selected_layers)
         c = cfg.integration_dim
         self.cfg = cfg
         self.d_model = d_model
+        self.remat = remat
         self.temporal_stem = TemporalPatchStem(
             cfg.temporal_dim, cfg.t_patch_size, cfg.s_patch_size)
         self.input_linears = StackedInputLinear(n, d_model, c)
@@ -344,9 +355,15 @@ class DiSTNetwork(nn.Module):
         taps_mid = self.input_linears(taps_selected)
         res_feat = torch.zeros_like(taps_mid[0])
         upd_mid = res_feat
-        for i in range(taps_mid.shape[0]):
-            x_temporal, res_feat, upd_mid = self._ladder_step(
-                i, x_temporal, res_feat, taps_mid[i])
+        step = self._ladder_step
+        if self.remat and torch.is_grad_enabled():
+            step = functools.partial(checkpoint, step, use_reentrant=False)
+        # unbind, not taps_mid[i]: the backward stacks the steps' gradients
+        # once, where each select's backward would fill a zero tensor of
+        # taps_mid's whole size and add it
+        for i, tap_mid in enumerate(taps_mid.unbind(0)):
+            x_temporal, res_feat, upd_mid = step(i, x_temporal, res_feat,
+                                                 tap_mid)
         current_feat = res_feat + upd_mid
 
         top_cls = self.aggregated_cls_token.to(dtype).expand(b, 1, c)

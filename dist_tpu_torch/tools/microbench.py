@@ -17,13 +17,12 @@
   dist       DiST side-network components, forward
              (names: dist_full dist_full_fused stem temporal_net
               integration input_linear t2i i2t adapool)
-  bwd        DiSTNetwork / stem forward + backward (names filter the
-             variants; the fused-vs-unfused parity probe runs only with no
-             names or the name ``parity``). The JAX tool's rolled and
-             unrolled variants are a choice of XLA's compile with no eager
-             counterpart; the remat variants wait for TPU.REMAT
-             (``ROADMAP.md`` list A, item 2.7) and print a ``not_ported``
-             line.
+  bwd        DiSTNetwork / stem forward + backward, unfused and fused,
+             each without and with ``TPU.REMAT`` (the ladder's steps run
+             again in the backward; names filter the variants; the
+             fused-vs-unfused parity probe runs only with no names or the
+             name ``parity``). The JAX tool's rolled and unrolled variants
+             are a choice of XLA's compile with no eager counterpart.
   bwd_parts  forward + backward of one ladder step's modules (names as
              for ``dist``); ``ms`` is one module of one step
   train      the train step: full step, loss forward, loss forward +
@@ -360,10 +359,6 @@ def cmd_dist(bench, names):
 
 # ----------------------------------------------------------------- bwd ----
 
-REMAT_NOT_PORTED = ("TPU.REMAT is not ported yet (ROADMAP.md list A, "
-                    "item 2.7)")
-
-
 def cmd_bwd(bench, names):
     cfg, video, taps, _, _ = _dist_setup(bench)
     want = set(names)
@@ -374,14 +369,15 @@ def cmd_bwd(bench, names):
         for tnet in net.temporal_nets:
             tnet.fused = fused
 
-    for name, fused in (("dist_fwd_bwd", False), ("dist_fwd_bwd_fused", True)):
+    for name, fused, remat in (
+            ("dist_fwd_bwd", False, False), ("dist_fwd_bwd_fused", True, False),
+            ("dist_fwd_bwd_remat", False, True),
+            ("dist_fwd_bwd_remat_fused", True, True)):
         if not want or name in want:
             set_fused(fused)
+            net.remat = remat
             bench.time(name, lambda: _grads(net(video, taps), params),
                        outer=3)
-    for name in ("dist_fwd_bwd_remat", "dist_fwd_bwd_remat_fused"):
-        if not want or name in want:
-            bench.emit({"variant": name, "not_ported": REMAT_NOT_PORTED})
 
     # the fused TemporalNet ladder (K2) against the unfused one (cuDNN)
     # with the same weights, on this device

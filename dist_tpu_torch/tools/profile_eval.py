@@ -18,8 +18,9 @@ Components:
 Each line has ``component``, ``ms`` (mean per call between CUDA events,
 after a first call, reported as ``first_call_s``, and 3 warm-up calls),
 ``device`` and, where the work is counted, ``tflops``. BENCH_CFG selects
-the config (default the flagship ViT-B/16 8+16f); the shapes (tokens,
-width, heads, taps) come from its architecture in
+the config (default the flagship ViT-B/16 8+16f) and BENCH_OPTS adds
+overrides (for example ``TPU.FUSED_TEMPORAL_NET true``); the shapes
+(tokens, width, heads, taps) come from its architecture in
 ``models/clip/model.py::ARCHITECTURES``. BENCH_BATCH (clips, default 8)
 and BENCH_ITERS (calls per timing, default 40). Runs on the CUDA card;
 ``--device cpu`` runs on the CPU, where the times are the CPU's.
@@ -41,6 +42,7 @@ BATCH = int(os.environ.get("BENCH_BATCH", "8"))
 ITERS = int(os.environ.get("BENCH_ITERS", "40"))
 CFG = os.environ.get("BENCH_CFG",
                      "configs/projects/dist/ssv2/vit-b16-8+16f.yaml")
+OPTS = os.environ.get("BENCH_OPTS", "").split()
 MATMUL_N = 8192
 COMPONENTS = ("matmul_peak", "full_eval", "tower_taps", "tower_notaps",
               "dist_net", "attn_kernel", "ln_gelu")
@@ -69,7 +71,8 @@ def main(argv=None):
     from dist_tpu_torch.tasks.state import _prep_video, make_eval_step
 
     cfg = load_config(os.path.join(REPO, CFG),
-                      ["TRAIN.BATCH_SIZE", str(BATCH)], make_output_dir=False)
+                      ["TRAIN.BATCH_SIZE", str(BATCH), *OPTS],
+                      make_output_dir=False)
     arch = ARCHITECTURES[cfg.VIDEO.BACKBONE.META_ARCH_NAME]
     tokens = arch.grid_size ** 2 + 1
     width, heads = arch.vision_width, arch.vision_heads

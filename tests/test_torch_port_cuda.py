@@ -704,3 +704,77 @@ def test_tiny_run_list_with_training_on_the_card(tmp_path):
         np.testing.assert_array_equal(got.clip_count, got.num_clips)
         err = np.abs(got.video_preds - want.video_preds).max() / got.num_clips
         assert err <= RUN_LIST_BF16_LIMIT, err
+
+
+def _l14_tiny(cfg, remat):
+    """An L/14-shaped tiny model on the card: patch 14 at 56 px (a 4 x 4
+    grid), 3 heads of 64, 2 layers, every layer selected, 8 dense and 4
+    sparse frames, ``S_PATCH_SIZE`` 14, the TemporalNet fused, bf16;
+    weights from seed 0."""
+    from dist_tpu_torch.models.base.blocks import init_weights
+    from dist_tpu_torch.models.base.models import VideoModel, build_head
+    from dist_tpu_torch.models.clip.clip_video import CLIPDiSTModel
+    from dist_tpu_torch.models.clip.model import CLIPArchitecture
+    from dist_tpu_torch.models.dist.dist_net import DiSTConfig
+
+    arch = CLIPArchitecture(32, 56, 2, 192, 14, 77, 49408, 64, 1, 1)
+    dist = DiSTConfig(selected_layers=(0, 1), temporal_dim=16,
+                      integration_dim=64, s_patch_size=14, t_patch_size=5,
+                      num_frames=8, alpha=2)
+    with torch.device("meta"):
+        module = CLIPDiSTModel(arch, dist, num_frames=8, sparse_alpha=2,
+                               dtype=torch.bfloat16, fused_temporal=True,
+                               remat=remat)
+    module = module.to_empty(device="cpu")
+    init_weights(module, torch.Generator().manual_seed(0))
+    return VideoModel(module=module.cuda().eval(), head=build_head(cfg),
+                      cfg=cfg)
+
+
+def test_l14_tiny_train_step_with_remat_equals_without():
+    """One train step of an L/14-shaped tiny model (``TPU.REMAT true``,
+    tiny_synth's optimizer, label smoothing and mixup/cutmix) on the card:
+    per step K1 2 (the frozen tower's layers), K2 4 (the 2 ladder steps'
+    forward and remat's recompute) and K3 2; the loss and every gradient
+    equal to the same step without remat, bit for bit (the same launches
+    on the same values)."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true", "TPU.REMAT", "true",
+         "DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "56"],
+        make_output_dir=False)
+    rng = np.random.default_rng(3)
+    batch = {"video": torch.from_numpy(rng.integers(
+                 0, 256, (2, 8, 56, 56, 3), dtype=np.uint8)).cuda(),
+             "labels": torch.tensor([3, 7]).cuda(),
+             "text_features": torch.from_numpy(rng.standard_normal(
+                 (12, 32)).astype(np.float32)).cuda()}
+    out = {}
+    for remat in (True, False):
+        model = _l14_tiny(cfg, remat)
+        optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
+        step = make_train_step(model, cfg, optimizer, lr_fn)
+        att.fused_attention_qkv.launches = 0
+        tn.fused_temporal_net.launches = 0
+        tn.fused_temporal_net_bwd.launches = 0
+        loss = step(create_train_state(model, optimizer), batch)["loss"]
+        torch.cuda.synchronize()
+        assert (att.fused_attention_qkv.launches,
+                tn.fused_temporal_net.launches,
+                tn.fused_temporal_net_bwd.launches) == (2, 4 if remat else 2,
+                                                        2)
+        assert bool(torch.isfinite(loss))
+        out[remat] = (loss, {k: p.grad for k, p in
+                             model.module.named_parameters()
+                             if p.requires_grad})
+    assert torch.equal(out[True][0], out[False][0])
+    assert sorted(out[True][1]) == sorted(out[False][1])
+    for k, g in out[False][1].items():
+        assert torch.equal(out[True][1][k], g), k

@@ -91,17 +91,13 @@ def _cfgs(repo_root, *opts):
             jax_load_config(path, list(opts), make_output_dir=False))
 
 
-def _assert_items_equal(got, want, resized=False):
-    """Equal bit for bit; with ``resized`` the video (through a random
-    resized crop) within 1 of OpenCV's in at most 15 % of values."""
+def _assert_items_equal(got, want):
+    """Equal bit for bit, the video of a train item (through a random
+    resized crop, resized as OpenCV resizes) too."""
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype, k
-        if k == "video" and resized:
-            diff = np.abs(got[k].astype(np.int16) - want[k].astype(np.int16))
-            assert diff.max() <= 1 and (diff > 0).mean() <= 0.15
-        else:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("split", ["train", "val", "test"])
@@ -119,7 +115,7 @@ def test_synthetic_items_match_jax(repo_root, split):
         assert got._view_indices(i) == want._view_indices(i)
         for seed in (12, 11) if train else (None, 11):
             _assert_items_equal(got.__getitem__(i, seed),
-                                want.__getitem__(i, seed), resized=train)
+                                want.__getitem__(i, seed))
 
 
 def _write_lists(tmp_path):
@@ -174,7 +170,7 @@ def _fake_video(monkeypatch, bad=()):
 def test_ssv2_flip_remaps_labels_as_jax(repo_root, tmp_path, monkeypatch):
     """SSV2's train flip swaps the directional classes (86/87, 93/94,
     166/167); the port draws the same flips as the JAX package. Its video
-    went through a random resized crop, within 1 of OpenCV's."""
+    went through a random resized crop, equal to OpenCV's."""
     _write_lists(tmp_path)
     _fake_video(monkeypatch)
     cfg, jcfg = _cfgs(repo_root, "DATA.ANNO_DIR", str(tmp_path),
@@ -184,7 +180,7 @@ def test_ssv2_flip_remaps_labels_as_jax(repo_root, tmp_path, monkeypatch):
     labels = []
     for seed in range(24):
         g, w = got.__getitem__(0, seed), want.__getitem__(0, seed)
-        _assert_items_equal(g, w, resized=True)
+        _assert_items_equal(g, w)
         labels.append(int(g["label"]))
     assert set(labels) == {86, 87}
     assert base_dataset.SSV2_FLIP_LABEL_MAP == jax_base.SSV2_FLIP_LABEL_MAP

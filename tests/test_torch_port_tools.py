@@ -77,9 +77,7 @@ def test_microbench_command(tiny_microbench, capsys, command):
         assert check["check"] == "max_abs_diff" and check["v"] >= 0
     assert [r["variant"] for r in lines] == VARIANTS[command]
     for r in lines:
-        if "not_ported" in r:
-            assert "remat" in r["variant"]
-        elif r["variant"] == "fused_vs_unfused_parity":
+        if r["variant"] == "fused_vs_unfused_parity":
             assert r["max_abs_diff"] <= r["out_max"]
         else:
             assert r["ms"] > 0 and r["first_call_s"] > 0
@@ -128,6 +126,11 @@ def test_profile_eval(monkeypatch, capsys):
         assert ("tflops" in r) == (r["component"] in with_flops)
     assert profile_eval.main(["attn_kernel", "--device", "cpu"]) == 0
     assert [r["component"] for r in _lines(capsys)] == ["attn_kernel_x1"]
+    # BENCH_OPTS: the side network with the TemporalNet fused
+    monkeypatch.setattr(profile_eval, "OPTS",
+                        ["TPU.FUSED_TEMPORAL_NET", "true"])
+    assert profile_eval.main(["dist_net", "--device", "cpu"]) == 0
+    assert [r["component"] for r in _lines(capsys)] == ["dist_net"]
     with pytest.raises(SystemExit):
         profile_eval.main(["no_such_component", "--device", "cpu"])
 

@@ -10,10 +10,9 @@ the pretrained weights: the JAX fine-tune init leaves its EMA copy at the
 weights it had before the load, the port's restarts it from the loaded
 ones, and with the init equal to the file both EMA copies start from it.
 The JAX package's global batch on 8 virtual devices is ``BATCH_SIZE x
-8``, so the port runs at batch 8. The port resizes a frame with
-``F.interpolate`` where the JAX package uses OpenCV, which moves up to 15 %
-of a train clip's values by 1 (``test_torch_port_loader.py``); here the
-port resizes with OpenCV too, so both packages train on the same
+8``, so the port runs at batch 8. The port's own loader makes the
+batches: its resize equals OpenCV's, which the JAX package calls, bit for
+bit (``test_torch_port_resize.py``), so both packages train on the same
 batches.
 
 Held to the JAX run list: every step's loss (rel 1e-5), top-1 error and
@@ -41,7 +40,6 @@ from dist_tpu.config import config as jax_config
 from dist_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from dist_tpu_torch import run
 from dist_tpu_torch.config import config
-from dist_tpu_torch.data import transforms
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.models.clip.convert import state_dict_from_jax
 from dist_tpu_torch.optim.optimizer import FROZEN, param_labels
@@ -119,14 +117,6 @@ def _jax_ckpt(path):
     return int(blob["epoch"]), int(blob["step"])
 
 
-def _cv2_resize(frames, nh, nw):
-    """The JAX package's resize (OpenCV's INTER_LINEAR, frame by frame)."""
-    import cv2
-
-    return np.stack([cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
-                     for f in frames])
-
-
 def _port_list(repo_root, out, ckpt, *opts):
     argv = ["--cfg", os.path.join(repo_root, TINY), "--device", "cpu", *OPTS,
             *PORT_BATCH, "TRAIN.CHECKPOINT_FILE_PATH", ckpt,
@@ -136,7 +126,6 @@ def _port_list(repo_root, out, ckpt, *opts):
     with pytest.MonkeyPatch.context() as mp:
         for mod, name, cls in rec.patches:
             mp.setattr(mod, name, cls)
-        mp.setattr(transforms, "_resize", _cv2_resize)
         rec.results = run.main(argv)
     rec.ckpts = _ckpts(out, _port_ckpt)
     return rec

@@ -91,7 +91,34 @@
    the run list with training (``L14_RUN_OPTS``: 4 steps at batch 32
    with remat on synthetic clips, a val eval, a checkpoint): launches,
    the loop's step ms and loader-wait share, the checkpoint's bytes.
-10. Tools, at full width (launch counts zeroed just before, read just
+10. DDP: data parallelism over ``torch.distributed`` at full width. (a)
+   In this process, an NCCL group of one rank (a ``FileStore``): the
+   flagship's train step at batch 32 (bf16, fused, mixup and cutmix on)
+   through ``DistributedDataParallel`` against the same steps without it,
+   from the same weights and batches: the losses and every dist_net
+   gradient equal bit for bit, K1 12, K2 12 and K3 12 launches per step,
+   both medians; the trainable parameters a plain backward leaves without
+   a gradient (the last ladder step's ``integration2temporal_nets``, why
+   ``find_unused_parameters`` is on). Then the pod8 recipe (``POD8``:
+   L/14 at full width, ``TPU.REMAT``, ``TPU.FSDP`` replicated with one
+   warning, batch 4 a rank) through DDP: 2 warm-up and 3 timed steps, K1
+   24, K2 48 and K3 24 launches per step, step ms, clips/s, peak memory.
+   (b) Two ranks sharing the card over gloo, spawned by the port's
+   launcher, each running the flagship's run list with training on fixed
+   batches (``DDP_RUN_OPTS``, batch 16 a rank) against one process at
+   batch 32: each step's loss and the final dist_net weights within
+   ``DDP_LIMITS``, which a control whose first two steps skip the
+   all-reduce (``no_sync``) must break; both ranks' weights equal bit for
+   bit at every save, one checkpoint file per save, every test view
+   counted once, the test scores within ``RUN_LIST_BF16_LIMIT``, K1 12, K2
+   12 and K3 12 launches per step in each rank; rank 1 alone preempts
+   after ``DDP_PREEMPT_AFTER`` steps, both ranks stop at that iteration
+   with one mid-epoch checkpoint and exit 0, and the resume equals the
+   uninterrupted two-rank run within ``TRAIN_RUN_RESUME_LIMIT``. Prints,
+   labelled "correctness, not scaling", the two-rank step ms, the bytes
+   each step all-reduces and DDP's reduction ms per step (a comm hook's
+   timer).
+11. Tools, at full width (launch counts zeroed just before, read just
    after the in-process part): ``microbench attn`` in this process (REPS
    small, stdout captured): every variant has ``ms`` and no ``error``, and
    K4 (``attn_rows{2,4,8}``) lies within the bf16 tolerance of K1; an HTTP
@@ -122,7 +149,8 @@ numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them, the multi-view test's
 launches as ``test_launches`` and the train run's (a) as
 ``train_run_launches``; under ``l14`` each L/14 shape's numbers with the
-l14 phase's launches there; K4's from the tools phase
+l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
+K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
 main path launches; K2 and K3 with their route, ``fwd_route`` and
@@ -252,6 +280,59 @@ L14_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TPU.FUSED_TEMPORAL_NET", "true",
                 "TRAIN.NUM_SAMPLES_LIMIT", "32", "OPTIMIZER.MAX_EPOCH", "4",
                 "TRAIN.EVAL_PERIOD", "4", "TRAIN.CHECKPOINT_PERIOD", "4",
                 "TEST.ENABLE", "false", "LOG_CONFIG_INFO", "false"]
+
+# the ddp phase: data parallelism over torch.distributed. (a) in this
+# process, an NCCL group of one rank (FileStore): the flagship's train step
+# through DistributedDataParallel against the same step without it (these
+# warm-up and timed steps), and the pod8 recipe (L/14, TPU.REMAT, TPU.FSDP
+# replicated, batch 4 a rank; the l14 phase's warm-up and timed steps)
+DDP_WARMUP_STEPS = 2
+DDP_TIMED_STEPS = 5
+POD8 = "configs/projects/dist/ssv2/vit-l14-32+64f-pod8.yaml"
+# (b) two ranks sharing the one card over gloo, spawned by the port's
+# launcher, against one process: the flagship's run list with training (one
+# fold-epoch of 4 steps at a global batch of 32, mixup and cutmix off, EMA
+# on, a val eval and a checkpoint, then the single-view and 3-view tests)
+# on fixed batches: the loader's random crop, flip and colour jitter draw
+# from per-rank seeds, so the crop is the whole frame and both are off
+DDP_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TPU.FUSED_TEMPORAL_NET", "true",
+                "TRAIN.ENABLE", "true", "TRAIN.NUM_SAMPLES_LIMIT", "32",
+                "OPTIMIZER.MAX_EPOCH", "4", "TRAIN.EVAL_PERIOD", "4",
+                "TRAIN.CHECKPOINT_PERIOD", "4", "MODEL.EMA.ENABLE", "true",
+                "AUGMENTATION.MIXUP.ENABLE", "false",
+                "AUGMENTATION.CUTMIX.ENABLE", "false",
+                "AUGMENTATION.SSV2_FLIP", "false",
+                "DATA.TRAIN_JITTER_SCALES", "[1.0, 1.0]",
+                "AUGMENTATION.RATIO", "[1.0, 1.0]",
+                "AUGMENTATION.COLOR_AUG", "false", "TRAIN.AUTO_RESUME", "true",
+                "TEST.ENABLE", "true", "TEST.NUM_SAMPLES_LIMIT", "16",
+                "LOG_CONFIG_INFO", "false", "LOG_MODEL_INFO", "false"]
+DDP_WORLD = 2
+# the card every rank of the ddp phase binds: the machine has one
+DDP_DEVICE = "cuda:0"
+# the per-rank and the one-process batches (train, test): the same global
+DDP_RANK_BATCH = ["TRAIN.BATCH_SIZE", "16", "TEST.BATCH_SIZE", "8"]
+DDP_ONE_BATCH = ["TRAIN.BATCH_SIZE", "32", "TEST.BATCH_SIZE", "16"]
+# rank 1 alone sets its preemption flag after this many steps
+DDP_PREEMPT_AFTER = 2
+# the two ranks' time limit, every run of (b) included
+DDP_SPAWN_TIMEOUT_S = 600
+# the largest difference of a video's ensembled score, divided by its
+# views, between two bf16 run lists (tests/test_torch_port_cuda.py's limit
+# of the tiny bf16 run list against fp32, from tools/run_list_errors.py)
+RUN_LIST_BF16_LIMIT = 0.032
+# Limits of two bf16 ranks against one process at the same global batch:
+# each step's loss (relative), and the final dist_net weights: the largest
+# absolute difference, and the L2 norm of the difference of the two runs'
+# updates over the one process's update. 3 times the reading on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W): loss 2.97e-5, weights 2.31e-4 and
+# 0.0144; the no_sync control 3.23e-4 and 0.385. The control breaks the
+# update's limit by 8.9 times; its largest difference lies inside the
+# limit: AdamW moves an element about +-lr * mult whatever its gradient's
+# size, so where bf16 rounding flips a near-zero gradient the element
+# moves as far as where the control's half-batch gradient differs.
+DDP_LIMITS = {"loss_rel_diff": 8.9e-5, "weight_max_abs_diff": 6.9e-4,
+              "update_rel_l2": 0.043}
 
 # the tools phase: microbench repetitions, each tool subprocess's time
 # limit, and the HTTP round trip's limit on a returned score against the
@@ -2055,6 +2136,526 @@ def _l14_run_list(repo, problems):
             "checkpoint_bytes": nbytes}, launches
 
 
+def _unused_params(model, cfg, batch, text):
+    """The trainable parameters that one plain forward and backward of the
+    train step's loss (mixup off) leaves without a gradient."""
+    from dist_tpu_torch.optim.losses import calculate_loss
+    from dist_tpu_torch.tasks.state import _prep_video
+
+    model.module.zero_grad(set_to_none=True)
+    model.module.train()
+    preds, logits = model.apply({"video": _prep_video(cfg, batch["video"]),
+                                 "text_features": text}, train=True)
+    loss, _ = calculate_loss(cfg, preds, logits,
+                             {"supervised": batch["labels"]})
+    loss.backward()
+    unused = sorted(k for k, p in model.module.named_parameters()
+                    if p.requires_grad and p.grad is None)
+    model.module.zero_grad(set_to_none=True)
+    return unused
+
+
+def _last_integration2temporal(model):
+    """The trainable parameters of the ladder's last
+    ``integration2temporal_nets``: its output would feed a next step."""
+    n = len(model.module.dist_net.integration2temporal_nets)
+    prefix = f"dist_net.integration2temporal_nets.{n - 1}."
+    return sorted(k for k, p in model.module.named_parameters()
+                  if p.requires_grad and k.startswith(prefix))
+
+
+def _ddp_steps(cfg, batches, tokens, through_ddp, seed, keep_grads):
+    """The train steps of a model built from ``seed`` over ``batches``,
+    through ``wrap_ddp`` or not: the losses, each step's trainable
+    gradients (with ``keep_grads``), host ms per step, the launches, the
+    parameters a plain backward leaves without a gradient and those it
+    should, the bytes of the trainable gradients, the peak memory and the
+    model."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.parallel.mesh import wrap_ddp
+    from dist_tpu_torch.tasks.state import (
+        compute_text_features,
+        create_train_state,
+        ema_decay,
+        make_train_step,
+    )
+
+    model = build_model(cfg, seed=seed)
+    text = compute_text_features(model, tokens)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    unused = _unused_params(model, cfg, batches[0], text)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    if through_ddp:
+        wrap_ddp(model)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    params = [(k, p) for k, p in model.module.named_parameters()
+              if p.requires_grad]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    losses, grads, times = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(state, {**batch, "text_features": text})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].clone())
+        if keep_grads:
+            grads.append({k: p.grad.clone() for k, p in params})
+    return {"losses": losses, "grads": grads, "ms": times,
+            "launches": counts(), "unused": unused,
+            "expected_unused": _last_integration2temporal(model),
+            "grad_bytes": 4 * sum(p.numel() for _, p in params),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "model": model}
+
+
+def _median(values):
+    v = sorted(values)
+    return v[len(v) // 2]
+
+
+def _ddp_world1(repo, problems):
+    """(a): an NCCL group of one rank in this process. The flagship's train
+    step at batch 32 through DDP against the same steps without it, from
+    the same weights and batches; then the pod8 recipe through DDP."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.parallel.mesh import init_distributed
+
+    cfg = _train_cfg(repo)
+    classes = int(cfg.VIDEO.HEAD.NUM_CLASSES)
+    _, tokens = resolve_label_texts(cfg, classes)
+    steps = DDP_WARMUP_STEPS + DDP_TIMED_STEPS
+    seed = int(cfg.RANDOM_SEED)
+    batches = _train_batches(cfg, steps, seed)
+    tmp = tempfile.mkdtemp(prefix="ddp_store_")
+    init_distributed(cfg, DDP_DEVICE, 0, 1,
+                     "file://" + os.path.join(tmp, "s"))
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    try:
+        plain = _ddp_steps(cfg, batches, tokens, False, seed, True)
+        del plain["model"]
+        torch.cuda.empty_cache()
+        ddp = _ddp_steps(cfg, batches, tokens, True, seed, True)
+        arch = ddp["model"].module.arch
+        ladder = len(ddp["model"].module.dist.selected_layers)
+        del ddp["model"]
+        torch.cuda.empty_cache()
+        equal_losses = all(torch.equal(a, b) for a, b in
+                           zip(ddp["losses"], plain["losses"]))
+        unequal = sorted({k for a, b in zip(ddp["grads"], plain["grads"])
+                          for k in b if not torch.equal(a[k], b[k])})
+        want = {"attention_qkv": arch.vision_layers * steps,
+                "attention_qkv_rows": 0, "temporal_net_fwd": ladder * steps,
+                "temporal_net_bwd": ladder * steps}
+        if rec["backend"] != "nccl":
+            problems.append(f"(a) backend {rec['backend']}")
+        if not equal_losses or unequal:
+            problems.append(f"(a) DDP off the plain step: losses equal "
+                            f"{equal_losses}, gradients differing {unequal}")
+        if ddp["launches"] != want or plain["launches"] != want:
+            problems.append(f"(a) launches {ddp['launches']}, plain "
+                            f"{plain['launches']} != {want}")
+        if ddp["unused"] != ddp["expected_unused"]:
+            problems.append(f"(a) parameters without a gradient "
+                            f"{ddp['unused']} != {ddp['expected_unused']}")
+        losses = [float(v) for v in ddp["losses"]]
+        rec["flagship"] = {
+            "batch_size": int(cfg.TRAIN.BATCH_SIZE), "losses": losses,
+            "losses_equal_bit_for_bit": equal_losses,
+            "gradients_differing": unequal,
+            "gradient_tensors": len(ddp["grads"][0]),
+            "gradient_bytes": ddp["grad_bytes"],
+            "ddp_step_ms": ddp["ms"], "plain_step_ms": plain["ms"],
+            "ddp_step_ms_median": _median(ddp["ms"][DDP_WARMUP_STEPS:]),
+            "plain_step_ms_median": _median(plain["ms"][DDP_WARMUP_STEPS:]),
+            "launches": ddp["launches"], "plain_launches": plain["launches"],
+            "expected_launches": want,
+            "params_without_gradient": ddp["unused"],
+            "ddp_peak_mem_gb": ddp["peak_mem_gb"],
+            "plain_peak_mem_gb": plain["peak_mem_gb"]}
+        del ddp, plain, batches
+        torch.cuda.empty_cache()
+
+        # the pod8 recipe, built after the flagship's model is freed
+        pcfg = load_config(os.path.join(repo, POD8),
+                           ["TPU.FUSED_TEMPORAL_NET", "true"],
+                           make_output_dir=False)
+        warnings = []
+
+        class Count(logging.Handler):
+            def emit(self, record):
+                if "TPU.FSDP" in record.getMessage():
+                    warnings.append(record.getMessage())
+
+        handler = Count(logging.WARNING)
+        mesh_logger = logging.getLogger("dist_tpu_torch.parallel.mesh")
+        mesh_logger.addHandler(handler)
+        try:
+            t0 = time.perf_counter()
+            batch = int(pcfg.TRAIN.BATCH_SIZE)
+            _, ptokens = resolve_label_texts(pcfg, classes)
+            psteps = L14_TRAIN_WARMUP_STEPS + L14_TRAIN_TIMED_STEPS
+            pod8 = _ddp_steps(pcfg, _train_batches(pcfg, psteps, seed),
+                              ptokens, True, seed, False)
+            seconds = time.perf_counter() - t0
+        finally:
+            mesh_logger.removeHandler(handler)
+        parch = pod8["model"].module.arch
+        pladder = len(pod8["model"].module.dist.selected_layers)
+        remat = bool(pod8["model"].module.dist_net.remat)
+        del pod8["model"]
+        pwant = {"attention_qkv": parch.vision_layers * psteps,
+                 "attention_qkv_rows": 0,
+                 "temporal_net_fwd": 2 * pladder * psteps,
+                 "temporal_net_bwd": pladder * psteps}
+        plosses = [float(v) for v in pod8["losses"]]
+        if pod8["launches"] != pwant:
+            problems.append(f"(a) pod8 launches {pod8['launches']} != {pwant}")
+        if not all(math.isfinite(v) for v in plosses):
+            problems.append(f"(a) pod8 losses {plosses}")
+        if len(warnings) != 1 or not remat or batch != 4:
+            problems.append(f"(a) pod8: FSDP warnings {warnings}, remat "
+                            f"{remat}, batch {batch}")
+        if pod8["unused"] != pod8["expected_unused"]:
+            problems.append(f"(a) pod8 parameters without a gradient "
+                            f"{pod8['unused']} != {pod8['expected_unused']}")
+        median = _median(pod8["ms"][L14_TRAIN_WARMUP_STEPS:])
+        rec["pod8"] = {
+            "config": POD8, "batch_size_per_rank": batch, "remat": remat,
+            "fsdp_warnings": warnings, "losses": plosses,
+            "step_ms": pod8["ms"], "step_ms_median": median,
+            "clips_per_s": batch * 1e3 / median,
+            "peak_mem_gb": pod8["peak_mem_gb"], "launches": pod8["launches"],
+            "expected_launches": pwant, "gradient_bytes": pod8["grad_bytes"],
+            "params_without_gradient": pod8["unused"], "seconds": seconds}
+        launches = {"flagship": rec["flagship"]["launches"],
+                    "pod8": pod8["launches"]}
+        del pod8
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _weights_digest(module):
+    """sha256 of the dist_net parameters' bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, p in module.named_parameters():
+        if k.startswith("dist_net."):
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ddp_rank(runs):
+    """One of the two ranks of (b), bound to ``cuda:0``: each of ``runs``,
+    (name, per-rank argv, options), through the code of ``python -m
+    dist_tpu_torch.run`` (``_run_list``). Options: ``timed``, a comm hook
+    that times DDP's reduction (the default all-reduce of
+    ``default_hooks.allreduce_hook``: the bucket divided by the world, then
+    summed); ``local_steps``, the first N steps under ``no_sync`` (no
+    all-reduce). Returns for each run what it recorded in this rank."""
+    import torch
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+    from dist_tpu_torch.parallel import collectives
+    from dist_tpu_torch.tasks import train as train_task
+    from dist_tpu_torch.utils import checkpoint as cu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = collectives.get_rank()
+    out = []
+    for name, argvs, opts in runs:
+        meters, saves, reduce_s, initial = [], [], [], {}
+        originals = (train_task.TrainMeter, train_task.wrap_ddp,
+                     train_task.make_train_step, cu.save_checkpoint)
+
+        def wrap_ddp(model):
+            originals[1](model)
+            if opts.get("timed"):
+                def timed(times, bucket):
+                    t0 = time.perf_counter()
+
+                    def done(fut):
+                        times.append(time.perf_counter() - t0)
+                        return fut.value()
+                    return default_hooks.allreduce_hook(None, bucket).then(
+                        done)
+                model.ddp.register_comm_hook(reduce_s, timed)
+            return model
+
+        def make_train_step(model, *args):
+            if opts.get("initial"):     # the weights the run starts from
+                initial.update(
+                    (k, p.detach().float().cpu().numpy().copy())
+                    for k, p in model.module.named_parameters()
+                    if k.startswith("dist_net."))
+            step = originals[2](model, *args)
+            calls = [0]
+
+            def local_first(state, batch):
+                calls[0] += 1
+                if calls[0] <= opts.get("local_steps", 0):
+                    with model.ddp.no_sync():
+                        return step(state, batch)
+                return step(state, batch)
+            return local_first
+
+        def save_checkpoint(cfg, state, *args, **kw):
+            path = originals[3](cfg, state, *args, **kw)
+            saves.append((os.path.basename(path),
+                          _weights_digest(state.model.module)))
+            return path
+
+        train_task.TrainMeter = _recorded_train_meter(meters)
+        train_task.wrap_ddp = wrap_ddp
+        train_task.make_train_step = make_train_step
+        cu.save_checkpoint = save_checkpoint
+        try:
+            cfg, results, launches = _run_list(argvs[rank])
+        finally:
+            (train_task.TrainMeter, train_task.wrap_ddp,
+             train_task.make_train_step, cu.save_checkpoint) = originals
+        state = results[0]
+        rec = {"name": name, "rank": rank, "launches": launches,
+               "saves": saves, "reduce_s": reduce_s, "initial": initial,
+               "losses": [v for m in meters for v in m.losses],
+               "iter_s": [s for m in meters for t in m.timing
+                          for s in t["iter_s"]],
+               "exit": state.code if isinstance(state, SystemExit) else None,
+               "test_batches": [m.timing["batches"] for m in results[1:]],
+               "tests": [{"video_preds": m.video_preds,
+                          "clip_count": m.clip_count,
+                          "num_clips": m.num_clips} for m in results[1:]]}
+        if rec["exit"] is None:
+            module = state.model.module
+            rec["step"] = int(state.step)
+            rec["layers"] = (module.arch.vision_layers,
+                             module.arch.transformer_layers,
+                             len(module.dist.selected_layers))
+            rec["digest"] = _weights_digest(module)
+            rec["gradient_bytes"] = 4 * sum(
+                p.numel() for p in module.parameters() if p.requires_grad)
+            if rank == 0:
+                rec["weights"] = {k: p.detach().float().cpu().numpy().copy()
+                                  for k, p in module.named_parameters()
+                                  if k.startswith("dist_net.")}
+        out.append(rec)
+        del state, results
+        torch.cuda.empty_cache()
+    return out
+
+
+def _update_rel_l2(got, want, initial):
+    """||got - want|| / ||want - initial|| over the dist_net weights: how
+    far two runs' updates lie apart, against the update."""
+    import numpy as np
+
+    diff = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+               for k in want)
+    upd = sum(float(np.sum((want[k].astype(np.float64) - initial[k]) ** 2))
+              for k in want)
+    return math.sqrt(diff / upd)
+
+
+def _ddp_world2(repo, problems):
+    """(b): two ranks sharing ``cuda:0`` over gloo, spawned by the port's
+    launcher, run the flagship's run list (``DDP_RUN_OPTS``) four times:
+    uninterrupted (DDP's reduction timed by a comm hook), the control
+    (the first two steps under ``no_sync``), preempted by rank 1 alone,
+    and resumed; then one process runs the same list at the same global
+    batch. Returns the record and each rank's launches of the
+    uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.parallel import launch
+
+    flag = os.path.join(repo, FLAGSHIP)
+    tmp = tempfile.mkdtemp(prefix="ddp_run_")
+    base = ["--cfg", flag, "--device", DDP_DEVICE, *DDP_RUN_OPTS,
+            "DIST_BACKEND", "gloo"]
+
+    def argv(out, *opts):
+        return base + ["OUTPUT_DIR", os.path.join(tmp, out), *opts]
+
+    two = argv("two", *DDP_RANK_BATCH)
+    local = argv("control", *DDP_RANK_BATCH, "TEST.ENABLE", "false")
+    pre = argv("preempt", *DDP_RANK_BATCH, "TEST.ENABLE", "false",
+               "TRAIN.PREEMPT_SYNC_PERIOD", "1")
+    runs = [("two_ranks", [two, two], {"timed": True}),
+            ("control_no_sync", [local, local], {"local_steps": 2}),
+            ("preempted", [pre, pre + ["TRAIN.PREEMPT_AFTER_ITERS",
+                                       str(DDP_PREEMPT_AFTER)]], {}),
+            ("resumed", [pre, pre], {})]
+    cfg = load_config(flag, [*DDP_RUN_OPTS, "DIST_BACKEND", "gloo",
+                             "TPU.MESH.DATA", str(DDP_WORLD)],
+                      make_output_dir=False)
+    rec = {"world": DDP_WORLD, "backend": "gloo", "device": DDP_DEVICE,
+           "label": "two ranks on one card: correctness, not scaling"}
+
+    def names(out):
+        return sorted(os.listdir(os.path.join(tmp, out, "checkpoints")))
+
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.launch_task(cfg, _ddp_rank, (runs,), device=DDP_DEVICE,
+                                   timeout=DDP_SPAWN_TIMEOUT_S)
+        rec["spawn_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (one,) = _ddp_rank([("one_process", [argv("one", *DDP_ONE_BATCH)],
+                             {"initial": True})])
+        rec["one_process_s"] = time.perf_counter() - t0
+        (two0, ctl0, pre0, res0), (two1, ctl1, pre1, res1) = ranks
+        files = {out: names(out) for out in ("two", "preempt")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the uninterrupted run against one process
+    steps = len(one["losses"])
+    vl, tl, ladder = one["layers"]
+    val = 2     # one val batch a rank, of the plain and of the EMA weights
+    want = {"attention_qkv": vl * (steps + val) + tl,
+            "attention_qkv_rows": 0, "temporal_net_fwd": ladder * (steps + val),
+            "temporal_net_bwd": ladder * steps}
+    for r in (two0, two1):
+        tests = [{"attention_qkv": vl * b + tl, "attention_qkv_rows": 0,
+                  "temporal_net_fwd": ladder * b, "temporal_net_bwd": 0}
+                 for b in r["test_batches"]]
+        if r["launches"] != [want] + tests or r["exit"] is not None:
+            problems.append(f"(b) rank {r['rank']} launches {r['launches']} "
+                            f"!= {[want] + tests}, exit {r['exit']}")
+        for t in r["tests"]:
+            if not (t["clip_count"] == t["num_clips"]).all():
+                problems.append(f"(b) rank {r['rank']} views counted "
+                                f"{t['clip_count'].tolist()}")
+    if two0["saves"] != two1["saves"] or two0["digest"] != two1["digest"]:
+        problems.append(f"(b) the ranks' weights differ: saves "
+                        f"{two0['saves']} {two1['saves']}")
+    if files["two"] != ["checkpoint_epoch_00004.pyth",
+                        "checkpoint_epoch_00004.pyth.config.yaml"] or [
+            n for n, _ in two0["saves"]] != ["checkpoint_epoch_00004.pyth"]:
+        problems.append(f"(b) checkpoints {files['two']}, saves "
+                        f"{two0['saves']}")
+    if two0["losses"] != two1["losses"] or len(two0["losses"]) != steps:
+        problems.append(f"(b) logged losses {two0['losses']} "
+                        f"{two1['losses']}")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(two0["losses"], one["losses"]))
+    weights = one["weights"]
+    reading = {
+        "loss_rel_diff": loss_rel,
+        "weight_max_abs_diff": max(float(np.abs(two0["weights"][k]
+                                                - w).max())
+                                   for k, w in weights.items()),
+        "update_rel_l2": _update_rel_l2(two0["weights"], weights,
+                                        one["initial"])}
+    control = {
+        "weight_max_abs_diff": max(float(np.abs(ctl0["weights"][k]
+                                                - w).max())
+                                   for k, w in weights.items()),
+        "update_rel_l2": _update_rel_l2(ctl0["weights"], weights,
+                                        one["initial"]),
+        "ranks_equal": ctl0["digest"] == ctl1["digest"]}
+    for metric, worst in _breaches(reading, DDP_LIMITS):
+        problems.append(f"(b) two ranks against one process: {metric} "
+                        f"{worst}")
+    if not _breaches(control, DDP_LIMITS):
+        problems.append(f"(b) the no_sync control passes the limits "
+                        f"{control}")
+    scores = [float(np.abs(g["video_preds"] - w["video_preds"]).max()
+                    / g["num_clips"])
+              for g, w in zip(two0["tests"], one["tests"])]
+    if len(scores) != 2 or max(scores) > RUN_LIST_BF16_LIMIT:
+        problems.append(f"(b) test scores off one process's by {scores}")
+
+    # the agreed preemption and its resume
+    mid = "checkpoint_epoch_00000_iter_{:07d}.pyth".format(DDP_PREEMPT_AFTER)
+    if [pre0["exit"], pre1["exit"]] != [0, 0] or [
+            len(pre0["losses"]), len(pre1["losses"])] != [DDP_PREEMPT_AFTER] * 2:
+        problems.append(f"(b) preempted: exits {pre0['exit']} "
+                        f"{pre1['exit']}, steps {len(pre0['losses'])} "
+                        f"{len(pre1['losses'])}")
+    if [n for n, _ in pre0["saves"]] != [mid] or pre0["saves"] != pre1[
+            "saves"]:
+        problems.append(f"(b) preempted saves {pre0['saves']} "
+                        f"{pre1['saves']}")
+    resume = max(float(np.abs(res0["weights"][k] - w).max())
+                 for k, w in two0["weights"].items())
+    if resume > TRAIN_RUN_RESUME_LIMIT or res0["step"] != steps or res0[
+            "digest"] != res1["digest"]:
+        problems.append(f"(b) resumed: step {res0['step']}, weights off the "
+                        f"uninterrupted run's by {resume}")
+    if mid not in files["preempt"]:
+        problems.append(f"(b) preempt checkpoints {files['preempt']}")
+
+    iters = two0["iter_s"][1:]
+    one_iters = one["iter_s"][1:]
+    rec.update({
+        "opts": DDP_RUN_OPTS, "rank_batch": DDP_RANK_BATCH,
+        "one_process_batch": DDP_ONE_BATCH,
+        "losses": two0["losses"], "one_process_losses": one["losses"],
+        "reading": reading, "limits": DDP_LIMITS, "control": control,
+        "test_score_diff_per_view": scores,
+        "test_score_limit": RUN_LIST_BF16_LIMIT,
+        "saves": two0["saves"], "checkpoints": files,
+        "launches": [two0["launches"], two1["launches"]],
+        "expected_train_launches": want,
+        "preempted": {"exits": [pre0["exit"], pre1["exit"]],
+                      "steps": [len(pre0["losses"]), len(pre1["losses"])],
+                      "saves": pre0["saves"]},
+        "resumed": {"step": res0["step"], "max_abs_diff": resume,
+                    "limit": TRAIN_RUN_RESUME_LIMIT},
+        "two_ranks_on_one_card": {
+            "label": "correctness, not scaling",
+            "step_ms_median": _median(iters) * 1e3,
+            "one_process_step_ms_median": _median(one_iters) * 1e3,
+            "allreduce_bytes_per_step": two0["gradient_bytes"],
+            # from each bucket's hand-off to its all-reduce's end, summed
+            # over the buckets: they overlap each other and the backward
+            "reduce_ms_per_step": sum(two0["reduce_s"]) * 1e3 / steps,
+            "reduce_buckets_per_step": len(two0["reduce_s"]) / steps}})
+    return rec, {"rank0": two0["launches"][0], "rank1": two1["launches"][0]}
+
+
+def ddp(repo, card):
+    """Data parallelism over ``torch.distributed`` at full width: (a) in
+    this process, an NCCL group of one rank (``_ddp_world1``); (b) two
+    gloo ranks sharing the card (``_ddp_world2``). Two ranks on one card
+    prove correctness, not scaling. Returns each part's launches."""
+    t0 = time.perf_counter()
+    problems = []
+    world1, launches1 = _ddp_world1(repo, problems)
+    world2, launches2 = _ddp_world2(repo, problems)
+    rec = {"phase": "ddp", "nvidia_smi": card, "config": FLAGSHIP,
+           "nccl_world1": world1, "gloo_world2": world2,
+           "seconds": time.perf_counter() - t0, "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("ddp: " + "; ".join(problems))
+    return {"nccl_world1_flagship": launches1["flagship"],
+            "nccl_world1_pod8": launches1["pod8"],
+            "gloo_world2_rank0": launches2["rank0"],
+            "gloo_world2_rank1": launches2["rank1"]}
+
+
 def _http(port, path, body=None):
     """(status, JSON reply) of one request to the local server."""
     import urllib.error
@@ -2403,6 +3004,7 @@ def main():
         train_run_launches = train_run(repo, card)
         l14_launches = dict(zip(("serving", "train", "text", "run_list"),
                                 l14(repo, card)))
+        ddp_launches = ddp(repo, card)
         tools_launches = tools(repo)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
@@ -2472,6 +3074,8 @@ def main():
                 else:
                     entry["l14"][where]["kernel_route"] = r["route"]
             entry["l14_run_list_launches"] = l14_launches["run_list"][name]
+            entry["ddp_launches"] = {part: c[name]
+                                     for part, c in ddp_launches.items()}
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
         # phase's, its numbers nb = 8's, each nb's beside them
@@ -2484,6 +3088,8 @@ def main():
             "train_run_launches": train_run_launches["attention_qkv_rows"],
             "l14_launches": sum(c["attention_qkv_rows"]
                                 for c in l14_launches.values()),
+            "ddp_launches": {part: c["attention_qkv_rows"]
+                             for part, c in ddp_launches.items()},
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

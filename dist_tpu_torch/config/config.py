@@ -189,7 +189,10 @@ def parse_args(argv=None):
     parser.add_argument("--cfg", dest="cfg_file", default=None,
                         help="Path to the configuration file")
     parser.add_argument("--init_method", default=None, type=str,
-                        help="kept for CLI compatibility; unused")
+                        help="where the ranks of a data-parallel launch "
+                             "meet (tcp://host:port or file://path); "
+                             "default: MASTER_ADDR/MASTER_PORT, else a "
+                             "file in a fresh temporary directory")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device to run on (default: the CUDA "
                              "card; raises without one)")

@@ -4,7 +4,9 @@
 - Deterministic per-process index sharding: each process reads its own
   strided shard of the shuffled index stream (``process_index`` and
   ``process_count`` come from ``torch.distributed`` when it is
-  initialised; one process, one card, otherwise).
+  initialised; one process, one card, otherwise). One rank is one data
+  shard: its batch is the config's, and the global batch that times the
+  world.
 - MultiFold: a "fold epoch" concatenates ``NUM_FOLDS`` independently
   shuffled epochs.
 - A thread pool decodes samples with a bounded window of per-sample
@@ -28,6 +30,7 @@ import torch
 
 from dist_tpu_torch.data import datasets  # noqa: F401  (registers them)
 from dist_tpu_torch.data.base_dataset import DATASET_REGISTRY
+from dist_tpu_torch.parallel.mesh import data_axis_size
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
 
@@ -262,10 +265,17 @@ class Loader:
 def build_loader(cfg, split, device=None):
     """The loader of ``split`` for a run on ``device`` (default: the CUDA
     card; raises without one unless ``device="cpu"``). The batch size is
-    the config's: one process drives one card, so the data axis is 1.
-    On a CUDA device with ``DATA_LOADER.PIN_MEMORY`` the video batches are
-    pinned."""
+    the config's, per data shard; every process feeds the same number of
+    shards, one. On a CUDA device with ``DATA_LOADER.PIN_MEMORY`` the
+    video batches are pinned."""
     device = resolve_device(device)
+    process_index, process_count = process_rank()
+    d = data_axis_size(cfg, process_count)
+    if d % process_count:
+        raise ValueError(
+            f"data axis ({d}) must be a multiple of the process count "
+            f"({process_count}): every process feeds the same number of "
+            "data shards")
     worker_type = str(cfg.DATA_LOADER.get("WORKER_TYPE", "thread") or "thread")
     if worker_type != "thread":
         raise NotImplementedError(_PROCESS_POOL_TODO)
@@ -284,7 +294,6 @@ def build_loader(cfg, split, device=None):
     if cfg.DATA_LOADER.get("COLLATE_FN"):
         collate_fn = COLLATE_FN_REGISTRY.get_strict(
             cfg.DATA_LOADER.COLLATE_FN)(cfg)
-    process_index, process_count = process_rank()
     return Loader(
         dataset, batch_size, shuffle, drop_last,
         num_workers=cfg.DATA_LOADER.NUM_WORKERS,

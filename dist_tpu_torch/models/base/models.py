@@ -49,11 +49,14 @@ class ClipVideoTextIdentity(nn.Module):
 
 @dataclasses.dataclass
 class VideoModel:
-    """A built model: the backbone module, its head and the config."""
+    """A built model: the backbone module, its head and the config; in a
+    data-parallel run also ``ddp``, the module wrapped by
+    ``DistributedDataParallel`` (``parallel/mesh.py::wrap_ddp``)."""
 
     module: nn.Module
     head: Optional[nn.Module]
     cfg: Any
+    ddp: Optional[nn.Module] = None
 
     @property
     def device(self):
@@ -63,10 +66,13 @@ class VideoModel:
         """``preds, logits`` for ``inputs = {"video", "text_features"}``;
         ``train=True`` gives the head's training output (no softmax).
         ``state_dict`` (e.g. an EMA copy) stands in for the module's own
-        weights in this call."""
+        weights in this call. The training forward goes through ``ddp``
+        where there is one, so that its backward all-reduces the
+        gradients."""
         args = (inputs["video"], inputs.get("text_features"))
         if state_dict is None:
-            out = self.module(*args)
+            out = (self.ddp if train and self.ddp is not None
+                   else self.module)(*args)
         else:
             out = torch.func.functional_call(self.module, state_dict, args)
         if self.head is None:

@@ -127,8 +127,11 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     """The model definition from a Config (and an optional sniffed
     architecture; else the preset ``VIDEO.BACKBONE.META_ARCH_NAME``).
 
-    Of the ``TPU.*`` keys ``FUSED_TEMPORAL_NET`` and ``REMAT`` mean
-    something on one GPU; the others (mesh, unroll, pipeline) are ignored.
+    Of the ``TPU.*`` keys ``FUSED_TEMPORAL_NET`` and ``REMAT`` shape the
+    model; the others (mesh, unroll, pipeline) are not the model's. Under
+    data parallelism each rank runs the fused kernels on its own batch, so
+    ``NUM_GPUS`` and ``NUM_SHARDS`` do not matter here, as in the JAX
+    package.
     ``REMAT`` recomputes the ladder's steps in the backward
     (``DiSTNetwork``). The JAX package also remats the CLIP towers' scan
     body; here a frozen tower runs under ``no_grad`` and keeps nothing for
@@ -152,12 +155,6 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     zeroshot = bool(cfg.TEST.get("ZEROSHOT") and cfg.TEST.ZEROSHOT.ENABLE)
     tpu = cfg.get("TPU") or {}
     fused = bool(tpu.get("FUSED_TEMPORAL_NET", False))
-    if fused and (int(cfg.get("NUM_GPUS", 1) or 1) > 1
-                  or int(cfg.get("NUM_SHARDS", 1) or 1) > 1):
-        raise ValueError(
-            "TPU.FUSED_TEMPORAL_NET runs on one device: the fused kernel "
-            "has no multi-device rule; disable it for NUM_GPUS/NUM_SHARDS "
-            "> 1")
     return CLIPDiSTModel(
         arch=arch,
         dist=dist,

@@ -29,6 +29,8 @@ the rule of the reference's ``construct_DiST_optimizer``.
 import torch
 
 from dist_tpu_torch.optim.lr_policy import lr_schedule_by_step
+from dist_tpu_torch.parallel import collectives
+from dist_tpu_torch.parallel.mesh import data_axis_size
 
 TRAINABLE = "trainable"
 NO_WD = "trainable_no_wd"   # cls tokens / positional embeddings / 1-D params
@@ -103,13 +105,15 @@ def param_labels(cfg, module):
 
 
 def base_lr(cfg):
-    """BASE_LR, scaled linearly by the batch under ``OPTIMIZER.ADJUST_LR``
-    (one card: the global batch is ``TRAIN.BATCH_SIZE``)."""
+    """BASE_LR, scaled linearly by the global batch under
+    ``OPTIMIZER.ADJUST_LR``: ``TRAIN.BATCH_SIZE`` is per rank, so the
+    global batch is that times the data axis (the world)."""
     lr = float(cfg.OPTIMIZER.BASE_LR)
     if cfg.OPTIMIZER.get("ADJUST_LR", False):
         n_clips = (cfg.PRETRAIN.get("NUM_CLIPS_PER_VIDEO", 1)
                    if cfg.PRETRAIN.ENABLE else 1)
-        lr = lr * cfg.TRAIN.BATCH_SIZE * n_clips / 256.0
+        data = data_axis_size(cfg, collectives.get_world_size())
+        lr = lr * data * cfg.TRAIN.BATCH_SIZE * n_clips / 256.0
     return lr
 
 

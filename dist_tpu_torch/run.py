@@ -2,20 +2,26 @@
 run list (port of ``runs/run.py``).
 
     python -m dist_tpu_torch.run --cfg configs/projects/dist/ssv2/vit-b16-8+16f.yaml \
-        [--device cpu] [KEY VALUE ...]
+        [--device cpu] [--init_method URL] [KEY VALUE ...]
+    torchrun --nproc-per-node N -m dist_tpu_torch.run --cfg ... [KEY VALUE ...]
 
 Builds the run list exactly as ``runs/run.py::_prepare_data`` does:
 training (``TRAIN.ENABLE``), the single-view test, then the automatic
 multi-view test with the per-dataset view policy (SSV2 3 x 1, Kinetics
 and EPIC 10 x 3, ...), overridable with ``TEST.OVERRIDE_MULTI_SCALE_TEST``.
-The test entries load the last checkpoint that training wrote. Each entry
-runs in this process on one card (``--device``, default the CUDA card).
-The submission test is not ported yet and raises.
+The test entries load the last checkpoint that training wrote. The list
+runs in every rank of the data axis (``parallel/launch.py``): in this
+process on one card (``--device``, default the CUDA card) when the axis
+is one rank, in N spawned processes when ``TPU.MESH.DATA`` is N (or -1
+with N local cards), or in the ranks ``torchrun`` started. The
+submission test is not ported yet and raises.
 """
 
 import os
+import sys
 
 from dist_tpu_torch.config.config import load_from_args
+from dist_tpu_torch.parallel import collectives, launch
 
 _SUBMISSION_TODO = ("the submission test (tasks/submission.py) is not ported "
                     "yet (ROADMAP.md queue A, item 5)")
@@ -66,15 +72,28 @@ def _prepare_data(cfg):
 
 
 def main(argv=None):
-    """Run the run list of a command line; returns each task's result in
-    order (training's final ``TrainState``, each test's meter)."""
+    """Run the run list of a command line in every rank; returns each
+    task's result in order (training's final ``TrainState``, each test's
+    meter) where the list ran in this process, else None."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = load_from_args(argv)
-    run_list = _prepare_data(cfg)
+    results = launch.launch_task(cfg, run_list, (argv,), cfg.args.device,
+                                 cfg.args.init_method)
+    return results[0] if len(results) == 1 else None
+
+
+def run_list(argv):
+    """The run list of ``argv`` in this rank; returns each task's result.
+    Rank 0 prints the last line. Spawned ranks return None: their results
+    stay in their processes."""
+    cfg = load_from_args(argv)
+    entries = _prepare_data(cfg)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     results = [func(run_cfg, device=cfg.args.device)
-               for run_cfg, func in run_list]
-    print(f"Finish running with config: {cfg.args.cfg_file}")
-    return results
+               for run_cfg, func in entries]
+    if collectives.is_master_proc():
+        print(f"Finish running with config: {cfg.args.cfg_file}")
+    return results if collectives.get_world_size() == 1 else None
 
 
 if __name__ == "__main__":

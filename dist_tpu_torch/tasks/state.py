@@ -205,8 +205,10 @@ def make_train_step(model, cfg, optimizer, lr_fn):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for p in params:
-            # a parameter that did not reach the loss has a zero gradient,
-            # as in JAX: Adam's moments and the decay still step
+            # a parameter that did not reach the loss (the last ladder
+            # step's integration2temporal net) has a zero gradient, as in
+            # JAX: Adam's moments and the decay still step. Under DDP it is
+            # unused on every rank alike, so every rank steps it the same
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         lr = lr_fn(state.step)

@@ -1,10 +1,11 @@
 """Multi-view test task (port of ``dist_tpu/tasks/test.py``).
 
 Per clip-view forward -> softmax scores; the TestMeter regroups views by
-``dataset index // num_clips`` and sums (or maxes) them per video. One
-process drives one card, so what it gathers is its own: frame-parallel
-eval (``TPU.SHARD_FRAMES``) and more than one process wait for multi-GPU
-(ROADMAP.md queue A, item 4).
+``dataset index // num_clips`` and sums (or maxes) them per video. In a
+data-parallel group each rank scores its own shard of the views and the
+ranks gather every rank's scores, labels and ids before the meter, so
+every rank finalizes the same accuracies. Frame-parallel eval
+(``TPU.SHARD_FRAMES``) waits for ROADMAP.md queue A, item 2.3.
 """
 
 import os
@@ -13,8 +14,9 @@ import time
 import numpy as np
 import torch
 
-from dist_tpu_torch.data.builder import build_loader, process_rank
+from dist_tpu_torch.data.builder import build_loader
 from dist_tpu_torch.models.base.models import build_model
+from dist_tpu_torch.parallel.collectives import all_gather_arrays, is_master_proc
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     load_pretrained,
@@ -28,19 +30,16 @@ from dist_tpu_torch.utils.meters import EpicKitchenMeter, TestMeter
 
 logger = logging.get_logger(__name__)
 
-_MULTI_GPU_TODO = ("{} is not ported yet: the port tests on one GPU in one "
-                   "process (ROADMAP.md queue A, item 4: multi-GPU, "
-                   "frame-parallel eval)")
+_SHARD_FRAMES_TODO = ("TPU.SHARD_FRAMES (frame-parallel eval) is not ported "
+                      "yet (ROADMAP.md queue A, item 2: multi-GPU, 3: "
+                      "TPU.SHARD_FRAMES)")
 _VIS_TODO = ("VISUALIZATION.ENABLE (utils/visualization.py) is not ported yet "
              "(ROADMAP.md queue A, item 3)")
 
 
 def _check_supported(cfg):
     if cfg.get("TPU") and cfg.TPU.get("SHARD_FRAMES"):
-        raise NotImplementedError(_MULTI_GPU_TODO.format("TPU.SHARD_FRAMES"))
-    if process_rank()[1] > 1:
-        raise NotImplementedError(_MULTI_GPU_TODO.format(
-            "a test over more than one process"))
+        raise NotImplementedError(_SHARD_FRAMES_TODO)
     if cfg.VISUALIZATION.ENABLE:
         raise NotImplementedError(_VIS_TODO)
 
@@ -93,7 +92,8 @@ def _save_epic_preds(cfg, meter):
     """Persist the ensembled per-video verb/noun scores for
     EPIC-KITCHENS as ``.npz`` beside the log (gated on
     ``DATA.MULTI_LABEL``, the reference's flag for dict-pred datasets)."""
-    if "epickitchen" not in str(cfg.TEST.DATASET).lower():
+    if "epickitchen" not in str(cfg.TEST.DATASET).lower() or \
+            not is_master_proc():
         return
     if not (cfg.DATA.get("MULTI_LABEL") or not cfg.DATA.get("TRAIN_VERSION")):
         return
@@ -146,17 +146,23 @@ def perform_test(cfg, eval_step, loader, meter, text_features, device):
 
 
 def _consume_test_batch(cfg, meter, metrics, batch, cur_iter):
-    """Read one batch's predictions back and add them to the meter (one
-    process: the gathered batch is this process's own)."""
+    """Read one batch's predictions back, gather every rank's (the
+    identity in one process) and add them to the meter, as
+    ``dist_tpu/tasks/test.py::_consume_test_batch`` does."""
     preds = metrics["preds"]
-    ids = np.asarray(batch["index"])
+    (ids,) = all_gather_arrays(np.asarray(batch["index"]))
     if isinstance(preds, dict):
         # EPIC dual-head: labels arrive as separate verb/noun columns
-        preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+        preds = dict(zip(preds, all_gather_arrays(
+            *(v.float().cpu().numpy() for v in preds.values()))))
         labels = {"verb_class": batch.get("label_verb", batch["label"]),
                   "noun_class": batch.get("label_noun", batch["label"])}
+        labels = dict(zip(labels, all_gather_arrays(
+            *(np.asarray(v) for v in labels.values()))))
         meter.update_stats(preds, labels, ids)
         return
-    meter.update_stats(preds.float().cpu().numpy(), batch["label"], ids)
+    preds, labels = all_gather_arrays(preds.float().cpu().numpy(),
+                                      np.asarray(batch["label"]))
+    meter.update_stats(preds, labels, ids)
     if (cur_iter + 1) % cfg.LOG_PERIOD == 0:
         logger.info("test iter %d done", cur_iter + 1)

@@ -6,15 +6,22 @@ epochs with the reference's shuffle, checkpoint and eval cadence. Each
 step is ``tasks/state.py::make_train_step``'s eager step on the card; the
 host reads a step's metrics back while the next runs (a lag of one step).
 
+Data parallel: inside a ``torch.distributed`` group (``parallel/``) each
+rank trains on its own shard of every global batch, the forward goes
+through ``DistributedDataParallel`` (its backward all-reduces the
+gradients), the meters log the mean over the ranks, rank 0 writes the
+checkpoints and every rank reads them.
+
 Preemption: SIGTERM, or the ``TRAIN.PREEMPT_AFTER_ITERS`` fault
 injection, makes the loop drain the step in flight, write a mid-epoch
 checkpoint carrying (epoch, iter) and exit through ``SystemExit(0)``. A
 resume skips exactly the consumed prefix of the deterministic batch
 stream, and the step's random draws are a function of its step count, so
-the resumed run equals an uninterrupted one. One process drives one card:
-the multi-process agreed stop flag waits for multi-GPU (ROADMAP.md queue
-A, item 4), and ``train`` raises under a ``torch.distributed`` world of
-more than one process.
+the resumed run equals an uninterrupted one. Ranks receive SIGTERM at
+different moments, so at a world above one the loops act only on the
+flag the ranks agree on (``collectives.any_flag``), polled every
+``TRAIN.PREEMPT_SYNC_PERIOD`` steps: every rank stops at the same
+iteration.
 """
 
 import signal
@@ -24,9 +31,11 @@ import time
 import numpy as np
 import torch
 
-from dist_tpu_torch.data.builder import build_loader, process_rank, shuffle_dataset
+from dist_tpu_torch.data.builder import build_loader, shuffle_dataset
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.optim.optimizer import construct_optimizer
+from dist_tpu_torch.parallel import collectives
+from dist_tpu_torch.parallel.mesh import wrap_ddp
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     create_train_state,
@@ -42,10 +51,6 @@ from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.meters import TrainMeter, ValMeter
 
 logger = logging.get_logger(__name__)
-
-_MULTI_GPU_TODO = ("training over more than one process is not ported yet: "
-                   "the port trains on one GPU in one process (ROADMAP.md "
-                   "queue A, item 4: multi-GPU)")
 
 # Preemption flag: set by SIGTERM or by the TRAIN.PREEMPT_AFTER_ITERS fault
 # injection; the loops poll it at step boundaries.
@@ -72,20 +77,52 @@ def _install_preemption_handler():
         return _HANDLER_NOT_INSTALLED
 
 
-def _poll_stop(cfg):
-    """The stop flag the train and eval loops act on, gated on
-    ``TRAIN.SAVE_ON_PREEMPTION``."""
-    return bool(cfg.TRAIN.get("SAVE_ON_PREEMPTION", True)) and \
-        _PREEMPTED.is_set()
+def _sync_period(cfg):
+    return max(1, int(cfg.TRAIN.get("PREEMPT_SYNC_PERIOD", 10) or 1))
+
+
+def _agreed_preempted(cfg):
+    """The flag the ranks agree on (every rank must call in at the same
+    point), gated on ``TRAIN.SAVE_ON_PREEMPTION``."""
+    if not bool(cfg.TRAIN.get("SAVE_ON_PREEMPTION", True)):
+        return False
+    return collectives.any_flag(_PREEMPTED.is_set())
+
+
+def _poll_stop(cfg, boundary_iter):
+    """The stop flag the train and eval loops act on after iteration
+    ``boundary_iter``, gated on ``TRAIN.SAVE_ON_PREEMPTION``: one process
+    acts on its own flag; at a world above one, only the agreed flag
+    counts, polled at every ``TRAIN.PREEMPT_SYNC_PERIOD``-th boundary."""
+    if not bool(cfg.TRAIN.get("SAVE_ON_PREEMPTION", True)):
+        return False
+    if collectives.get_world_size() > 1:
+        if (boundary_iter + 1) % _sync_period(cfg):
+            return False
+        return _agreed_preempted(cfg)
+    return _PREEMPTED.is_set()
+
+
+def _global_mean(values, weight):
+    """(the ranks' mean of each of ``values``, each rank weighted by
+    ``weight``; the total weight). One process: as given."""
+    world = collectives.get_world_size()
+    if world == 1:
+        return values, weight
+    keys = sorted(values)
+    means = collectives.all_reduce_mean(
+        weight, *(values[k] * weight for k in keys))
+    total = means[0] * world
+    return ({k: m / means[0] if means[0] else 0.0
+             for k, m in zip(keys, means[1:])}, total)
 
 
 def train(cfg, device=None):
-    """Train on ``device`` (default: the CUDA card; raises without one
-    unless ``device="cpu"``). Returns the final ``TrainState``; a
-    preemption exits through ``SystemExit(0)`` after its checkpoint."""
+    """Train on ``device`` (default: the CUDA card, ``cuda:LOCAL_RANK``
+    in a group; raises without one unless ``device="cpu"``). Returns the
+    final ``TrainState``; a preemption exits through ``SystemExit(0)``
+    after its checkpoint, on every rank at the same iteration."""
     device = resolve_device(device)
-    if process_rank()[1] > 1:
-        raise NotImplementedError(_MULTI_GPU_TODO)
     np.random.seed(int(cfg.RANDOM_SEED))
     logging.setup_logging(cfg, cfg.TRAIN.LOG_FILE)
     logger.info("Train with config:\n%s",
@@ -114,6 +151,8 @@ def train(cfg, device=None):
                            len(train_loader))
             start_epoch += int(cfg.TRAIN.get("NUM_FOLDS", 1))
             start_iter = 0
+        if torch.distributed.is_initialized():
+            wrap_ddp(model)
         text_features = compute_text_features(
             model, getattr(train_loader.dataset, "text_tokens", None))
         num_folds = int(cfg.TRAIN.get("NUM_FOLDS", 1))
@@ -200,7 +239,7 @@ def _run_epochs(cfg, state, train_step, eval_step, ema_eval_step,
         if cu.is_checkpoint_epoch(cfg, cur_epoch):
             cu.save_checkpoint(cfg, state, cur_epoch)
             saved = True
-        if _poll_stop(cfg):
+        if _agreed_preempted(cfg):
             _exit_preempted(saved)
         if misc.is_eval_epoch(cfg, cur_epoch):
             eval_epoch(cfg, state, eval_step, val_loader, val_meter,
@@ -209,7 +248,7 @@ def _run_epochs(cfg, state, train_step, eval_step, ema_eval_step,
                 logger.info("Evaluating EMA model.")
                 eval_epoch(cfg, state, ema_eval_step, val_loader, val_meter,
                            cur_epoch, text_features)
-            if _poll_stop(cfg):
+            if _agreed_preempted(cfg):
                 _exit_preempted(saved)
 
 
@@ -221,7 +260,9 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
     ``train_step``; the metrics of step k are read back while step k + 1
     runs on the card, checked for a NaN loss and fed to ``meter`` (a
     ``TrainMeter``), which logs them under the in-epoch iter
-    ``iter_offset + k``. Appends the loop's timing to ``meter.timing``.
+    ``iter_offset + k``: in a group, their mean over the ranks, each step
+    counted as the global batch. Appends the loop's timing to
+    ``meter.timing``.
 
     Returns ``(state, preempt_iter)``: ``preempt_iter`` is None for a
     completed epoch, else the batches of this fold-epoch consumed so far
@@ -237,7 +278,9 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
     meter.iter_tic()
 
     def consume(metrics, cur_iter, mb_size):
-        values = {k: float(v) for k, v in metrics.items()}
+        values, _ = _global_mean({k: float(v) for k, v in metrics.items()},
+                                 1.0)
+        mb_size *= collectives.get_world_size()
         misc.check_nan_losses(values["loss"])
         meter.iter_toc()
         meter.update_stats(values["top1_err"], values["top5_err"],
@@ -281,7 +324,7 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
                 run_iters[0] += 1
                 if 0 <= preempt_after <= run_iters[0]:
                     _PREEMPTED.set()      # fault injection: a SIGTERM
-            if _poll_stop(cfg):
+            if _poll_stop(cfg, cur_iter):
                 consume(*pending)
                 return state, iter_offset + cur_iter + 1
         if pending is not None:
@@ -301,8 +344,9 @@ def eval_epoch(cfg, state, eval_step, loader, meter, cur_epoch,
     """Evaluate on ``loader`` into ``meter`` (a ``ValMeter``), lag 1 like
     the train loop. The step's errors are means over the batch's valid
     rows (the loader's pad mask), so each batch is weighted by its valid
-    count. Returns the epoch's stats, or None when a preemption aborted
-    the epoch (its results are recomputable; the caller checkpoints)."""
+    count, in a group the count over every rank. Returns the epoch's
+    stats, or None when a preemption aborted the epoch (its results are
+    recomputable; the caller checkpoints)."""
     meter.reset()
     device = state.model.device
 
@@ -311,6 +355,7 @@ def eval_epoch(cfg, state, eval_step, loader, meter, cur_epoch,
         nv = values.pop("num_valid", None)
         if nv is not None:
             mb = nv
+        values, mb = _global_mean(values, mb)
         if mb <= 0:
             return    # a batch of pad duplicates only
         meter.update_stats(values["top1_err"], values["top5_err"], mb)
@@ -321,7 +366,7 @@ def eval_epoch(cfg, state, eval_step, loader, meter, cur_epoch,
 
     pending = None
     for cur_iter, batch in enumerate(loader):
-        if _poll_stop(cfg):
+        if _poll_stop(cfg, cur_iter):
             logger.info("Preemption: aborting eval at iter %d.", cur_iter)
             return None
         device_batch = {"video": to_device(batch["video"], device),

@@ -13,6 +13,8 @@
 - Retention (``TRAIN.CHECKPOINT_KEEP_LAST``) and asynchronous saves
   (``TRAIN.CHECKPOINT_ASYNC``: the state is copied to host memory on the
   caller's thread and written on one background thread).
+- In a data-parallel group every rank holds the same state: rank 0 alone
+  writes and prunes, and the ranks meet at a barrier before any reads.
 
 Orbax checkpoints written by the JAX package (directories under
 ``OUTPUT_DIR/checkpoints``) are not read by the port, which cannot import
@@ -29,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from dist_tpu_torch.parallel import collectives
 from dist_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -128,13 +131,15 @@ def prune_old_checkpoints(cfg):
 
 
 def _loader_signature(cfg, dataset_len=-1):
-    """What the batch stream is a function of: a mid-epoch checkpoint's
-    iter resumes correctly only when these match at restore (seed, global
-    batch, process count, folds, dataset length). One process drives one
-    card, so the global batch is ``TRAIN.BATCH_SIZE`` and the count 1.
-    ``dataset_len`` is -1 where the caller has no loader in hand."""
-    return [int(cfg.RANDOM_SEED), int(cfg.TRAIN.BATCH_SIZE), 1,
-            int(cfg.TRAIN.get("NUM_FOLDS", 1)), int(dataset_len)]
+    """What each rank's batch stream is a function of: a mid-epoch
+    checkpoint's iter resumes correctly only when these match at restore
+    (seed, per-rank batch, process count, folds, dataset length), as the
+    JAX package's signature: one rank is one data shard, so its batch is
+    ``TRAIN.BATCH_SIZE`` and the count the world. ``dataset_len`` is -1
+    where the caller has no loader in hand."""
+    return [int(cfg.RANDOM_SEED), int(cfg.TRAIN.BATCH_SIZE),
+            collectives.get_world_size(), int(cfg.TRAIN.get("NUM_FOLDS", 1)),
+            int(dataset_len)]
 
 
 def is_checkpoint_epoch(cfg, cur_epoch):
@@ -170,11 +175,13 @@ _WRITER = _Writer()
 
 
 def wait_until_finished():
-    """Block until an in-flight async checkpoint save has committed. Call
-    before the process exits (train end, preemption): an uncommitted save
-    is invisible to ``get_last_checkpoint``, so nothing is corrupted, but
-    the work is lost."""
+    """Block until an in-flight async checkpoint save has committed (on
+    every rank: a barrier follows rank 0's wait). Call before the process
+    exits (train end, preemption): an uncommitted save is invisible to
+    ``get_last_checkpoint``, so nothing is corrupted, but the work is
+    lost."""
     _WRITER.wait()
+    collectives.synchronize()
 
 
 def _to_host(obj):
@@ -214,7 +221,10 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
 
     ``TRAIN.CHECKPOINT_ASYNC``: the state is copied to host memory here,
     so the caller may go on changing it, and written on a background
-    thread; the next save, or ``wait_until_finished``, joins it."""
+    thread; the next save, or ``wait_until_finished``, joins it.
+
+    Every rank of a group calls in; rank 0 writes, then all meet at a
+    barrier, so a synchronous save is committed when any rank returns."""
     async_save = bool(cfg.TRAIN.get("CHECKPOINT_ASYNC", False))
     if iter_in_epoch is None:
         epoch = cur_epoch + int(cfg.TRAIN.get("NUM_FOLDS", 1))
@@ -222,6 +232,9 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
     else:
         epoch = cur_epoch
         path = _ckpt_path(cfg, epoch, iter_in_epoch)
+    if not collectives.is_master_proc():
+        collectives.synchronize()
+        return path
     make_checkpoint_dir(cfg.OUTPUT_DIR)
     payload = {"epoch": int(epoch), "step": int(state.step),
                "model_state": state.model.module.state_dict(),
@@ -245,6 +258,7 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
         _write_config_sidecar(cfg, path)
         prune_old_checkpoints(cfg)
     logger.info("Saved checkpoint %s%s", path, " (async)" if async_save else "")
+    collectives.synchronize()
     return path
 
 

@@ -778,3 +778,63 @@ def test_l14_tiny_train_step_with_remat_equals_without():
     assert sorted(out[True][1]) == sorted(out[False][1])
     for k, g in out[False][1].items():
         assert torch.equal(out[True][1][k], g), k
+
+
+def test_tiny_ddp_step_at_nccl_world_1_equals_plain_step(tmp_path):
+    """Two train steps of the tiny config, the TemporalNet fused, through
+    ``DistributedDataParallel`` in an NCCL group of one rank
+    (``parallel/mesh.py::wrap_ddp``, a ``file://`` store) against the same
+    steps without it, from the same weights: the losses and every
+    trainable gradient equal bit for bit (one rank's all-reduce divides by
+    one), and 2 launches of each of K1, K2 and K3 per step on both."""
+    import os
+
+    import torch.distributed as dist
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.parallel.mesh import init_distributed, wrap_ddp
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true"], make_output_dir=False)
+    rng = np.random.default_rng(4)
+    batches = [{"video": torch.from_numpy(rng.integers(
+                    0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)).cuda(),
+                "labels": torch.tensor([3, 7]).cuda(),
+                "text_features": torch.from_numpy(rng.standard_normal(
+                    (12, 32)).astype(np.float32)).cuda()} for _ in range(2)]
+    init_distributed(cfg, "cuda:0", 0, 1, "file://" + str(tmp_path / "store"))
+    try:
+        assert dist.get_backend() == "nccl"
+        out = {}
+        for ddp in (False, True):
+            model = build_model(cfg)
+            optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
+            state = create_train_state(model, optimizer)
+            if ddp:
+                wrap_ddp(model)
+            step = make_train_step(model, cfg, optimizer, lr_fn)
+            out[ddp] = []
+            for batch in batches:
+                att.fused_attention_qkv.launches = 0
+                tn.fused_temporal_net.launches = 0
+                tn.fused_temporal_net_bwd.launches = 0
+                loss = step(state, batch)["loss"]
+                torch.cuda.synchronize()
+                assert (att.fused_attention_qkv.launches,
+                        tn.fused_temporal_net.launches,
+                        tn.fused_temporal_net_bwd.launches) == (2, 2, 2)
+                out[ddp].append((loss, {
+                    k: p.grad.clone() for k, p in
+                    model.module.named_parameters() if p.requires_grad}))
+    finally:
+        dist.destroy_process_group()
+    for (loss, grads), (want_loss, want) in zip(out[True], out[False]):
+        assert torch.equal(loss, want_loss)
+        assert sorted(grads) == sorted(want)
+        for k, g in want.items():
+            assert torch.equal(grads[k], g), k

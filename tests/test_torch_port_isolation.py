@@ -43,6 +43,10 @@ def _forbidden(name):
 def test_importing_the_port_loads_nothing_forbidden():
     modules = _port_modules()
     assert len(modules) >= 20, modules
+    # torch.distributed is PyTorch: the data-parallel modules count too
+    assert {"dist_tpu_torch.parallel.collectives",
+            "dist_tpu_torch.parallel.launch",
+            "dist_tpu_torch.parallel.mesh"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -11,7 +11,8 @@ the resumed run equals the uninterrupted one bit for bit (mixup and
 cutmix on, bf16, EMA on). Beside them: the EMA setting toggled between a
 save and its resume, the SIGTERM disposition restored after ``train``,
 an ``OUTPUT_DIR`` holding only the JAX package's Orbax directories
-refused, and the entry point's need of a card and of one process."""
+refused, the entry point's need of a card, and its refusal of a process
+count other than the config's data axis."""
 
 import os
 import signal
@@ -362,10 +363,15 @@ def test_orbax_output_dir_is_refused(repo_root, tmp_path):
 
 def test_train_needs_a_card_and_one_process(repo_root, tmp_path,
                                             monkeypatch):
+    """Without a card, ``train`` needs ``device="cpu"``. A run of more
+    than one process is data parallel now (``test_torch_port_ddp.py``);
+    what stays refused is a process count other than the config's
+    explicit ``TPU.MESH.DATA``, as the JAX package's ``build_mesh``
+    refuses a data axis that does not tile the devices."""
     cfg = _cfg(repo_root, tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_task.train(cfg)
-    monkeypatch.setattr(train_task, "process_rank", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    cfg = _cfg(repo_root, tmp_path, "TPU.MESH.DATA", "2")
+    with pytest.raises(ValueError, match="TPU.MESH data=2"):
         train_task.train(cfg, device="cpu")

@@ -130,6 +130,28 @@
    line parsed: ``microbench conv33``, ``tools.bench`` (eval and train
    clips/s), ``tools.bench_serving`` and ``tools.profile_eval full_eval
    attn_kernel``.
+12. Zoo: the Model-Zoo harness and the checkpoint tools at full width.
+   (a) ``python -m dist_tpu_torch.tools.reproduce_model_zoo`` with
+   ``ZOO_ARGS`` (``--dry-run``, 2 synthetic videos, K2 fused) in this
+   process over all eight rows at their own geometry (SSV2 and K400;
+   B/16 8+16f, 16+32f, 32+64f and L/14 32+64f): exit 0, eight rows with
+   ``"dry_run": true`` and views ``2x1``, every view counted once, finite
+   scores, and per row (counts zeroed just before, read just after) K1
+   once per vision layer per batch and once per text layer at set-up, K2
+   once per ladder step per batch; prints each row's seconds, clips/s
+   and peak memory. (b) The accept path: the flagship's model saved in
+   the released layout (``ladder_net.`` names) and converted by
+   ``convert_checkpoint``; loaded through TEST.CHECKPOINT_FILE_PATH with
+   no warning into a model from another seed, it gives the source model's
+   scores and logits bit for bit on 8 seeded clips; ``average_checkpoints``
+   of (A, A) is A and of (A, B) the float64 mean cast back, bit for bit;
+   the harness without ``--dry-run`` (``ZOO_ACCEPT_OPTS``) on that
+   average reports ``"proof": true``, exits 1 (random weights miss the
+   published number) and gives the test task's top-1 and top-5 on the
+   same weights; ``--strict`` with no inputs exits 2 listing the 24 gaps.
+   (c) ``classify``'s model path (``score_video``, ``CLASSIFY_OPTS``: 2
+   views of 3 crops from seeded 240 x 320 frames): its scores equal the
+   sum of the eval step's over the same clips, with K1 and K2 launched.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -142,7 +164,12 @@ version at the lengths on the edges of the routes (``ROUTE_EDGE_LENGTHS``).
 K1, K2 and K3 are also held to their plain versions at the L/14 phase's
 shapes (``l14_kernel_checks``): the train step at batch 32 (K1 (1024,
 257, 3072) with 16 heads, K2 and K3 (32, 64, 16, 16, 96)), a served batch
-of 8 and the text tower (174, 77, 2304) with 12 heads, causal.
+of 8 and the text tower (174, 77, 2304) with 12 heads, causal. And K1
+and K2 at the shapes of the zoo phase's rows that no earlier check holds
+them at (``zoo_kernel_checks``, batch 1): K1 over 8, 16 and 32 sparse
+frames of B/16 and 32 of L/14, and the text towers over Kinetics' 400
+prompts; K2 over 16, 32 and 64 dense frames at 14 x 14 and 64 at 16 x
+16.
 
 Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
@@ -150,6 +177,8 @@ phase, the serving shapes' numbers beside them, the multi-view test's
 launches as ``test_launches`` and the train run's (a) as
 ``train_run_launches``; under ``l14`` each L/14 shape's numbers with the
 l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
+``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
+under ``zoo`` each zoo shape's numbers;
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -370,6 +399,19 @@ BWD_BF16_LIMITS = {
     "db2": {"max_rel": 0.0077, "rel_l2": 0.0054},
 }
 K4_ROWS = (2, 4, 8)
+# the zoo phase: the Model-Zoo harness's dry run over all eight rows at
+# their own geometry (synthetic clips, random weights, 2 videos of 2
+# views at batch 1), K2 fused as on every other phase; then the accept
+# path on the flagship (4 synthetic videos, the policy's 3 views), and
+# classify's model path (2 views of 3 crops, frames decoded at 240 x 320)
+ZOO_ARGS = ["--dry-run", "--dry-run-samples", "2",
+            "--opts", "TPU.FUSED_TEMPORAL_NET", "true"]
+ZOO_ROWS = 8
+ZOO_ACCEPT_OPTS = ["DATA.SYNTHETIC", "true", "TEST.NUM_SAMPLES_LIMIT", "4",
+                   "TPU.FUSED_TEMPORAL_NET", "true"]
+CLASSIFY_OPTS = ["TPU.FUSED_TEMPORAL_NET", "true",
+                 "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "3"]
+CLASSIFY_FRAME_HW = (240, 320)
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -798,6 +840,31 @@ def l14_kernel_checks():
             "train": check_temporal_net_bwd("temporal_net_bwd L/14 train bf16",
                                             (32, 64, 16, 16, 96), bf16, 35)},
     }
+
+
+def zoo_kernel_checks():
+    """K1 and K2 at the shapes of the zoo phase's rows (bf16, batch 1)
+    that no earlier check holds them at: the vision tower over 8, 16 and
+    32 sparse frames of B/16 and 32 of L/14, the text tower over
+    Kinetics' 400 prompts (B/16: 8 heads; L/14: 12 heads; causal), and
+    the ladder over 16, 32 and 64 dense frames at 14 x 14 (B/16) and 64
+    at 16 x 16 (L/14)."""
+    bf16 = __import__("torch").bfloat16
+    att, tnet = {}, {}
+    for i, (where, b, l, heads, causal) in enumerate((
+            ("b16_8f", 8, 197, 12, False), ("b16_16f", 16, 197, 12, False),
+            ("b16_32f", 32, 197, 12, False), ("l14_32f", 32, 257, 16, False),
+            ("b16_text_400", 400, 77, 8, True),
+            ("l14_text_400", 400, 77, 12, True))):
+        att[where] = check_attention(f"attention zoo {where} bf16", b, l,
+                                     heads, 64, causal, bf16, 40 + i)
+    for i, (where, shape) in enumerate((
+            ("b16_16f", (1, 16, 14, 14, 96)), ("b16_32f", (1, 32, 14, 14, 96)),
+            ("b16_64f", (1, 64, 14, 14, 96)),
+            ("l14_64f", (1, 64, 16, 16, 96)))):
+        tnet[where] = check_temporal_net(f"temporal_net zoo {where} bf16",
+                                         shape, bf16, 50 + i)
+    return {"attention_qkv": att, "temporal_net_fwd": tnet}
 
 
 def serve(repo):
@@ -2832,6 +2899,344 @@ def tools(repo):
     return launches
 
 
+def _zoo_expected(cfg, batches):
+    """K1 and K2 launches of a test run of ``cfg`` in ``batches``
+    batches: K1 once per vision layer per batch and once per text layer
+    at set-up, K2 once per ladder step per batch."""
+    from dist_tpu_torch.models.clip.model import ARCHITECTURES
+
+    arch = ARCHITECTURES[cfg.VIDEO.BACKBONE.META_ARCH_NAME]
+    steps = len(cfg.VIDEO.BACKBONE.DIST.SELECTED_LAYERS)
+    return {"attention_qkv": arch.vision_layers * batches
+            + arch.transformer_layers,
+            "attention_qkv_rows": 0, "temporal_net_fwd": steps * batches,
+            "temporal_net_bwd": 0}
+
+
+def _zoo_main(argv):
+    """(exit code, [each JSON line printed]) of the harness's ``main``
+    run in this process."""
+    import contextlib
+    import io
+
+    from dist_tpu_torch.tools import reproduce_model_zoo
+
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        code = reproduce_model_zoo.main(argv)
+    return code, [json.loads(ln) for ln in captured.getvalue().splitlines()
+                  if ln.startswith("{")]
+
+
+def _zoo_dry_run(out_dir, problems):
+    """(a) ``python -m dist_tpu_torch.tools.reproduce_model_zoo`` with
+    ``ZOO_ARGS``, in this process: each row's launches (counts zeroed just
+    before it, read just after), seconds, peak memory and clips/s, and
+    its scores, views and clip counts. Returns {stem: launches}."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.tools import reproduce_model_zoo as zoo
+
+    rows, run_one = {}, zoo.run_one
+
+    def measured(args, config_path, family, acc1, acc5):
+        cfg = zoo.row_config(args, config_path, family)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _zero_counts()
+        t0 = time.perf_counter()
+        line, meter = run_one(args, config_path, family, acc1, acc5)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        want = _zoo_expected(cfg, meter.timing["batches"])
+        clips = int(meter.seen.sum())
+        rows[zoo._stem(config_path)] = {
+            "config": config_path, "views": line["views"],
+            "dataset": str(cfg.TEST.DATASET),
+            "classes": int(cfg.VIDEO.HEAD.NUM_CLASSES),
+            "arch": cfg.VIDEO.BACKBONE.META_ARCH_NAME,
+            "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "crop": int(cfg.DATA.TEST_CROP_SIZE),
+            "ada_pooling_layers": int(cfg.VIDEO.BACKBONE.DIST.ADA_POOLING_LAYERS),
+            "seconds": seconds, "clips": clips,
+            "batches": meter.timing["batches"],
+            "clips_per_s": clips / meter.timing["loop_s"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": got, "expected_launches": want}
+        if got != want:
+            problems.append(f"{config_path}: launches {got} != {want}")
+        if not np.isfinite(meter.video_preds).all():
+            problems.append(f"{config_path}: non-finite scores")
+        if not np.all(meter.clip_count == meter.num_clips):
+            problems.append(f"{config_path}: clip counts {meter.clip_count}")
+        return line, meter
+
+    zoo.run_one = measured
+    try:
+        code, lines = _zoo_main(["--output-dir", out_dir] + ZOO_ARGS)
+    finally:
+        zoo.run_one = run_one
+    printed = [ln for ln in lines if "config" in ln]
+    summary = [ln for ln in lines if ln.get("summary") == "model_zoo_repro"]
+    if code != 0:
+        problems.append(f"dry run exited {code}")
+    if [ln["config"] for ln in printed] != [r[0] for r in zoo.ZOO] or len(
+            rows) != ZOO_ROWS:
+        problems.append(f"dry run rows {[ln['config'] for ln in printed]}")
+    for ln in printed:
+        if not (ln["dry_run"] and ln["pass"]) or ln["views"] != "2x1":
+            problems.append(f"dry run row {ln}")
+    if len(summary) != 1 or summary[0]["failures"] or summary[0]["proof"]:
+        problems.append(f"dry run summary {summary}")
+    return rows, {stem: r["launches"] for stem, r in rows.items()}
+
+
+def _source_logits(model, video, text):
+    """The eval forward's (scores, logits per image) of ``model``."""
+    import torch
+    from dist_tpu_torch.data.transforms import normalize_device
+
+    cfg = model.cfg
+    with torch.no_grad():
+        preds, out = model.apply(
+            {"video": normalize_device(video, list(cfg.DATA.MEAN),
+                                       list(cfg.DATA.STD)),
+             "text_features": text}, train=False)
+    return preds, out["logits_per_image"]
+
+
+def _zoo_accept(repo, tmp, problems):
+    """(b) The accept path on the flagship: a released-layout ``.pyth``
+    (``ladder_net.`` names) through ``convert_checkpoint``, served through
+    TEST.CHECKPOINT_FILE_PATH against the source model; two
+    ``average_checkpoints`` runs; the harness without ``--dry-run`` on that
+    average against the test task on the same weights; ``--strict`` with
+    no inputs. Returns the reading and the converted checkpoint's path."""
+    import contextlib
+    import io
+    import logging
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.tasks.state import compute_text_features
+    from dist_tpu_torch.tasks.test import test
+    from dist_tpu_torch.tools import average_checkpoints, convert_checkpoint
+    from dist_tpu_torch.tools import reproduce_model_zoo as zoo
+    from dist_tpu_torch.utils.checkpoint import load_test_checkpoint
+
+    flagship = os.path.join(repo, FLAGSHIP)
+    cfg = load_config(flagship, ["TPU.FUSED_TEMPORAL_NET", "true"],
+                      make_output_dir=False)
+    source = build_model(cfg)
+    released = os.path.join(tmp, "released.pyth")
+    torch.save({"epoch": 36, "model_state": {
+        k.replace("dist_net.", "ladder_net.", 1): v.cpu()
+        for k, v in source.module.state_dict().items()}}, released)
+    converted = os.path.join(tmp, "converted.pyth")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        code = convert_checkpoint.main(["--cfg", flagship, "--src", released,
+                                        "--dst", converted])
+    if code != 0 or "not matched" in log.getvalue():
+        problems.append(f"convert_checkpoint exited {code}: {log.getvalue()}")
+
+    # the converted checkpoint served through TEST.CHECKPOINT_FILE_PATH,
+    # into a model made from another seed, with no warning
+    served_cfg = load_config(flagship, ["TPU.FUSED_TEMPORAL_NET", "true",
+                                        "TEST.CHECKPOINT_FILE_PATH", converted],
+                             make_output_dir=False)
+    served = build_model(served_cfg, seed=int(cfg.RANDOM_SEED) + 1)
+    warnings = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = warnings.append
+    logging.getLogger().addHandler(handler)
+    try:
+        load_test_checkpoint(served_cfg, served)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    if warnings:
+        problems.append(f"loading the converted checkpoint warned: "
+                        f"{[w.getMessage() for w in warnings]}")
+    _, tokens = resolve_label_texts(cfg, int(cfg.VIDEO.HEAD.NUM_CLASSES))
+    frames, crop = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TEST_CROP_SIZE)
+    gen = torch.Generator(device=source.device).manual_seed(
+        int(cfg.RANDOM_SEED) + 11)
+    video = torch.randint(0, 256, (8, frames, crop, crop, 3), generator=gen,
+                          device=source.device,
+                          dtype=torch.int32).to(torch.uint8)
+    want = _source_logits(source, video, compute_text_features(source, tokens))
+    got = _source_logits(served, video, compute_text_features(served, tokens))
+    converted_equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not converted_equal:
+        problems.append("the converted checkpoint's scores or logits differ "
+                        "from the source model's")
+    del source, served
+    torch.cuda.empty_cache()
+
+    # the checkpoint soup: (A, A) is A; (A, B) the float64 mean cast back
+    other = os.path.join(tmp, "other.pyth")
+    torch.save({"model_state": {k: v.cpu() for k, v in build_model(
+        cfg, device="cpu", seed=int(cfg.RANDOM_SEED) + 2)
+        .module.state_dict().items()}}, other)
+    soups = {}
+    for name, inputs in (("aa", [converted, converted]),
+                         ("ab", [converted, other])):
+        soups[name] = os.path.join(tmp, f"avg_{name}.pyth")
+        with contextlib.redirect_stdout(io.StringIO()):
+            code = average_checkpoints.main(["--ckpts", *inputs,
+                                             "--out", soups[name]])
+        if code != 0:
+            problems.append(f"average_checkpoints {name} exited {code}")
+    a = torch.load(converted, weights_only=True)["model_state"]
+    b = torch.load(other, weights_only=True)["model_state"]
+    aa = torch.load(soups["aa"], weights_only=True)["model_state"]
+    ab = torch.load(soups["ab"], weights_only=True)["model_state"]
+    soup_aa_equal = aa.keys() == a.keys() and all(
+        torch.equal(aa[k], v) for k, v in a.items())
+    soup_ab_equal = ab.keys() == a.keys() and all(
+        torch.equal(ab[k], ((v.double() + b[k].double()) / 2).to(v.dtype))
+        for k, v in a.items())
+    if not soup_aa_equal:
+        problems.append("the average of (A, A) is not A")
+    if not soup_ab_equal:
+        problems.append("the average of (A, B) is not the float64 mean")
+
+    # the harness without --dry-run on that average, against the test
+    # task on the same weights
+    stem = zoo._stem(zoo.ZOO[0][0])
+    empty = os.path.join(tmp, "empty")
+    os.makedirs(empty)
+    code, lines = _zoo_main([
+        "--configs", "ssv2/vit-b16-8+16f", "--ckpt", f"{stem}={soups['ab']}",
+        "--ssv2-root", empty, "--ssv2-anno", empty,
+        "--output-dir", os.path.join(tmp, "accept"),
+        "--opts", *ZOO_ACCEPT_OPTS])
+    rows = [ln for ln in lines if "config" in ln]
+    summary = [ln for ln in lines if ln.get("summary") == "model_zoo_repro"]
+    direct_cfg = load_config(flagship, ZOO_ACCEPT_OPTS + [
+        "TEST.CHECKPOINT_FILE_PATH", soups["ab"],
+        "OUTPUT_DIR", os.path.join(tmp, "direct"), "LOG_CONFIG_INFO", "false",
+        "LOG_MODEL_INFO", "false"])
+    zoo._apply_view_policy(direct_cfg)
+    direct = test(direct_cfg)
+    accept = {"exit_code": code, "rows": rows, "summary": summary,
+              "test_top1_acc": direct.stats["top1_acc"],
+              "test_top5_acc": direct.stats["top5_acc"]}
+    # exit 1: the random weights miss the published number
+    if code != 1 or len(rows) != 1 or len(summary) != 1 or not summary[0][
+            "proof"] or rows[0]["dry_run"] or rows[0]["views"] != "3x1":
+        problems.append(f"accept path: {accept}")
+    elif (rows[0]["top1_acc"], rows[0]["top5_acc"]) != (
+            float(direct.stats["top1_acc"]), float(direct.stats["top5_acc"])):
+        problems.append(f"accept path's accuracies off the test task's: "
+                        f"{accept}")
+
+    # --strict with no inputs: every row's root, annotations and checkpoint
+    code, lines = _zoo_main(["--strict", "--output-dir",
+                             os.path.join(tmp, "strict")])
+    missing = [ln["missing"] for ln in lines if "missing" in ln
+               and "summary" not in ln]
+    if code != 2 or len(missing) != 3 * ZOO_ROWS or any(
+            "config" in ln for ln in lines):
+        problems.append(f"--strict exited {code} with {missing}")
+    return {"converted_equal_source": converted_equal,
+            "soup_aa_equal": soup_aa_equal, "soup_ab_equal": soup_ab_equal,
+            "accept": accept, "strict": {"exit_code": code,
+                                         "missing": len(missing)}}, converted
+
+
+def _zoo_classify(repo, converted, problems):
+    """(c) ``classify``'s model path at full width on seeded frames: its
+    scores against the sum of the eval step's scores over the same clips,
+    made view by view and crop by crop; returns the reading and the
+    launches of ``score_video``."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.data import transforms
+    from dist_tpu_torch.tasks.state import make_eval_step
+    from dist_tpu_torch.tools import classify
+
+    cfg = load_config(os.path.join(repo, FLAGSHIP), CLASSIFY_OPTS + [
+        "TEST.CHECKPOINT_FILE_PATH", converted], make_output_dir=False)
+    model, names, text = classify.load_classifier(cfg)
+    views, crops = int(cfg.TEST.NUM_ENSEMBLE_VIEWS), int(
+        cfg.TEST.NUM_SPATIAL_CROPS)
+    rng = np.random.default_rng(int(cfg.RANDOM_SEED) + 13)
+    frames = [rng.integers(0, 256, (int(cfg.DATA.NUM_INPUT_FRAMES),
+                                    *CLASSIFY_FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(views)]
+    counts = _zero_counts()
+    scores = classify.score_video(cfg, model, text, frames)
+    torch.cuda.synchronize()
+    launches = counts()
+    clips = np.stack([transforms.kinetics_resized_crop_controlled(
+        frames[v], cfg.DATA.TEST_SCALE, cfg.DATA.TEST_CROP_SIZE, crops, s)
+        for v in range(views) for s in range(crops)])
+    preds = make_eval_step(model, cfg)(
+        {"video": torch.from_numpy(clips).to(model.device),
+         "text_features": text})
+    want = preds["preds"].float().cpu().numpy().sum(axis=0)
+    equal = bool(np.array_equal(scores, want))
+    # one batch; the text features were computed at set-up
+    expected = {"attention_qkv": model.module.arch.vision_layers,
+                "attention_qkv_rows": 0,
+                "temporal_net_fwd": len(model.module.dist.selected_layers),
+                "temporal_net_bwd": 0}
+    if not equal or scores.shape != (int(cfg.VIDEO.HEAD.NUM_CLASSES),):
+        problems.append("classify's scores are not the sum of the eval "
+                        "step's over its views and crops")
+    if launches != expected:
+        problems.append(f"classify launches {launches} != {expected}")
+    top = [int(i) for i in np.argsort(scores)[::-1][:5]]
+    return {"views": views, "crops": crops, "clips": len(clips),
+            "frame_hw": list(CLASSIFY_FRAME_HW), "equal": equal,
+            "launches": launches, "top5": top,
+            "label_names": names is not None,
+            "score_sum": float(scores.sum())}, launches
+
+
+def zoo(repo, card):
+    """The Model-Zoo harness and the checkpoint tools at full width: (a)
+    the dry run over all eight rows, (b) the accept path, (c) classify's
+    model path. Returns the launches of each dry-run row, by stem, and of
+    classify's model path."""
+    import logging
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    problems = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rows, launches = _zoo_dry_run(os.path.join(tmp, "dry_run"),
+                                          problems)
+            dry_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            accept, converted = _zoo_accept(repo, tmp, problems)
+            torch.cuda.empty_cache()
+            classify, launches["classify"] = _zoo_classify(
+                repo, converted, problems)
+    finally:
+        _restore_logging(handlers, level)
+    torch.cuda.empty_cache()
+    rec = {"phase": "zoo", "nvidia_smi": card, "args": ZOO_ARGS,
+           "rows": rows, "dry_run_seconds": dry_s, "accept": accept,
+           "classify": classify, "seconds": time.perf_counter() - t0,
+           "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("zoo: " + "; ".join(problems))
+    return launches
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -2993,6 +3398,7 @@ def main():
 
         serve_path, train_path, rows = kernel_checks()
         l14_path = l14_kernel_checks()
+        zoo_path = zoo_kernel_checks()
         engine, serve_launches = serve(repo)
         agreement(repo, engine)
         test_launches = multiview_test(repo, engine, card)
@@ -3006,6 +3412,7 @@ def main():
                                 l14(repo, card)))
         ddp_launches = ddp(repo, card)
         tools_launches = tools(repo)
+        zoo_launches = zoo(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -3076,6 +3483,20 @@ def main():
             entry["l14_run_list_launches"] = l14_launches["run_list"][name]
             entry["ddp_launches"] = {part: c[name]
                                      for part, c in ddp_launches.items()}
+            entry["zoo_launches"] = {part: c[name]
+                                     for part, c in zoo_launches.items()}
+            # the zoo phase's new shapes and their numbers
+            entry["zoo"] = {}
+            for where, r in zoo_path.get(name, {}).items():
+                entry["zoo"][where] = {"shape": r["shape"],
+                                       **{k: r[k] for k in keys}}
+                if name == "attention_qkv":
+                    entry["zoo"][where].update(
+                        {k: v for k, v in _attention_entry(
+                            r, "attention_qkv_wr_kernel").items()
+                         if k in att_keys})
+                else:
+                    entry["zoo"][where]["kernel_route"] = r["route"]
             kernels.append(entry)
         # K4 runs only on the tools path: its launches are the tools
         # phase's, its numbers nb = 8's, each nb's beside them
@@ -3090,6 +3511,8 @@ def main():
                                 for c in l14_launches.values()),
             "ddp_launches": {part: c["attention_qkv_rows"]
                              for part, c in ddp_launches.items()},
+            "zoo_launches": {part: c["attention_qkv_rows"]
+                             for part, c in zoo_launches.items()},
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

@@ -93,18 +93,23 @@ def build_head(cfg):
     return cls(activation=cfg.VIDEO.HEAD.ACTIVATION)
 
 
-def build_model(cfg, device=None, seed=None) -> VideoModel:
-    """Backbone + head, with random weights from ``seed`` (default
-    ``cfg.RANDOM_SEED``), in eval mode on ``device`` (default: the CUDA
-    card; raises without one unless ``device="cpu"``)."""
-    device = resolve_device(device)
+def build_backbone_on_meta(cfg) -> nn.Module:
+    """The configured backbone on the meta device: its parameter names
+    and shapes, with no storage behind them."""
     meta_arch = cfg.VIDEO.BACKBONE.META_ARCH
     builder = BACKBONE_REGISTRY.get(meta_arch)
     if builder is None:
         raise NotImplementedError(f"meta-arch {meta_arch!r} {_NOT_PORTED}")
     with torch.device("meta"):
-        module = builder(cfg)
-    module = module.to_empty(device="cpu")
+        return builder(cfg)
+
+
+def build_model(cfg, device=None, seed=None) -> VideoModel:
+    """Backbone + head, with random weights from ``seed`` (default
+    ``cfg.RANDOM_SEED``), in eval mode on ``device`` (default: the CUDA
+    card; raises without one unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    module = build_backbone_on_meta(cfg).to_empty(device="cpu")
     gen = torch.Generator().manual_seed(
         int(cfg.RANDOM_SEED if seed is None else seed))
     init_weights(module, gen)

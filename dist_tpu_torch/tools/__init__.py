@@ -1,4 +1,5 @@
-"""Measurement and serving tools of the port, each run as
-``python -m dist_tpu_torch.tools.<name>``: ``microbench``,
-``profile_eval``, ``bench``, ``bench_serving`` and ``serve``. Importing
-one runs nothing."""
+"""Tools of the port, each run as ``python -m dist_tpu_torch.tools.<name>``:
+measurement and serving (``microbench``, ``profile_eval``, ``bench``,
+``bench_serving``, ``serve``), the Model-Zoo harness
+(``reproduce_model_zoo``) and the checkpoint tools (``convert_checkpoint``,
+``average_checkpoints``, ``classify``). Importing one runs nothing."""

@@ -37,12 +37,14 @@ from dist_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 _ORBAX_TODO = ("the port does not read the JAX package's Orbax checkpoints "
-               "and writes its own as .pyth files; restore the JAX "
-               "TrainState, convert its params with "
+               "and writes its own as .pyth files; to bring a JAX "
+               "TrainState across, restore it with the JAX package, "
+               "convert its params with "
                "dist_tpu_torch.models.clip.convert.state_dict_from_jax, "
-               "torch.save them as a .pyth and point "
+               "torch.save the result as a .pyth and point "
                "TRAIN.CHECKPOINT_FILE_PATH or TEST.CHECKPOINT_FILE_PATH at "
-               "it (a converter tool is ROADMAP.md queue A, item 3)")
+               "it (python -m dist_tpu_torch.tools.convert_checkpoint "
+               "converts released reference .pyth files, not Orbax ones)")
 _NAME = re.compile(r"checkpoint_epoch_(\d+)(?:_iter_(\d+))?(\.pyth)?$")
 _SIDECAR = ".config.yaml"
 
@@ -305,21 +307,26 @@ def preprocess_loaded(cfg, loaded, template):
     return loaded
 
 
+def match_state_dict(sd, own):
+    """(the entries of ``sd`` whose name and shape ``own`` has, the names
+    of ``own`` not taken, the names of ``sd`` not taken): the reference's
+    ``load_state_dict(strict=False)`` with shape checks."""
+    take = {k: v for k, v in sd.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    return (take, sorted(set(own) - set(take)), sorted(set(sd) - set(take)))
+
+
 def load_torch_weights(model, path, cfg=None):
     """Load a torch checkpoint into ``model.module`` where names and shapes
-    match (the reference's ``load_state_dict(strict=False)``), adapted by
-    :func:`preprocess_loaded` when ``cfg`` is given; logs what did not
-    match."""
+    match (:func:`match_state_dict`), adapted by :func:`preprocess_loaded`
+    when ``cfg`` is given; logs what did not match."""
     from dist_tpu_torch.models.clip.convert import load_torch_state_dict
 
     sd = load_torch_state_dict(path)
     own = model.module.state_dict()
     if cfg is not None:
         sd = preprocess_loaded(cfg, sd, own)
-    take = {k: v for k, v in sd.items()
-            if k in own and tuple(v.shape) == tuple(own[k].shape)}
-    missing = sorted(set(own) - set(take))
-    unexpected = sorted(set(sd) - set(take))
+    take, missing, unexpected = match_state_dict(sd, own)
     model.module.load_state_dict(take, strict=False)
     if missing:
         logger.info("Keys in model not matched: %s", missing[:20])

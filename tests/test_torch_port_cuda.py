@@ -838,3 +838,50 @@ def test_tiny_ddp_step_at_nccl_world_1_equals_plain_step(tmp_path):
         assert sorted(grads) == sorted(want)
         for k, g in want.items():
             assert torch.equal(grads[k], g), k
+
+
+# the tiny geometry of tests/test_model_zoo_harness.py::TINY_OPTS (this
+# file imports no other test module: it runs where the repository's other
+# tests cannot)
+ZOO_TINY_OPTS = [
+    "VIDEO.BACKBONE.META_ARCH_NAME", "ViT-Test",
+    "VIDEO.BACKBONE.PRETRAIN_WEIGHT_PATH", "",
+    "VIDEO.BACKBONE.LOCAL_PRETRAIN_WEIGHT_PATH", "",
+    "VIDEO.BACKBONE.DIST.SELECTED_LAYERS", "[0,1]",
+    "VIDEO.BACKBONE.DIST.INTEGRATION_DIM", "64",
+    "VIDEO.BACKBONE.DIST.TEMPORAL_DIM", "32",
+    "VIDEO.HEAD.NUM_CLASSES", "12",
+    "DATA.NUM_INPUT_FRAMES", "4",
+    "DATA.TRAIN_CROP_SIZE", "64", "DATA.TEST_SCALE", "64",
+    "DATA.TEST_CROP_SIZE", "64",
+]
+
+
+def test_zoo_dry_run_on_the_card(tmp_path):
+    """The Model-Zoo harness's dry run of all eight rows at the tiny
+    geometry of tests/test_model_zoo_harness.py on the card, bf16 with the
+    TemporalNet fused: exit 0, each row 2 x 1 views, and per row (2
+    videos of 2 views at batch 1: 4 batches) K1 launched once per vision
+    layer per batch and once per text layer at set-up, K2 once per ladder
+    step per batch."""
+    import contextlib
+    import io
+    import json
+
+    from dist_tpu_torch.tools import reproduce_model_zoo as zoo
+
+    att.fused_attention_qkv.launches = 0
+    tn.fused_temporal_net.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = zoo.main(["--dry-run", "--dry-run-samples", "2",
+                         "--output-dir", str(tmp_path), "--opts",
+                         "TPU.FUSED_TEMPORAL_NET", "true", *ZOO_TINY_OPTS])
+    assert code == 0
+    rows = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith('{"config"')]
+    assert len(rows) == 8
+    assert all(r["dry_run"] and r["views"] == "2x1" for r in rows)
+    layers, steps, batches = 2, 2, 4
+    assert att.fused_attention_qkv.launches == 8 * (layers * batches + layers)
+    assert tn.fused_temporal_net.launches == 8 * steps * batches

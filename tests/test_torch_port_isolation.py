@@ -47,6 +47,11 @@ def test_importing_the_port_loads_nothing_forbidden():
     assert {"dist_tpu_torch.parallel.collectives",
             "dist_tpu_torch.parallel.launch",
             "dist_tpu_torch.parallel.mesh"} <= set(modules), modules
+    # the Model-Zoo harness and the checkpoint tools
+    assert {"dist_tpu_torch.tools.average_checkpoints",
+            "dist_tpu_torch.tools.classify",
+            "dist_tpu_torch.tools.convert_checkpoint",
+            "dist_tpu_torch.tools.reproduce_model_zoo"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -152,6 +152,31 @@
    (c) ``classify``'s model path (``score_video``, ``CLASSIFY_OPTS``: 2
    views of 3 crops from seeded 240 x 320 frames): its scores equal the
    sum of the eval step's over the same clips, with K1 and K2 launched.
+13. TAda: TAda2D-R50 8x8 K400 (``TADA``) at full width (400 classes, 8
+   frames, fp32; no TPU kernel lies on this path: cuDNN convolutions),
+   with cuDNN's TF32 convolutions as the port runs them: (a) served by
+   ``InferenceEngine`` at batch 8 (weights from RANDOM_SEED, the zero
+   inits and BatchNorm affines drawn, running stats from one seeded
+   batch: ``_tada_draw``), requests of 1, 3 and 8 clips of 8 x 256^2, ms
+   per request and clips/s; (b) trained at the config's batch 16 (SGD
+   with Nesterov momentum, its cosine LR with warm-up, dropout 0.5): 2
+   warm-up and 5 timed steps, step ms, clips/s, peak memory, finite
+   losses, every parameter and every running stat moved, and one step
+   under ``BN.FREEZE true`` that moves no running stat; then 3 steps with
+   BatchNorm through the expression a rank of a group uses in place of
+   cuDNN's fused one, timed beside; (c) the run list
+   (``TADA_RUN_OPTS``: 2 fold-epochs of 3 steps, a val eval and a
+   checkpoint after each, the test and the 10 x 3-view test; the
+   checkpoint holds ``head.*`` and every BatchNorm buffer, the test
+   entries' model gives the trained model's scores bit for bit; a run
+   preempted after one step and resumed lies within
+   ``TADA_RESUME_FACTOR`` times two uninterrupted runs' difference).
+   Then with TF32 off: (d) for three weight seeds, 2 clips on the card
+   against the CPU (``TADA_AGREEMENT_LIMITS``; a control with every
+   route function bypassed must break them) and (e) one train step's
+   loss, running stats and gradients, card against CPU
+   (``TADA_TRAIN_AGREEMENT_LIMITS``; the same control must break them).
+   K1-K4 must launch no time in the phase.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -178,7 +203,8 @@ launches as ``test_launches`` and the train run's (a) as
 ``train_run_launches``; under ``l14`` each L/14 shape's numbers with the
 l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
 ``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
-under ``zoo`` each zoo shape's numbers;
+under ``zoo`` each zoo shape's numbers; ``tada_launches`` the tada
+phase's (0);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -412,6 +438,30 @@ ZOO_ACCEPT_OPTS = ["DATA.SYNTHETIC", "true", "TEST.NUM_SAMPLES_LIMIT", "4",
 CLASSIFY_OPTS = ["TPU.FUSED_TEMPORAL_NET", "true",
                  "TEST.NUM_ENSEMBLE_VIEWS", "2", "TEST.NUM_SPATIAL_CROPS", "3"]
 CLASSIFY_FRAME_HW = (240, 320)
+# the tada phase: TAda2D-R50 8x8 K400 at full width (400 classes, 8
+# frames, train crop 224, test crop 256, fp32, batch 16, SGD with Nesterov
+# momentum); the LR schedule's epoch as K400's ~240k training clips at 16
+TADA = "configs/projects/tada/k400/tada2d_8x8.yaml"
+TADA_SERVE_BATCH = 8
+TADA_AGREEMENT_CLIPS = 2
+TADA_STEPS_PER_EPOCH = 15000
+# card against CPU, fp32 with TF32 off: limits 3 times the worst H100
+# reading over the three seeds (PERF.md); the route-bypass control must
+# break them
+TADA_AGREEMENT_LIMITS = {"max_abs_score_diff": 4.7e-5, "feature_rel_l2": 7.7e-4}
+TADA_TRAIN_AGREEMENT_LIMITS = {"loss_rel_diff": 1.7e-6, "stats_rel_l2": 1.45e-6,
+                               "grad_rel_l2": 0.125}
+# the run list: 2 fold-epochs of 3 steps (48 synthetic clips at 16), a
+# val eval and a checkpoint after each, the test of 2 videos in 1 and in
+# 10 x 3 views; a hundredth of the config's LR, since these 6 steps run
+# the 4 warm-up epochs' ramp (at 0.48 the weights diverge within them); the resumed run is held to the uninterrupted one within
+# TADA_RESUME_FACTOR times the difference of two uninterrupted runs
+TADA_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.NUM_SAMPLES_LIMIT", "48",
+                 "TEST.NUM_SAMPLES_LIMIT", "2", "OPTIMIZER.MAX_EPOCH", "2",
+                 "OPTIMIZER.BASE_LR", "0.0048",
+                 "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.EVAL_PERIOD", "1",
+                 "LOG_MODEL_INFO", "false", "LOG_CONFIG_INFO", "false"]
+TADA_RESUME_FACTOR = 3.0
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -2707,10 +2757,18 @@ def ddp(repo, card):
     this process, an NCCL group of one rank (``_ddp_world1``); (b) two
     gloo ranks sharing the card (``_ddp_world2``). Two ranks on one card
     prove correctness, not scaling. Returns each part's launches."""
+    import logging
+
     t0 = time.perf_counter()
     problems = []
-    world1, launches1 = _ddp_world1(repo, problems)
-    world2, launches2 = _ddp_world2(repo, problems)
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        world1, launches1 = _ddp_world1(repo, problems)
+        world2, launches2 = _ddp_world2(repo, problems)
+    finally:
+        # the one-process run list logged to a file in a removed directory
+        _restore_logging(handlers, level)
     rec = {"phase": "ddp", "nvidia_smi": card, "config": FLAGSHIP,
            "nccl_world1": world1, "gloo_world2": world2,
            "seconds": time.perf_counter() - t0, "pass": not problems}
@@ -3237,6 +3295,540 @@ def zoo(repo, card):
     return launches
 
 
+# ----------------------------- the tada phase -----------------------------
+
+
+def _tada_cfg(repo, *opts):
+    from dist_tpu_torch.config import load_config
+
+    return load_config(os.path.join(repo, TADA), list(opts),
+                       make_output_dir=False)
+
+
+def _tada_clips(cfg, n, seed, crop=None):
+    """``n`` seeded uint8 clips (n, T, S, S, 3) on the CPU, S the test
+    crop unless ``crop``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    s = int(crop or cfg.DATA.TEST_CROP_SIZE)
+    t = int(cfg.DATA.NUM_INPUT_FRAMES)
+    return torch.randint(0, 256, (n, t, s, s, 3), generator=gen,
+                         dtype=torch.int32).to(torch.uint8)
+
+
+def _tada_draw(module, seed, video):
+    """Weights away from their init: every BatchNorm's scale in [0.5,
+    1.5) (``b_avgpool_bn``'s included) and bias N(0, 0.1), the route
+    functions' zero-init ``b`` He-scaled, from a CPU generator seeded with
+    ``seed``; then the running stats from ``video`` (normalised): in one
+    eval-mode forward each BatchNorm, in the order they run, takes its
+    input's per-channel mean and variance (at least a tenth of the
+    layer's mean variance), so that the deep eval forward stays in
+    range."""
+    import torch
+    from dist_tpu_torch.models.base.bn import BatchNorm
+    from dist_tpu_torch.models.branches.tada import RouteFuncMLP
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, kind):
+        if kind == "normal":
+            return torch.randn(shape, generator=gen)
+        return torch.rand(shape, generator=gen)
+
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.weight.copy_(0.5 + draw(m.weight.shape, "uniform"))
+            m.bias.copy_(0.1 * draw(m.bias.shape, "normal"))
+        for m in module.modules():
+            if isinstance(m, RouteFuncMLP):
+                w = m.b.weight
+                w.copy_(draw(w.shape, "normal") * (2.0 / w[0].numel()) ** 0.5)
+
+    def pre_hook(bn, args):
+        x = args[0].detach().float()
+        var, mean = torch.var_mean(x, dim=[0] + list(range(2, x.dim())),
+                                   correction=0)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var.clamp_min(0.1 * float(var.mean())))
+
+    hooks = [m.register_forward_pre_hook(pre_hook) for m in bns]
+    try:
+        with torch.no_grad():
+            module.eval()(video)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _prep(cfg, clips, device):
+    from dist_tpu_torch.tasks.state import _prep_video
+
+    return _prep_video(cfg, clips.to(device))
+
+
+def _rel_l2(got, want):
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _tada_serve(repo, problems):
+    """``InferenceEngine`` on TAda2D-R50 at full width, batch 8: requests
+    of 1, 3 and 8 seeded clips of 8 x 256^2, TF32 as the port runs it."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = _tada_cfg(repo)
+    seed = int(cfg.RANDOM_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, batch_size=TADA_SERVE_BATCH)
+    _tada_draw(engine.model.module, seed,
+               _prep(cfg, _tada_clips(cfg, TADA_SERVE_BATCH, seed),
+                     engine.device))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    shape = (engine.num_frames, engine.crop, engine.crop, 3)
+    latencies = []
+    for n in SERVE_REQUESTS:
+        clips = rng.integers(0, 256, (n,) + shape, dtype=np.uint8)
+        t0 = time.perf_counter()
+        scores = engine.predict(clips)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        if scores.shape != (n, engine.num_classes) or \
+                not np.isfinite(scores).all() or \
+                not np.allclose(scores.sum(axis=1), 1.0, atol=1e-4):
+            problems.append(f"serving: scores {scores.shape} of a request "
+                            f"of {n}, sums {scores.sum(axis=1)}")
+    steady = []
+    for _ in range(TIMED_REPEATS):
+        t0 = time.perf_counter()
+        engine.predict(clips)
+        steady.append((time.perf_counter() - t0) * 1e3)
+    steady.sort()
+    b = SERVE_REQUESTS[-1]
+    return {"classes": engine.num_classes, "batch_size": engine.batch_size,
+            "buckets": engine.buckets(), "build_s": build_s,
+            "warmup_s": warmup_s, "request_clips": list(SERVE_REQUESTS),
+            "request_ms": latencies, "batch8_ms": steady,
+            "batch8_ms_median": steady[len(steady) // 2],
+            "batch8_ms_min": steady[0],
+            "clips_per_s": b * 1e3 / steady[len(steady) // 2],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+class _RouteBypassed:
+    """The control: every route function returns ``alpha = 1``."""
+
+    def __enter__(self):
+        import torch
+        from dist_tpu_torch.models.branches import tada
+
+        self._forward = tada.RouteFuncMLP.forward
+        tada.RouteFuncMLP.forward = lambda mod, x: torch.ones(
+            x.shape[:3] + (1, 1), device=x.device)
+
+    def __exit__(self, *exc):
+        from dist_tpu_torch.models.branches import tada
+
+        tada.RouteFuncMLP.forward = self._forward
+
+
+class _ExplicitBatchNorm:
+    """A timing variant: one process's BatchNorm through the expression a
+    rank of a group uses (``var_mean``, then ``addcmul``, through
+    autograd; no all-reduce) in place of cuDNN's fused BatchNorm."""
+
+    def __enter__(self):
+        import torch
+        from dist_tpu_torch.models.base.bn import BatchNorm
+
+        self._normalise = normalise = BatchNorm._normalise
+
+        def explicit(bn, x):
+            if not bn.training:
+                return normalise(bn, x)
+            var, mean = torch.var_mean(x, dim=[0] + list(range(2, x.dim())),
+                                       correction=0)
+            with torch.no_grad():
+                m = bn.momentum
+                bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                bn.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+            scale = bn.weight * torch.rsqrt(var + bn.eps)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return torch.addcmul((bn.bias - mean * scale).view(shape), x,
+                                 scale.view(shape))
+
+        BatchNorm._normalise = explicit
+
+    def __exit__(self, *exc):
+        from dist_tpu_torch.models.base.bn import BatchNorm
+
+        BatchNorm._normalise = self._normalise
+
+
+def _tada_agree(repo, problems):
+    """For ``AGREEMENT_SEEDS`` weight seeds, one batch of 2 clips on the
+    card against the CPU, both fp32 with TF32 off: the max abs difference
+    of the scores and the relative L2 of the pooled features, held to
+    ``TADA_AGREEMENT_LIMITS``; the control (the route function bypassed
+    on the card) must break them."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+
+    cfg = _tada_cfg(repo)
+    readings, controls = [], []
+    for i in range(AGREEMENT_SEEDS):
+        seed = int(cfg.RANDOM_SEED) + i
+        clips = _tada_clips(cfg, TADA_AGREEMENT_CLIPS, 100 + seed)
+        cpu = build_model(cfg, device="cpu", seed=seed)
+        _tada_draw(cpu.module, seed, _prep(cfg, clips, "cpu"))
+        card = build_model(cfg, seed=seed)
+        card.module.load_state_dict(cpu.module.state_dict())
+        with torch.no_grad():
+            want, wfeat = cpu.apply({"video": _prep(cfg, clips, "cpu")})
+            video = _prep(cfg, clips, card.device)
+            got, feat = card.apply({"video": video})
+            with _RouteBypassed():
+                bgot, bfeat = card.apply({"video": video})
+        readings.append({"seed": seed,
+                         "max_abs_score_diff": float((got.cpu() - want)
+                                                     .abs().max()),
+                         "feature_rel_l2": _rel_l2(feat, wfeat),
+                         "max_score": float(want.max())})
+        controls.append({"seed": seed,
+                         "max_abs_score_diff": float((bgot.cpu() - want)
+                                                     .abs().max()),
+                         "feature_rel_l2": _rel_l2(bfeat, wfeat)})
+        del cpu, card
+        torch.cuda.empty_cache()
+    for r in readings:
+        if _breaches(r, TADA_AGREEMENT_LIMITS):
+            problems.append(f"agreement: seed {r['seed']} "
+                            f"{_breaches(r, TADA_AGREEMENT_LIMITS)}")
+    for c in controls:
+        if not _breaches(c, TADA_AGREEMENT_LIMITS):
+            problems.append(f"agreement: the control of seed {c['seed']} "
+                            "is within the limits")
+    return {"readings": readings, "controls": controls,
+            "limits": TADA_AGREEMENT_LIMITS}
+
+
+def _bn_stats(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()
+            if k.endswith("running_mean") or k.endswith("running_var")}
+
+
+def _tada_train(repo, problems):
+    """The config's train step at full width (batch 16, fp32, SGD with
+    Nesterov momentum, its cosine LR with warm-up, dropout 0.5), TF32 as
+    the port runs it: 2 warm-up and 5 timed steps on seeded clips made on
+    the card. Every parameter and every running stat moves; then one step
+    under ``BN.FREEZE true`` moves the parameters and no running stat;
+    then 3 steps with BatchNorm through a rank's explicit expression
+    (``_ExplicitBatchNorm``), timed beside."""
+    import torch
+    from dist_tpu_torch.models.base.models import VideoModel, build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    cfg = _tada_cfg(repo)
+    seed = int(cfg.RANDOM_SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    batches = _train_batches(cfg, TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS + 1,
+                             seed)
+    _tada_draw(model.module, seed, _prep(cfg, batches[-1]["video"][:4],
+                                         model.device))
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TADA_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.module.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    stats = _bn_stats(model.module)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for batch in batches[:-1]:
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(v) for v in losses):
+        problems.append(f"train: losses {losses}")
+    unmoved = [k for k, p in params.items() if torch.equal(p, before[k])]
+    if unmoved:
+        problems.append(f"train: parameters that did not move: {unmoved}")
+    after = _bn_stats(model.module)
+    still = [k for k in stats if torch.equal(after[k], stats[k])]
+    if still:
+        problems.append(f"train: running stats that did not move: {still}")
+    # BN.FREEZE: the same module and optimizer, one more step
+    frozen_cfg = _tada_cfg(repo, "BN.FREEZE", "true")
+    frozen = VideoModel(module=model.module, head=None, cfg=frozen_cfg)
+    before = {k: p.detach().clone() for k, p in params.items()}
+    make_train_step(frozen, frozen_cfg, optimizer, lr_fn)(state, batches[-1])
+    moved = [k for k, v in _bn_stats(model.module).items()
+             if not torch.equal(v, after[k])]
+    if moved or all(torch.equal(p, before[k]) for k, p in params.items()):
+        problems.append(f"train: BN.FREEZE moved {len(moved)} running "
+                        "stats, or no parameter")
+    # the same steps with a rank's BatchNorm expression, timed beside them
+    explicit = []
+    with _ExplicitBatchNorm():
+        for batch in batches[:TRAIN_WARMUP_STEPS + 3]:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            explicit.append((time.perf_counter() - t0) * 1e3)
+    explicit = sorted(explicit[TRAIN_WARMUP_STEPS:])
+    timed = sorted(times[TRAIN_WARMUP_STEPS:])
+    b = int(cfg.TRAIN.BATCH_SIZE)
+    return {"batch_size": b, "optimizer": cfg.OPTIMIZER.OPTIM_METHOD,
+            "nesterov": bool(cfg.OPTIMIZER.NESTEROV),
+            "param_groups": {g["group"]: len(g["params"])
+                             for g in optimizer.param_groups},
+            "params": sum(p.numel() for p in params.values()),
+            "build_s": build_s, "step_ms": times, "losses": losses,
+            "lr": [lr_fn(i) for i in range(len(times))],
+            "step_ms_median": timed[len(timed) // 2],
+            "step_ms_min": timed[0],
+            "clips_per_s": b * 1e3 / timed[len(timed) // 2],
+            "peak_mem_gb": peak, "bn_freeze_moved_stats": len(moved),
+            "explicit_bn_step_ms": explicit,
+            "explicit_bn_step_ms_median": explicit[len(explicit) // 2]}
+
+
+def _tada_train_agree(repo, problems):
+    """One train step (dropout 0, so that the two devices draw no
+    masks) on 2 clips of 8 x 224^2 from the same weights, card against
+    CPU, fp32 with TF32 off: the loss's relative difference, the relative
+    L2 of all running stats after the step and of all gradients together,
+    held to ``TADA_TRAIN_AGREEMENT_LIMITS``. The gradients of this random
+    net carry the convolutions' rounding amplified (cuDNN's algorithms
+    against oneDNN's), so their limit is loose; the control (the route
+    functions bypassed on the card) must break it."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    cfg = _tada_cfg(repo, "VIDEO.HEAD.DROPOUT_RATE", "0.0")
+    seed = int(cfg.RANDOM_SEED)
+    clips = _tada_clips(cfg, TADA_AGREEMENT_CLIPS, 200 + seed,
+                        crop=cfg.DATA.TRAIN_CROP_SIZE)
+    labels = torch.tensor([3, 141])
+    weights = None
+
+    def one_step(device):
+        nonlocal weights
+        model = build_model(cfg, device=device, seed=seed)
+        if weights is None:
+            _tada_draw(model.module, seed, _prep(cfg, clips, "cpu"))
+            weights = {k: v.clone() for k, v in model.module.state_dict().items()}
+        else:
+            model.module.load_state_dict(weights)
+        optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                               TADA_STEPS_PER_EPOCH)
+        metrics = make_train_step(model, cfg, optimizer, lr_fn)(
+            create_train_state(model, optimizer),
+            {"video": clips.to(model.device),
+             "labels": labels.to(model.device)})
+        grads = torch.cat([p.grad.detach().flatten().cpu()
+                           for p in model.module.parameters()])
+        stats = torch.cat([v.flatten().cpu() for v in
+                           _bn_stats(model.module).values()])
+        return float(metrics["loss"]), grads, stats
+
+    def reading(card, cpu):
+        (lg, gg, sg), (lc, gc, sc) = card, cpu
+        return {"loss_rel_diff": abs(lg - lc) / abs(lc),
+                "stats_rel_l2": _rel_l2(sg, sc), "grad_rel_l2": _rel_l2(gg, gc),
+                "grad_cosine": _cosine(gg.numpy(), gc.numpy()), "loss": lc}
+
+    cpu = one_step("cpu")
+    card = reading(one_step(None), cpu)         # None: the card
+    with _RouteBypassed():
+        control = reading(one_step(None), cpu)
+    if _breaches(card, TADA_TRAIN_AGREEMENT_LIMITS):
+        problems.append(f"train agreement: "
+                        f"{_breaches(card, TADA_TRAIN_AGREEMENT_LIMITS)}")
+    if not _breaches(control, TADA_TRAIN_AGREEMENT_LIMITS):
+        problems.append("train agreement: the control is within the limits")
+    return {"reading": card, "control": control,
+            "limits": TADA_TRAIN_AGREEMENT_LIMITS}
+
+
+def _tada_run(repo, problems):
+    """The run list of ``python -m dist_tpu_torch.run`` on the config at
+    full width with synthetic clips (``TADA_RUN_OPTS``), TF32 as the port
+    runs it: (a) train (2 fold-epochs of 3 steps at batch 16, a val eval
+    and a checkpoint after each) -> test -> the automatic 10 x 3-view
+    test; (a') the training alone again, the floor of run-to-run
+    difference on the card; (b) preempted after one step and (c)
+    resumed. The checkpoint holds ``head.*`` and every BatchNorm buffer;
+    the test entries' model equals the last checkpoint and gives the
+    in-memory trained model's scores bit for bit; (c)'s weights and
+    running stats lie within ``TADA_RESUME_FACTOR`` times (a')'s
+    difference from (a) (bit for bit when that is 0)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.tasks import test as test_task
+
+    argv = ["--cfg", os.path.join(repo, TADA)] + TADA_RUN_OPTS
+    tested = []
+    load_test_checkpoint = test_task.load_test_checkpoint
+
+    def captured(cfg, model):
+        tested.append(load_test_checkpoint(cfg, model))
+        return tested[-1]
+
+    def state_diff(a, b):
+        sa, sb = a.model.module.state_dict(), b.model.module.state_dict()
+        return max(float((sa[k].double() - sb[k].double()).abs().max())
+                   for k in sa if sa[k].is_floating_point())
+
+    rec = {"overrides": TADA_RUN_OPTS, "launches": []}
+
+    def run_list(out, *opts):
+        cfg, results, launches = _run_list(argv + ["OUTPUT_DIR", out, *opts])
+        rec["launches"] += launches
+        return cfg, results
+    tmp = tempfile.mkdtemp(prefix="tada_run_")
+    test_task.load_test_checkpoint = captured
+    try:
+        out_a = os.path.join(tmp, "a")
+        t0 = time.perf_counter()
+        cfg, (state, single, multi) = run_list(out_a)
+        rec["run_list_s"] = time.perf_counter() - t0
+        names = sorted(n for n in os.listdir(os.path.join(out_a,
+                                                           "checkpoints"))
+                       if n.endswith(".pyth"))
+        saved = torch.load(os.path.join(out_a, "checkpoints", names[-1]),
+                           map_location="cpu", weights_only=True)
+        own = state.model.module.state_dict()
+        buffers = [k for k, _ in state.model.module.named_buffers()]
+        if names != ["checkpoint_epoch_00001.pyth",
+                     "checkpoint_epoch_00002.pyth"] or state.step != 6:
+            problems.append(f"run list: {state.step} steps, {names}")
+        if not ({"head.out.weight", "head.out.bias"} <= set(saved["model_state"])
+                and all(k in saved["model_state"] for k in buffers)
+                and sorted(saved["model_state"]) == sorted(own)):
+            problems.append("run list: the checkpoint lacks the head or a "
+                            "BatchNorm buffer")
+        clips = _prep(cfg, _tada_clips(cfg, 2, 300), state.model.device)
+        if len(tested) != 2:
+            problems.append(f"run list: {len(tested)} test entries")
+        for model in tested:
+            mine = model.module.state_dict()
+            same = all(torch.equal(mine[k], v) for k, v in own.items())
+            with torch.no_grad():
+                a, _ = model.apply({"video": clips})
+                b, _ = state.model.apply({"video": clips})
+            if not (same and torch.equal(a, b)):
+                problems.append("run list: a test entry's model is not the "
+                                "trained one")
+        for meter, views in ((single, 1), (multi, 30)):
+            if meter.num_clips != views or not meter.seen.all() or \
+                    not bool(np.isfinite(meter.video_preds).all()):
+                problems.append(f"run list: the {views}-view test")
+        del tested[:]
+        rec.update(test_entries=2,
+                   test_views=[single.num_clips, multi.num_clips],
+                   test_clips_per_s=[len(m.seen) / m.timing["loop_s"]
+                                     for m in (single, multi)],
+                   checkpoint_bytes=os.path.getsize(
+                       os.path.join(out_a, "checkpoints", names[-1])))
+        shutil.rmtree(out_a)
+        no_test = ["TEST.ENABLE", "false"]
+        _, again = run_list(os.path.join(tmp, "a2"), *no_test)
+        floor = state_diff(again[0], state)
+        del again
+        out_b = os.path.join(tmp, "b")
+        _, preempted = run_list(out_b, *no_test, "TRAIN.PREEMPT_AFTER_ITERS",
+                                "1")
+        if not (isinstance(preempted[0], SystemExit)
+                and preempted[0].code == 0):
+            problems.append(f"run list: the preempted run ended with "
+                            f"{preempted[0]!r}")
+        _, resumed = run_list(out_b, *no_test)
+        diff = state_diff(resumed[0], state)
+        limit = TADA_RESUME_FACTOR * floor
+        if resumed[0].step != 6 or diff > limit:
+            problems.append(f"run list: resumed {resumed[0].step} steps, off "
+                            f"the uninterrupted run by {diff} > {limit}")
+        rec.update(rerun_max_abs_diff=floor, resume_max_abs_diff=diff,
+                   resume_limit=limit)
+    finally:
+        test_task.load_test_checkpoint = load_test_checkpoint
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def tada(repo, card):
+    """TAda2D-R50 8x8 K400 at full width through the port's entry points:
+    served, trained and run through the run list with TF32 convolutions
+    as the port runs them, then held to the CPU with TF32 off (scores with
+    a control, one train step). Returns K1-K4's launches in the phase,
+    which must all be 0."""
+    import logging
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    problems, rec = [], {"phase": "tada", "nvidia_smi": card, "config": TADA}
+    launches = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        # cuDNN's default, as the port runs: TF32 convolutions
+        torch.backends.cudnn.allow_tf32 = True
+        for part, fn in (("serving", _tada_serve), ("train", _tada_train),
+                         ("run_list", _tada_run)):
+            counts = _zero_counts()
+            rec[part] = fn(repo, problems)
+            launches.append(counts())
+            launches += rec[part].pop("launches", [])
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = False
+        counts = _zero_counts()
+        rec["agreement"] = _tada_agree(repo, problems)
+        rec["train_agreement"] = _tada_train_agree(repo, problems)
+        launches.append(counts())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        _restore_logging(handlers, level)
+        torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in launches) for k in launches[0]}
+    if any(total.values()):
+        problems.append(f"K1-K4 launched in the phase: {total}")
+    rec.update(tf32_timed=True, kernel_launches=total,
+               seconds=time.perf_counter() - t0)
+    rec["pass"] = not problems
+    emit(rec)
+    if problems:
+        raise AssertionError("tada: " + "; ".join(problems))
+    return total
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -3413,6 +4005,7 @@ def main():
         ddp_launches = ddp(repo, card)
         tools_launches = tools(repo)
         zoo_launches = zoo(repo, card)
+        tada_launches = tada(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -3485,6 +4078,7 @@ def main():
                                      for part, c in ddp_launches.items()}
             entry["zoo_launches"] = {part: c[name]
                                      for part, c in zoo_launches.items()}
+            entry["tada_launches"] = tada_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -3513,6 +4107,7 @@ def main():
                              for part, c in ddp_launches.items()},
             "zoo_launches": {part: c["attention_qkv_rows"]
                              for part, c in zoo_launches.items()},
+            "tada_launches": tada_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

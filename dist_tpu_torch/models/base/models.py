@@ -1,12 +1,15 @@
-"""Model registries, the DiST head and the model builder (port of the
-CLIP part of ``dist_tpu/models/base/models.py``).
+"""Model registries, the heads and the model builder (port of
+``dist_tpu/models/base/models.py``).
 
-:func:`build_model` returns a :class:`VideoModel`: the backbone
-``nn.Module`` (whose state dict has the reference's key names) and the
-head, with the ``preds, logits = model.apply(inputs)`` contract of the
-task loops. Weights are made from a seeded CPU ``torch.Generator`` and
-then moved to the device, so the same seed gives the same weights on the
-CPU and on the card.
+:func:`build_model` returns a :class:`VideoModel` with the ``preds,
+logits = model.apply(inputs)`` contract of the task loops. Its
+``module`` is what the optimizer, DDP, the EMA copy and the checkpoints
+see, with the reference's key names: the CLIP(+DiST) model, whose head
+(:class:`ClipVideoTextIdentity`) has no weights and stays beside it, or
+a :class:`BaseVideoModel` whose children are the ``backbone`` and the
+``head``. Weights are made from a seeded CPU ``torch.Generator`` and then
+moved to the device, so the same seed gives the same weights on the CPU
+and on the card.
 """
 
 import dataclasses
@@ -15,16 +18,65 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from dist_tpu_torch.models.base.blocks import init_weights
+from dist_tpu_torch.models.base.bn import set_train_mode
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
 
 BACKBONE_REGISTRY = Registry("Backbone")
 HEAD_REGISTRY = Registry("Head")
+STEM_REGISTRY = Registry("Stem")
+BRANCH_REGISTRY = Registry("Branch")
 
-_NOT_PORTED = ("is not ported yet: the PyTorch port serves the CLIP+DiST "
-               "path only (ROADMAP.md queue A, item 5: other backbones "
-               "and heads)")
+_NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST "
+               "and ResNet3D families only (ROADMAP.md queue A, item 5: "
+               "other backbones and heads)")
+
+
+@HEAD_REGISTRY.register()
+class BaseHead(nn.Module):
+    """The default classification head: the feature map's mean over T, H
+    and W in fp32, dropout, the linear layer ``out``, and softmax (or
+    sigmoid) in fp32 in eval mode. Returns ``(preds, pooled features)``."""
+
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0,
+                 activation="softmax"):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.out = nn.Linear(dim_in, num_classes)
+
+    def forward(self, x):
+        if x.dim() == 5:            # (B, C, T, H, W) feature map
+            x = x.mean(dim=(2, 3, 4), dtype=torch.float32)
+        elif x.dim() > 2:
+            x = x.reshape(x.shape[0], -1).float()
+        feat = x
+        if self.dropout_rate > 0:
+            x = F.dropout(x, self.dropout_rate, self.training)
+        out = self.out(x)
+        if not self.training:
+            if self.activation == "softmax":
+                out = torch.softmax(out.float(), dim=-1)
+            elif self.activation == "sigmoid":
+                out = torch.sigmoid(out.float())
+        return out, feat
+
+
+class BaseVideoModel(nn.Module):
+    """``backbone`` then ``head`` (the reference's ``BaseVideoModel``):
+    ``forward(video) -> (preds, logits)``; the head's output depends on
+    the module's train or eval mode."""
+
+    def __init__(self, backbone, head):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+
+    def forward(self, video, text_features=None):
+        return self.head(self.backbone(video))
 
 
 @HEAD_REGISTRY.register()
@@ -49,7 +101,8 @@ class ClipVideoTextIdentity(nn.Module):
 
 @dataclasses.dataclass
 class VideoModel:
-    """A built model: the backbone module, its head and the config; in a
+    """A built model: the module, the weightless head beside it (None
+    when the head is inside the module) and the config; in a
     data-parallel run also ``ddp``, the module wrapped by
     ``DistributedDataParallel`` (``parallel/mesh.py::wrap_ddp``)."""
 
@@ -62,19 +115,34 @@ class VideoModel:
     def device(self):
         return next(self.module.parameters()).device
 
+    @property
+    def is_text_model(self):
+        """Whether the model classifies against label-text features."""
+        return hasattr(self.module, "encode_text")
+
+    def set_mode(self, train):
+        """The module in train or eval mode; in train mode under
+        ``BN.FREEZE`` its BatchNorm modules stay in eval mode."""
+        frozen = bool(self.cfg.BN.get("FREEZE", False)) if self.cfg else False
+        set_train_mode(self.module, train, frozen)
+
     def apply(self, inputs, train=False, state_dict=None):
-        """``preds, logits`` for ``inputs = {"video", "text_features"}``;
+        """``preds, logits`` for ``inputs = {"video", "text_features"}``,
+        with the module in train or eval mode (:meth:`set_mode`);
         ``train=True`` gives the head's training output (no softmax).
-        ``state_dict`` (e.g. an EMA copy) stands in for the module's own
-        weights in this call. The training forward goes through ``ddp``
-        where there is one, so that its backward all-reduces the
-        gradients."""
+        ``state_dict`` (e.g. an EMA copy, running stats included) stands
+        in for the module's own weights and buffers in this call. The
+        training forward goes through ``ddp`` where there is one, so that
+        its backward all-reduces the gradients."""
+        self.set_mode(train)
         args = (inputs["video"], inputs.get("text_features"))
         if state_dict is None:
             out = (self.ddp if train and self.ddp is not None
                    else self.module)(*args)
         else:
             out = torch.func.functional_call(self.module, state_dict, args)
+        if isinstance(self.module, BaseVideoModel):
+            return out
         if self.head is None:
             return out, out
         return self.head(out, train=train)
@@ -84,24 +152,41 @@ class VideoModel:
 
 
 def build_head(cfg):
+    """The configured head: ``ClipVideoTextIdentity`` (no weights) or a
+    ``BaseHead`` over the backbone's last ``NUM_FILTERS``."""
     name = cfg.VIDEO.HEAD.NAME
     if not name:
         return None
     cls = HEAD_REGISTRY.get(name)
     if cls is None:
         raise NotImplementedError(f"head {name!r} {_NOT_PORTED}")
+    if cls is BaseHead:
+        return cls(int(cfg.VIDEO.BACKBONE.NUM_FILTERS[-1]),
+                   int(cfg.VIDEO.HEAD.NUM_CLASSES or 0),
+                   float(cfg.VIDEO.HEAD.DROPOUT_RATE or 0.0),
+                   cfg.VIDEO.HEAD.ACTIVATION)
     return cls(activation=cfg.VIDEO.HEAD.ACTIVATION)
 
 
+def _register_backbones():
+    import dist_tpu_torch.models.backbones.resnet3d  # noqa: F401
+
+
 def build_backbone_on_meta(cfg) -> nn.Module:
-    """The configured backbone on the meta device: its parameter names
-    and shapes, with no storage behind them."""
+    """The configured module on the meta device: its parameter names and
+    shapes, with no storage behind them. For a head with weights it is
+    the :class:`BaseVideoModel` of backbone and head."""
+    _register_backbones()
     meta_arch = cfg.VIDEO.BACKBONE.META_ARCH
     builder = BACKBONE_REGISTRY.get(meta_arch)
     if builder is None:
         raise NotImplementedError(f"meta-arch {meta_arch!r} {_NOT_PORTED}")
     with torch.device("meta"):
-        return builder(cfg)
+        backbone = builder(cfg)
+        head = build_head(cfg)
+        if head is not None and next(head.parameters(), None) is not None:
+            return BaseVideoModel(backbone, head)
+    return backbone
 
 
 def build_model(cfg, device=None, seed=None) -> VideoModel:
@@ -114,7 +199,8 @@ def build_model(cfg, device=None, seed=None) -> VideoModel:
         int(cfg.RANDOM_SEED if seed is None else seed))
     init_weights(module, gen)
     module = module.to(device).eval()
-    return VideoModel(module=module, head=build_head(cfg), cfg=cfg)
+    head = None if isinstance(module, BaseVideoModel) else build_head(cfg)
+    return VideoModel(module=module, head=head, cfg=cfg)
 
 
 @BACKBONE_REGISTRY.register(name="ClipVisionTextTransformer")

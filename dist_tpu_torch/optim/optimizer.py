@@ -19,6 +19,14 @@
 - Each group carries ``lr_mult``; the train step sets every group's
   ``lr = lr_fn(step) * lr_mult`` before ``optimizer.step()``.
 
+A model with a JAX counterpart table (the conv family's
+``BaseVideoModel``, ``models/backbones/convert.py::jax_table``) is
+labelled by each parameter's JAX name, so that both packages put every
+parameter in the same group: the JAX ``ConvBN`` calls its BatchNorm
+``bn`` (the BN group) where the reference's name is ``a_bn``, while the
+TAda block's own ``a_bn``, ``b_bn`` ... keep their names in both (not the
+BN group: decayed like any weight).
+
 One difference from the JAX package is kept on purpose: it stacks the
 ladder's per-step parameters on a leading axis, so the ladder's LayerNorm
 scales reach its "ndim <= 1" rule as 2-D and are decayed. The port holds
@@ -43,9 +51,13 @@ _LARS = ("LARS is not ported yet: the PyTorch port has no layer-wise "
          "trust-ratio optimizer (ROADMAP.md queue A, item 2.5)")
 
 
+def _segments(name):
+    return name.replace("/", ".").split(".")
+
+
 def _is_bn_param(name):
     return any(seg.startswith("bn") or "norm" in seg
-               for seg in name.split("."))
+               for seg in _segments(name))
 
 
 def _dist_enabled(cfg):
@@ -56,6 +68,17 @@ def _dist_enabled(cfg):
 def _is_text_param(module, name):
     test = getattr(module, "is_text_param", None)
     return bool(test and test(name))
+
+
+def _rule_names(module):
+    """{parameter name: the name the grouping rules read}: the JAX name
+    where the module has a counterpart table, else its own."""
+    from dist_tpu_torch.models.base.models import BaseVideoModel
+
+    if isinstance(module, BaseVideoModel):
+        from dist_tpu_torch.models.backbones.convert import jax_param_names
+        return jax_param_names(module)
+    return {name: name for name, _ in module.named_parameters()}
 
 
 def param_labels(cfg, module):
@@ -71,7 +94,7 @@ def param_labels(cfg, module):
     standard = not dist_enabled and not only_linear
 
     def label(name, p):
-        if fixed and any(seg in fixed for seg in name.split(".")):
+        if fixed and any(seg in fixed for seg in _segments(name)):
             return FROZEN
         if wb_lock and _is_bn_param(name):
             return FROZEN
@@ -101,7 +124,9 @@ def param_labels(cfg, module):
             return BODY
         return TRAINABLE
 
-    return {name: label(name, p) for name, p in module.named_parameters()}
+    names = _rule_names(module)
+    return {name: label(names[name], p)
+            for name, p in module.named_parameters()}
 
 
 def base_lr(cfg):

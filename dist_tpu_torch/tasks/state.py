@@ -6,6 +6,7 @@ The JAX package's step is one jitted function; here it is eager PyTorch
 that queues its work on the card and returns its metrics as 0-d device
 tensors, so that the host runs ahead and reads them a step later."""
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Optional
@@ -17,6 +18,7 @@ from dist_tpu_torch.data import mixup
 from dist_tpu_torch.data.transforms import normalize_device
 from dist_tpu_torch.optim.losses import calculate_loss
 from dist_tpu_torch.optim.optimizer import set_lr
+from dist_tpu_torch.parallel import collectives
 from dist_tpu_torch.utils.logging import get_logger
 from dist_tpu_torch.utils.metrics import joint_topks_correct, topks_correct
 
@@ -37,8 +39,10 @@ def load_pretrained(cfg, model):
 
 @torch.no_grad()
 def compute_text_features(model, text_tokens):
-    """Encode the label texts once; None without tokens."""
-    if text_tokens is None:
+    """Encode the label texts once; None without tokens or for a model
+    that does not classify against label texts (a conv backbone with
+    ``BaseHead``), which has no text tower."""
+    if text_tokens is None or not model.is_text_model:
         return None
     tokens = torch.as_tensor(text_tokens, dtype=torch.long, device=model.device)
     return model.encode_text(tokens)
@@ -160,6 +164,19 @@ def step_generator(seed, step):
         hash((int(seed), int(step))) & 0x7FFFFFFFFFFFFFFF)
 
 
+@contextlib.contextmanager
+def step_rng(device, seed, step):
+    """torch's default generators (the CPU's and ``device``'s) seeded
+    from (``seed``, ``step``, the rank) inside the block and restored
+    after it: the model's dropout masks are a function of the step, so
+    that a resumed run draws what an uninterrupted one draws."""
+    devices = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(hash((int(seed), int(step), collectives.get_rank()))
+                          & 0x7FFFFFFFFFFFFFFF)
+        yield
+
+
 _DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
                "ported yet (ROADMAP.md queue A, item 2.4)")
 
@@ -173,9 +190,11 @@ def make_train_step(model, cfg, optimizer, lr_fn):
     it with draws that are a pure function of (``RANDOM_SEED + 1``,
     ``state.step``), as the JAX step's ``fold_in(rng, state.step)``, so
     that a run resumed from a checkpoint draws what an uninterrupted run
-    draws; then it runs the forward with ``train=True``
-    and the loss, back-propagates, sets each group's LR from
-    ``lr_fn(state.step)``, steps the optimizer, updates the EMA copy and
+    draws; then it runs the forward with ``train=True`` (the module in
+    train mode, its BatchNorm on running stats under ``BN.FREEZE``, its
+    dropout drawn from :func:`step_rng`) and the loss, back-propagates,
+    sets each group's LR from ``lr_fn(state.step)``, steps the
+    optimizer, updates the EMA copy and
     returns {"loss", "top1_err", "top5_err", "lr"} as 0-d device tensors
     (the loss parts, if any, beside them). After it, each trainable
     parameter's ``.grad`` holds this step's gradient."""
@@ -186,10 +205,10 @@ def make_train_step(model, cfg, optimizer, lr_fn):
     mc = mixup.MixupConfig.from_cfg(cfg) if mixup_on else None
     decay = ema_decay(cfg)
     mix_seed = int(cfg.RANDOM_SEED) + 1
+    drop_seed = int(cfg.RANDOM_SEED) + 2
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(state, batch):
-        model.module.train()
         video = _prep_video(cfg, batch["video"])
         labels = {"supervised": batch["labels"]}
         if mc is not None and mc.enabled:
@@ -198,12 +217,12 @@ def make_train_step(model, cfg, optimizer, lr_fn):
             video, labels["supervised_mixup"] = mixup.apply(
                 video, batch["labels"], d, mc)
         inputs = {"video": video, "text_features": batch.get("text_features")}
-        preds, logits = model.apply(inputs, train=True)
-        loss, parts = calculate_loss(cfg, preds, logits, labels,
-                                     cur_epoch=state.step)
-
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with step_rng(video.device, drop_seed, state.step):
+            preds, logits = model.apply(inputs, train=True)
+            loss, parts = calculate_loss(cfg, preds, logits, labels,
+                                         cur_epoch=state.step)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         for p in params:
             # a parameter that did not reach the loss (the last ladder
             # step's integration2temporal net) has a zero gradient, as in
@@ -216,6 +235,8 @@ def make_train_step(model, cfg, optimizer, lr_fn):
         optimizer.step()
 
         if decay is not None and state.ema is not None:
+            # the running stats are averaged too, as the JAX package's EMA
+            # maps over the whole variables tree
             with torch.no_grad():
                 for k, v in model.module.state_dict().items():
                     if v.is_floating_point():

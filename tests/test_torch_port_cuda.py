@@ -885,3 +885,68 @@ def test_zoo_dry_run_on_the_card(tmp_path):
     layers, steps, batches = 2, 2, 4
     assert att.fused_attention_qkv.launches == 8 * (layers * batches + layers)
     assert tn.fused_temporal_net.launches == 8 * steps * batches
+
+
+TADA_TINY_OPTS = ["VIDEO.BACKBONE.DEPTH", "18",
+                  "VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 32, 64, 128]",
+                  "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "32",
+                  "DATA.TEST_CROP_SIZE", "32", "VIDEO.HEAD.NUM_CLASSES", "7",
+                  "VIDEO.HEAD.DROPOUT_RATE", "0.0"]
+
+
+def test_tiny_tada2d_on_the_card_matches_the_cpu():
+    """A tiny TAda2D (the zero inits drawn: alpha away from 1, the
+    avg-pool branch on), fp32 with TF32 off: its eval scores on the card
+    within 1e-5 of the CPU's; one train step's loss within 1e-5
+    (relative) and its running stats within 1e-5 (relative L2); K1-K4
+    launch no time."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import (
+        _prep_video,
+        create_train_state,
+        make_train_step,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "configs/projects/tada/k400/"
+                                   "tada2d_8x8.yaml"), TADA_TINY_OPTS,
+                      make_output_dir=False)
+    gen = torch.Generator().manual_seed(0)
+    clips = torch.randint(0, 256, (2, 4, 32, 32, 3), generator=gen,
+                          dtype=torch.int32).to(torch.uint8)
+    labels = torch.tensor([1, 5])
+    cpu = build_model(cfg, device="cpu")
+    with torch.no_grad():
+        for name, p in cpu.module.named_parameters():
+            if name.endswith("b_rf.b.weight") or "b_avgpool_bn" in name:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen) + 0.5)
+    weights = {k: v.clone() for k, v in cpu.module.state_dict().items()}
+    card = build_model(cfg, device="cuda")
+    card.module.load_state_dict(weights)
+    counts = (att.fused_attention_qkv, att.attention_qkv_rows,
+              tn.fused_temporal_net, tn.fused_temporal_net_bwd)
+    for fn in counts:
+        fn.launches = 0
+    with torch.no_grad():
+        want, _ = cpu.apply({"video": _prep_video(cfg, clips)})
+        got, _ = card.apply({"video": _prep_video(cfg, clips.cuda())})
+    _within(got.cpu(), want, 1e-5, 0)
+    out = []
+    for model in (cpu, card):
+        opt, lr_fn = construct_optimizer(cfg, model.module, 4)
+        metrics = make_train_step(model, cfg, opt, lr_fn)(
+            create_train_state(model, opt),
+            {"video": clips.to(model.device), "labels": labels.to(model.device)})
+        stats = torch.cat([v.flatten().cpu() for k, v in
+                           model.module.state_dict().items()
+                           if k.endswith("running_var")
+                           or k.endswith("running_mean")])
+        out.append((float(metrics["loss"]), stats))
+    (lc, sc), (lg, sg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert float((sg - sc).norm() / sc.norm()) <= 1e-5
+    assert all(fn.launches == 0 for fn in counts)

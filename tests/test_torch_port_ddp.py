@@ -12,6 +12,9 @@ off, EMA on (decay 0.9).
   signature's process count.
 - The mixup pairing kept on purpose: each rank flips its own batch.
 
+- A tiny TAda2D step at world 2 against one process at the global
+  batch: BatchNorm over the global batch.
+
 The run lists at world 2 are ``test_torch_port_ddp_run.py``'s."""
 
 import dataclasses
@@ -36,6 +39,7 @@ from dist_tpu.parallel.mesh import build_mesh, shard_batch, shard_params
 from dist_tpu.tasks import state as jstate
 from dist_tpu_torch.config import load_config
 from dist_tpu_torch.data import mixup
+from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.models.clip.clip_video import clip_dist_from_cfg
 from dist_tpu_torch.models.clip.convert import state_dict_from_jax
 from dist_tpu_torch.parallel import launch
@@ -46,6 +50,13 @@ from tests.synth_ckpt import add_dist_state_dict, make_clip_state_dict
 from tests.test_torch_port_mixup import _case
 
 TINY = "configs/projects/dist/test/tiny_synth.yaml"
+TADA = "configs/projects/tada/k400/tada2d_8x8.yaml"
+TADA_OPTS = ["VIDEO.BACKBONE.DEPTH", "18",
+             "VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 32, 64, 128]",
+             "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64",
+             "VIDEO.HEAD.NUM_CLASSES", "7", "VIDEO.HEAD.DROPOUT_RATE", "0.0",
+             "TRAIN.BATCH_SIZE", "2", "TPU.MESH.DATA", "2",
+             "OPTIMIZER.WARMUP_EPOCHS", "0", "OPTIMIZER.BASE_LR", "0.01"]
 # a spawned group's time limit: a hung rendezvous fails the tests (the
 # world-2 runs take ~10-20 s alone on this host, several times that
 # beside the suite's other workers)
@@ -83,10 +94,34 @@ def _step_inputs(repo_root):
     return jcfg, params, batch
 
 
+def _tada_inputs(repo_root):
+    """A tiny TAda2D (fp32, dropout 0) with seeded weights, the zero
+    inits and running stats drawn away from their init, and one seeded
+    global batch of 4 clips of 4 x 64^2: conv5 keeps 2 x 2 positions a
+    frame (at 32^2, one position: its BatchNorms' backward amplifies
+    the two sums' rounding to 1.7e-5 in the stem's gradient)."""
+    cfg = load_config(os.path.join(repo_root, TADA), TADA_OPTS,
+                      make_output_dir=False)
+    model = build_model(cfg, device="cpu", seed=3)
+    rng = np.random.default_rng(9)
+    weights = {}
+    for k, v in model.module.state_dict().items():
+        v = v.numpy()
+        if k.endswith("running_mean") or k.endswith("b_rf.b.weight"):
+            v = rng.normal(0.0, 0.1, v.shape)
+        elif k.endswith("running_var") or k.endswith("_bn.weight"):
+            v = rng.uniform(0.5, 1.5, v.shape)
+        weights[k] = np.asarray(v, v.dtype if k.endswith("tracked")
+                                else np.float32)
+    batch = {"video": rng.integers(0, 256, (4, 4, 64, 64, 3), dtype=np.uint8),
+             "labels": rng.integers(0, 7, 4).astype(np.int32)}
+    return cfg, weights, batch
+
+
 @pytest.fixture(scope="module")
 def world2(repo_root):
     """The DDP step at world 2, in one spawned group, without and with
-    ``TPU.REMAT``."""
+    ``TPU.REMAT``, and the tiny TAda2D's step."""
     _, params, batch = _step_inputs(repo_root)
     cfgs = [load_config(os.path.join(repo_root, TINY),
                         STEP + ["TPU.MESH.DATA", "2", *opts],
@@ -94,11 +129,13 @@ def world2(repo_root):
             for opts in ([], ["TPU.REMAT", "true"])]
     weights = {k: np.asarray(v, np.float32)
                for k, v in state_dict_from_jax(params).items()}
+    tada = _tada_inputs(repo_root)
     steps = launch.launch_task(
         cfgs[0], torch_ddp_ranks.ddp_steps,
-        ([(cfg, weights, batch) for cfg in cfgs],), device="cpu",
+        ([(cfg, weights, batch) for cfg in cfgs] + [tada],), device="cpu",
         timeout=SPAWN_TIMEOUT_S)
     return {"step": [s[0] for s in steps], "remat": [s[1] for s in steps],
+            "tada": [s[2] for s in steps], "tada_inputs": tada,
             "weights": weights}
 
 
@@ -180,6 +217,28 @@ def test_ddp_step_with_remat_equals_without(world2):
             assert sorted(got[group]) == sorted(want[group])
             for name, g in want[group].items():
                 np.testing.assert_array_equal(got[group][name], g, name)
+
+
+def test_tada2d_batch_norm_over_the_global_batch(world2):
+    """A tiny TAda2D step at world 2, batch 2 a rank: BatchNorm's batch
+    statistics are the global batch's (all-reduced), so the loss, every
+    gradient, and every weight and running stat after the step equal
+    one process's at batch 4 within 1e-5."""
+    cfg, weights, batch = world2["tada_inputs"]
+    one = torch_ddp_ranks.ddp_step(cfg, weights, batch)
+    for rank in world2["tada"]:
+        np.testing.assert_allclose(rank["losses"], one["losses"], rtol=1e-5)
+        assert sorted(rank["grads"]) == sorted(one["grads"])
+        for k, g in one["grads"].items():
+            np.testing.assert_allclose(rank["grads"][k], g, rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        assert sorted(rank["weights"]) == sorted(one["weights"])
+        for k, w in one["weights"].items():
+            np.testing.assert_allclose(rank["weights"][k], w, rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+    moved = [k for k in one["weights"] if k.endswith("running_var")
+             and not np.allclose(one["weights"][k], weights[k])]
+    assert len(moved) == sum(k.endswith("running_var") for k in weights)
 
 
 def test_fused_model_builds_for_more_than_one_gpu(repo_root):

@@ -52,6 +52,12 @@ def test_importing_the_port_loads_nothing_forbidden():
             "dist_tpu_torch.tools.classify",
             "dist_tpu_torch.tools.convert_checkpoint",
             "dist_tpu_torch.tools.reproduce_model_zoo"} <= set(modules), modules
+    # the conv family: ResNet3D, the TAda branch, BatchNorm, precision
+    assert {"dist_tpu_torch.models.backbones.convert",
+            "dist_tpu_torch.models.backbones.resnet3d",
+            "dist_tpu_torch.models.base.bn",
+            "dist_tpu_torch.models.branches.tada",
+            "dist_tpu_torch.models.precision"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

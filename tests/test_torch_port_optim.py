@@ -275,3 +275,73 @@ def test_lars_raises(repo_root):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optimizer.construct_optimizer(cfg, build_model(cfg, device="cpu")
                                       .module, 4)
+
+
+TADA = "configs/projects/tada/k400/tada2d_8x8.yaml"
+# an LR of 1000 at step 0, so that a step's decay (LR * 1.9 * 1e-4 of a
+# weight) is far above fp32's rounding of the weight
+TADA_TINY = ["VIDEO.BACKBONE.DEPTH", "18",
+             "VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 32, 64, 128]",
+             "DATA.NUM_INPUT_FRAMES", "4", "VIDEO.HEAD.NUM_CLASSES", "7",
+             "OPTIMIZER.WARMUP_EPOCHS", "0", "OPTIMIZER.BASE_LR", "1000"]
+
+
+def _jax_leaf(tree, leaf):
+    node = tree[leaf.collection]
+    for seg in leaf.path.split("/"):
+        node = node[seg]
+    return node
+
+
+def _port_probe(cfg, module, value, grad):
+    """Each parameter's change in one step of the port's optimizer from
+    ``value`` with gradient ``grad`` everywhere."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.fill_(value)
+    opt, lr_fn = optimizer.construct_optimizer(cfg, module, 4)
+    for p in module.parameters():
+        p.grad = torch.full_like(p, grad)
+    optimizer.set_lr(opt, lr_fn(0))
+    opt.step()
+    return {k: p.detach().numpy() - value for k, p in module.named_parameters()}
+
+
+@pytest.mark.parametrize("opts", [[], ["TRAIN.LR_REDUCE", "true"]],
+                         ids=["sgd", "lr_reduce"])
+def test_tada2d_groups_match_jax_through_the_table(repo_root, opts):
+    """Every TAda2D parameter's group equals the JAX package's label of
+    its counterpart (``models/backbones/convert.py::jax_table``), and one
+    step of each optimizer moves it alike: from 0 with gradient 1 (the
+    group's LR multiplier) and from 1 with gradient 0 (its weight decay),
+    within ``rtol=1e-5``. ConvBN's BatchNorm (JAX ``.../bn``, the port's
+    ``..._bn``) is in the BN group without decay; the TAda block's own
+    ``a_bn``, ``b_bn`` ... are not, in both packages."""
+    from dist_tpu_torch.models.backbones.convert import jax_table
+
+    cfg, jcfg = _cfgs(repo_root, TADA, TADA_TINY + opts)
+    shapes = jax.eval_shape(lambda: jax_build_model(jcfg).init(
+        jax.random.PRNGKey(0), {"video": jnp.zeros((1, 4, 32, 32, 3))}))
+    zeros, ones = (jax.tree_util.tree_map(
+        lambda s: np.full(s.shape, v, np.float32), shapes) for v in (0, 1))
+    labels = jopt.param_labels(jcfg, zeros)
+    tx, jlr_fn = jopt.construct_optimizer(jcfg, zeros, 4)
+    update = jax.jit(lambda g, p: tx.update(g, tx.init(p), p)[0])
+    per_grad, per_decay = update(ones, zeros), update(zeros, ones)
+
+    module = build_model(cfg, device="cpu").module
+    table = jax_table(module)
+    got = optimizer.param_labels(cfg, module)
+    got_grad = _port_probe(cfg, module, 0.0, 1.0)
+    got_decay = _port_probe(cfg, module, 1.0, 0.0)
+    for k in got:
+        leaf = table[k]
+        assert got[k] == _jax_leaf(labels, leaf), k
+        # every entry of a tensor moves alike: one value each
+        for probe, want in ((got_grad, per_grad), (got_decay, per_decay)):
+            (g,), (w,) = np.unique(probe[k]), np.unique(_jax_leaf(want, leaf))
+            assert g == pytest.approx(float(w), rel=1e-5), k
+    assert got["backbone.conv1.a_bn.weight"] == optimizer.BN
+    assert got["backbone.conv2.res_1.conv_branch.b_rf.bn.weight"] == optimizer.BN
+    assert got["backbone.conv2.res_1.conv_branch.a_bn.weight"] != optimizer.BN
+    assert len(set(got.values())) == (3 if opts else 2)

@@ -46,15 +46,19 @@ def both_exit():
 
 
 def _dist_net(module):
-    return {k: p.detach().numpy().copy() for k, p in module.named_parameters()
-            if k.startswith("dist_net.")}
+    """The dist_net weights of a DiST model; every weight and buffer of
+    another (a conv model's running stats included)."""
+    out = {k: p.detach().numpy().copy() for k, p in module.named_parameters()
+           if k.startswith("dist_net.")}
+    return out or {k: v.detach().numpy().copy()
+                   for k, v in module.state_dict().items()}
 
 
 def ddp_step(cfg, weights, batch, steps=1):
     """``steps`` train steps through DDP, rank r on rows [r * b, (r + 1) *
     b) of ``batch`` (b = its rows / world); returns the ranks' mean loss
     per step, the first step's trainable gradients and the weights
-    after."""
+    after. Outside a group: the plain step on the whole batch."""
     from dist_tpu_torch.models.base.models import build_model
     from dist_tpu_torch.optim.optimizer import construct_optimizer
     from dist_tpu_torch.parallel.mesh import wrap_ddp
@@ -70,13 +74,15 @@ def ddp_step(cfg, weights, batch, steps=1):
                                   for k, v in weights.items()})
     optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
     state = create_train_state(model, optimizer, ema_decay(cfg))
-    wrap_ddp(model)
+    if torch.distributed.is_initialized():
+        wrap_ddp(model)
     step = make_train_step(model, cfg, optimizer, lr_fn)
     b = len(batch["labels"]) // world
     rows = slice(rank * b, (rank + 1) * b)
     tb = {"video": torch.from_numpy(batch["video"][rows]),
-          "labels": torch.from_numpy(batch["labels"][rows]).long(),
-          "text_features": torch.from_numpy(batch["text_features"])}
+          "labels": torch.from_numpy(batch["labels"][rows]).long()}
+    if "text_features" in batch:
+        tb["text_features"] = torch.from_numpy(batch["text_features"])
     losses, grads = [], None
     for _ in range(steps):
         metrics = step(state, tb)

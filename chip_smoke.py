@@ -157,7 +157,7 @@
    with cuDNN's TF32 convolutions as the port runs them: (a) served by
    ``InferenceEngine`` at batch 8 (weights from RANDOM_SEED, the zero
    inits and BatchNorm affines drawn, running stats from one seeded
-   batch: ``_tada_draw``), requests of 1, 3 and 8 clips of 8 x 256^2, ms
+   batch: ``_draw_conv_weights``), requests of 1, 3 and 8 clips of 8 x 256^2, ms
    per request and clips/s; (b) trained at the config's batch 16 (SGD
    with Nesterov momentum, its cosine LR with warm-up, dropout 0.5): 2
    warm-up and 5 timed steps, step ms, clips/s, peak memory, finite
@@ -173,10 +173,41 @@
    ``TADA_RESUME_FACTOR`` times two uninterrupted runs' difference).
    Then with TF32 off: (d) for three weight seeds, 2 clips on the card
    against the CPU (``TADA_AGREEMENT_LIMITS``; a control with every
-   route function bypassed must break them) and (e) one train step's
-   loss, running stats and gradients, card against CPU
-   (``TADA_TRAIN_AGREEMENT_LIMITS``; the same control must break them).
+   route function bypassed must break them) and (e) one train step in
+   float64 on both sides, its loss, running stats and worst gradient
+   leaf, card against CPU (``FP64_STEP_LIMITS``; the same control must
+   break the gradients' limit).
    K1-K4 must launch no time in the phase.
+14. EPIC: SlowFast R50 8x8 with ``SlowFastHeadx2`` and ir-CSN-152 with
+   ``BaseHeadx2`` (``EPIC``: EPIC-KITCHENS-100's 97 verbs and 300 nouns)
+   at full width, fp32, TF32 convolutions as the port runs them: each
+   (a) evaluated through the eval step at its test batch 8 (32 and 16
+   frames at 256^2) with the verb and noun labels, 2 warm-up and 5 timed
+   batches (ms, clips/s, the joint and per-head errors); (b) trained
+   through the dual-label step at the configs' batch 8 (32 and 16
+   frames at 224^2; an OOM fails the phase): 2 warm-up and 5
+   timed steps, step ms, clips/s, peak memory, every parameter and
+   running stat moved. Then SlowFast's run list (``EPIC_RUN_OPTS``:
+   train, val, test, the 10 x 3-view test on synthetic clips; every step's
+   log line with the per-head errors, the tests' with the verb, noun and
+   action accuracies). Then with TF32 off, for three weight seeds: (c) 2
+   clips on the card against the CPU (``EPIC_AGREEMENT_LIMITS``) and (d)
+   one float64 train step's loss, running stats and worst gradient leaf
+   (``FP64_STEP_LIMITS``); the controls, SlowFast's lateral
+   fusion convs zeroed and CSN's depthwise convs cut to (1, 3, 3), must
+   break (c)'s limits and (d)'s gradients'. K1-K4 must launch no time in
+   the phase.
+15. S3D-G: (a) served by ``InferenceEngine`` at the HiCo++ 32 x 224^2
+   geometry (``S3DG_SERVE``, batch 8, requests of 1, 3 and 8 clips); (b)
+   trained as the HiCo HMDB51 fine-tune (``S3DG_TRAIN``, 16 x 112^2) at
+   the config's batch 16, both
+   with ``TRAIN.CHECKPOINT_FILE_PATH ""``, TF32 convolutions; then with
+   TF32 off, for three seeds, (c) scores and features at 32 x 224^2 and
+   (d) one float64 step at 16 x 112^2 against the CPU
+   (``S3DG_AGREEMENT_LIMITS``, ``FP64_STEP_LIMITS``), which a
+   control with every ``SelfGating`` bypassed must break (in (d) the
+   gradients' limit). K1-K4 must
+   launch no time in the phase.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -203,8 +234,8 @@ launches as ``test_launches`` and the train run's (a) as
 ``train_run_launches``; under ``l14`` each L/14 shape's numbers with the
 l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
 ``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
-under ``zoo`` each zoo shape's numbers; ``tada_launches`` the tada
-phase's (0);
+under ``zoo`` each zoo shape's numbers; ``tada_launches``,
+``epic_launches`` and ``s3dg_launches`` those phases' (0);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -443,14 +474,22 @@ CLASSIFY_FRAME_HW = (240, 320)
 # momentum); the LR schedule's epoch as K400's ~240k training clips at 16
 TADA = "configs/projects/tada/k400/tada2d_8x8.yaml"
 TADA_SERVE_BATCH = 8
-TADA_AGREEMENT_CLIPS = 2
 TADA_STEPS_PER_EPOCH = 15000
-# card against CPU, fp32 with TF32 off: limits 3 times the worst H100
-# reading over the three seeds (PERF.md); the route-bypass control must
-# break them
+# card against CPU, 3 weight seeds (PERF.md, section 6): scores and
+# features in fp32 with TF32 off, limits 3 times the worst H100 reading;
+# the control (every route function bypassed) must break them
 TADA_AGREEMENT_LIMITS = {"max_abs_score_diff": 4.7e-5, "feature_rel_l2": 7.7e-4}
-TADA_TRAIN_AGREEMENT_LIMITS = {"loss_rel_diff": 1.7e-6, "stats_rel_l2": 1.45e-6,
-                               "grad_rel_l2": 0.125}
+# every conv model's train step, card against CPU, in float64 on both
+# sides: the loss, the running stats and the worst gradient leaf, each
+# leaf's error relative to its own norm or to GRAD_FLOOR times the
+# largest leaf's where that is larger (a gradient that is 0 in exact
+# arithmetic, as a conv bias before a BatchNorm, is rounding: TAda2D's
+# route-function biases read 4.9e-8 at a floor of 1e-8). The limits were
+# set before the card's first reading (PERF.md, section 6). Each model's
+# control must break the gradients' limit.
+GRAD_FLOOR = 1e-6
+FP64_STEP_LIMITS = {"loss_rel_diff": 1e-10, "stats_rel_l2": 1e-10,
+                    "max_grad_rel_err": 1e-7}
 # the run list: 2 fold-epochs of 3 steps (48 synthetic clips at 16), a
 # val eval and a checkpoint after each, the test of 2 videos in 1 and in
 # 10 x 3 views; a hundredth of the config's LR, since these 6 steps run
@@ -462,6 +501,49 @@ TADA_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.NUM_SAMPLES_LIMIT", "48",
                  "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.EVAL_PERIOD", "1",
                  "LOG_MODEL_INFO", "false", "LOG_CONFIG_INFO", "false"]
 TADA_RESUME_FACTOR = 3.0
+# the epic phase: SlowFast R50 8x8 and ir-CSN-152 on EPIC-KITCHENS-100
+# with the dual verb/noun heads (97 and 300 classes) at full width, fp32,
+# SGD with Nesterov momentum: trained at the configs' batch 8 (32 and 16
+# frames at 224^2), evaluated at their test batch 8 (256^2); the LR
+# schedule's epoch as EPIC-100's 67,217 training segments at 8
+EPIC = {"slowfast": "configs/projects/tada/slowfast_ek100.yaml",
+        "csn": "configs/projects/tada/csn_ek100.yaml"}
+EPIC_STEPS_PER_EPOCH = 8402
+CONV_WARMUP = 2
+CONV_TIMED = 5
+CONV_AGREEMENT_CLIPS = 2
+# card against CPU, 3 weight seeds, as TAda's: scores (each head's) and
+# features in fp32 with TF32 off, limits 3 times the worst H100 reading;
+# one float64 step within FP64_STEP_LIMITS; the control named per model
+# must break the first, and the second's gradients
+EPIC_CONTROLS = {"slowfast": "fusion", "csn": "depthwise"}
+EPIC_AGREEMENT_LIMITS = {
+    "slowfast": {"max_abs_score_diff": 2.7e-6, "feature_rel_l2": 2.2e-5},
+    "csn": {"max_abs_score_diff": 1.6e-4, "feature_rel_l2": 8.0e-4}}
+# the run list of slowfast_ek100 on synthetic clips: 2 fold-epochs of 2
+# steps at batch 8, a val eval and a checkpoint after each, the test of 2
+# videos in 1 and in 10 x 3 views; each step's log line carries the
+# per-head errors. The config's train jitter, the base's [168, 224]
+# under its crop of 224, gives clips of several sizes, which neither
+# package's loader can batch (ROADMAP.md C): TAda's [256, 320] here
+EPIC_RUN_OPTS = ["DATA.SYNTHETIC", "true", "DATA.TRAIN_JITTER_SCALES",
+                 "[256, 320]", "TRAIN.NUM_SAMPLES_LIMIT", "16",
+                 "TEST.NUM_SAMPLES_LIMIT", "2", "OPTIMIZER.MAX_EPOCH", "2",
+                 "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.EVAL_PERIOD", "1",
+                 "LOG_PERIOD", "1", "LOG_MODEL_INFO", "false",
+                 "LOG_CONFIG_INFO", "false"]
+# the s3dg phase: S3D-G (9.15 M weights, 1024 features, fp32) served at
+# the HiCo++ 32 x 224^2 geometry at batch 8, and trained as the HiCo
+# HMDB51 fine-tune (16 x 112^2, batch 16, 51 classes, dropout 0.5), both
+# from random weights (TRAIN.CHECKPOINT_FILE_PATH ""); the epoch as
+# HMDB51 split 1's 3,570 training clips at 16
+S3DG_SERVE = "configs/projects/hico++/ft-hmdb51/ft_hico++_uk400_s3dg_32x224.yaml"
+S3DG_TRAIN = "configs/projects/hico/ft_s3dg_hmdb.yaml"
+S3DG_OPTS = ["TRAIN.CHECKPOINT_FILE_PATH", ""]
+S3DG_SERVE_BATCH = 8
+S3DG_STEPS_PER_EPOCH = 224
+# as EPIC's; the control bypasses every SelfGating
+S3DG_AGREEMENT_LIMITS = {"max_abs_score_diff": 2.7e-6, "feature_rel_l2": 2.2e-4}
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -1539,18 +1621,21 @@ def _step_grads(model, cfg, batch, text):
     return float(metrics["loss"]), grads
 
 
-def _grad_diff(ref, other):
+def _grad_diff(ref, other, floor=0.0):
     """Loss and per-tensor gradient agreement of ``other`` with ``ref``;
-    tensors whose gradient is zero on both sides are counted apart."""
+    tensors whose gradient is zero on both sides are counted apart. A
+    tensor's error is relative to its norm in ``ref``, or to ``floor``
+    times the largest such norm where that is larger."""
     (loss_r, g_r), (loss_o, g_o) = ref, other
     rel, cos, zero = {}, {}, []
+    least = floor * max(float(b.norm()) for b in g_r.values())
     for k, b in g_r.items():
         a = g_o[k]
         na, nb = float(a.norm()), float(b.norm())
         if na == 0.0 and nb == 0.0:
             zero.append(k)
             continue
-        rel[k] = float((a - b).norm()) / max(nb, 1e-300)
+        rel[k] = float((a - b).norm()) / max(nb, least, 1e-300)
         cos[k] = float((a * b).sum()) / max(na * nb, 1e-300)
     worst_rel = max(rel, key=rel.get)
     worst_cos = min(cos, key=cos.get)
@@ -3295,17 +3380,17 @@ def zoo(repo, card):
     return launches
 
 
-# ----------------------------- the tada phase -----------------------------
+# --------------------------- the conv-family phases ---------------------------
 
 
-def _tada_cfg(repo, *opts):
+def _conv_cfg(repo, path, *opts):
     from dist_tpu_torch.config import load_config
 
-    return load_config(os.path.join(repo, TADA), list(opts),
+    return load_config(os.path.join(repo, path), list(opts),
                        make_output_dir=False)
 
 
-def _tada_clips(cfg, n, seed, crop=None):
+def _conv_clips(cfg, n, seed, crop=None):
     """``n`` seeded uint8 clips (n, T, S, S, 3) on the CPU, S the test
     crop unless ``crop``."""
     import torch
@@ -3317,7 +3402,7 @@ def _tada_clips(cfg, n, seed, crop=None):
                          dtype=torch.int32).to(torch.uint8)
 
 
-def _tada_draw(module, seed, video):
+def _draw_conv_weights(module, seed, video):
     """Weights away from their init: every BatchNorm's scale in [0.5,
     1.5) (``b_avgpool_bn``'s included) and bias N(0, 0.1), the route
     functions' zero-init ``b`` He-scaled, from a CPU generator seeded with
@@ -3377,21 +3462,22 @@ def _rel_l2(got, want):
                  / torch.linalg.vector_norm(want))
 
 
-def _tada_serve(repo, problems):
-    """``InferenceEngine`` on TAda2D-R50 at full width, batch 8: requests
-    of 1, 3 and 8 seeded clips of 8 x 256^2, TF32 as the port runs it."""
+def _conv_serve(cfg, batch_size, problems, what):
+    """``InferenceEngine`` on a conv-family config at ``batch_size``
+    (weights from ``RANDOM_SEED`` drawn by ``_draw_conv_weights``):
+    requests of 1, 3 and 8 seeded clips at the config's test geometry,
+    then ``TIMED_REPEATS`` of the last."""
     import numpy as np
     import torch
     from dist_tpu_torch.serving.engine import InferenceEngine
 
-    cfg = _tada_cfg(repo)
     seed = int(cfg.RANDOM_SEED)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, batch_size=TADA_SERVE_BATCH)
-    _tada_draw(engine.model.module, seed,
-               _prep(cfg, _tada_clips(cfg, TADA_SERVE_BATCH, seed),
-                     engine.device))
+    engine = InferenceEngine(cfg, batch_size=batch_size)
+    _draw_conv_weights(engine.model.module, seed,
+                       _prep(cfg, _conv_clips(cfg, batch_size, seed),
+                             engine.device))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3408,7 +3494,7 @@ def _tada_serve(repo, problems):
         if scores.shape != (n, engine.num_classes) or \
                 not np.isfinite(scores).all() or \
                 not np.allclose(scores.sum(axis=1), 1.0, atol=1e-4):
-            problems.append(f"serving: scores {scores.shape} of a request "
+            problems.append(f"{what}: scores {scores.shape} of a request "
                             f"of {n}, sums {scores.sum(axis=1)}")
     steady = []
     for _ in range(TIMED_REPEATS):
@@ -3418,6 +3504,7 @@ def _tada_serve(repo, problems):
     steady.sort()
     b = SERVE_REQUESTS[-1]
     return {"classes": engine.num_classes, "batch_size": engine.batch_size,
+            "frames": engine.num_frames, "crop": engine.crop,
             "buckets": engine.buckets(), "build_s": build_s,
             "warmup_s": warmup_s, "request_clips": list(SERVE_REQUESTS),
             "request_ms": latencies, "batch8_ms": steady,
@@ -3425,23 +3512,6 @@ def _tada_serve(repo, problems):
             "batch8_ms_min": steady[0],
             "clips_per_s": b * 1e3 / steady[len(steady) // 2],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-
-
-class _RouteBypassed:
-    """The control: every route function returns ``alpha = 1``."""
-
-    def __enter__(self):
-        import torch
-        from dist_tpu_torch.models.branches import tada
-
-        self._forward = tada.RouteFuncMLP.forward
-        tada.RouteFuncMLP.forward = lambda mod, x: torch.ones(
-            x.shape[:3] + (1, 1), device=x.device)
-
-    def __exit__(self, *exc):
-        from dist_tpu_torch.models.branches import tada
-
-        tada.RouteFuncMLP.forward = self._forward
 
 
 class _ExplicitBatchNorm:
@@ -3477,81 +3547,108 @@ class _ExplicitBatchNorm:
         BatchNorm._normalise = self._normalise
 
 
-def _tada_agree(repo, problems):
-    """For ``AGREEMENT_SEEDS`` weight seeds, one batch of 2 clips on the
-    card against the CPU, both fp32 with TF32 off: the max abs difference
-    of the scores and the relative L2 of the pooled features, held to
-    ``TADA_AGREEMENT_LIMITS``; the control (the route function bypassed
-    on the card) must break them."""
-    import torch
-    from dist_tpu_torch.models.base.models import build_model
-
-    cfg = _tada_cfg(repo)
-    readings, controls = [], []
-    for i in range(AGREEMENT_SEEDS):
-        seed = int(cfg.RANDOM_SEED) + i
-        clips = _tada_clips(cfg, TADA_AGREEMENT_CLIPS, 100 + seed)
-        cpu = build_model(cfg, device="cpu", seed=seed)
-        _tada_draw(cpu.module, seed, _prep(cfg, clips, "cpu"))
-        card = build_model(cfg, seed=seed)
-        card.module.load_state_dict(cpu.module.state_dict())
-        with torch.no_grad():
-            want, wfeat = cpu.apply({"video": _prep(cfg, clips, "cpu")})
-            video = _prep(cfg, clips, card.device)
-            got, feat = card.apply({"video": video})
-            with _RouteBypassed():
-                bgot, bfeat = card.apply({"video": video})
-        readings.append({"seed": seed,
-                         "max_abs_score_diff": float((got.cpu() - want)
-                                                     .abs().max()),
-                         "feature_rel_l2": _rel_l2(feat, wfeat),
-                         "max_score": float(want.max())})
-        controls.append({"seed": seed,
-                         "max_abs_score_diff": float((bgot.cpu() - want)
-                                                     .abs().max()),
-                         "feature_rel_l2": _rel_l2(bfeat, wfeat)})
-        del cpu, card
-        torch.cuda.empty_cache()
-    for r in readings:
-        if _breaches(r, TADA_AGREEMENT_LIMITS):
-            problems.append(f"agreement: seed {r['seed']} "
-                            f"{_breaches(r, TADA_AGREEMENT_LIMITS)}")
-    for c in controls:
-        if not _breaches(c, TADA_AGREEMENT_LIMITS):
-            problems.append(f"agreement: the control of seed {c['seed']} "
-                            "is within the limits")
-    return {"readings": readings, "controls": controls,
-            "limits": TADA_AGREEMENT_LIMITS}
-
-
 def _bn_stats(module):
     return {k: v.detach().clone() for k, v in module.state_dict().items()
             if k.endswith("running_mean") or k.endswith("running_var")}
 
 
-def _tada_train(repo, problems):
-    """The config's train step at full width (batch 16, fp32, SGD with
-    Nesterov momentum, its cosine LR with warm-up, dropout 0.5), TF32 as
-    the port runs it: 2 warm-up and 5 timed steps on seeded clips made on
-    the card. Every parameter and every running stat moves; then one step
-    under ``BN.FREEZE true`` moves the parameters and no running stat;
-    then 3 steps with BatchNorm through a rank's explicit expression
-    (``_ExplicitBatchNorm``), timed beside."""
+def _conv_batches(cfg, n, seed, b, crop):
+    """``n`` seeded batches of ``b`` uint8 clips (b, T, crop, crop, 3) made
+    on the card, with labels; for a dual head the verb and noun labels
+    too (``labels`` the verb's, as the EPIC dataset gives it)."""
     import torch
-    from dist_tpu_torch.models.base.models import VideoModel, build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = int(cfg.DATA.NUM_INPUT_FRAMES)
+    nc = cfg.VIDEO.HEAD.NUM_CLASSES
+    dual = isinstance(nc, (list, tuple))
+    out = []
+    for _ in range(n):
+        batch = {"video": torch.randint(0, 256, (b, t, crop, crop, 3),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32).to(torch.uint8)}
+        labels = [torch.randint(0, int(c), (b,), generator=gen, device="cuda")
+                  for c in (nc if dual else [nc])]
+        batch["labels"] = labels[0]
+        if dual:
+            batch["label_verb"], batch["label_noun"] = labels
+        out.append(batch)
+    return out
+
+
+def _heads(preds):
+    """{head: scores} of a dict or a single head's predictions."""
+    return preds if isinstance(preds, dict) else {"scores": preds}
+
+
+def _conv_eval(cfg, seed, problems, what):
+    """The eval step at the config's test geometry and batch on seeded
+    clips (weights from ``seed``, drawn by ``_draw_conv_weights``):
+    ``CONV_WARMUP`` untimed and ``CONV_TIMED`` timed batches; ms per batch,
+    clips/s, peak memory; each head's scores finite, rows summing to 1,
+    and with verb and noun labels the joint errors."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.tasks.state import make_eval_step
+
+    b, crop = int(cfg.TEST.BATCH_SIZE), int(cfg.DATA.TEST_CROP_SIZE)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    batches = _conv_batches(cfg, CONV_WARMUP + CONV_TIMED, seed, b, crop)
+    _draw_conv_weights(model.module, seed, _prep(cfg, batches[0]["video"][:4],
+                                                 model.device))
+    step = make_eval_step(model, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for name, scores in _heads(out["preds"]).items():
+        if scores.shape[0] != b or not bool(torch.isfinite(scores).all()) or \
+                not torch.allclose(scores.sum(-1), torch.ones(b, device=scores.device),
+                                   atol=1e-4):
+            problems.append(f"{what} eval: {name} scores {tuple(scores.shape)}")
+    errors = {k: float(v) for k, v in out.items() if k.endswith(("_err",
+              "_verb", "_noun"))}
+    if "label_verb" in batches[0] and not {"top1_err", "top1_err_verb",
+                                            "top5_err_noun"} <= set(errors):
+        problems.append(f"{what} eval: errors {sorted(errors)}")
+    timed = sorted(times[CONV_WARMUP:])
+    return {"batch_size": b, "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "crop": crop, "build_s": build_s, "batch_ms": times,
+            "batch_ms_median": timed[len(timed) // 2],
+            "batch_ms_min": timed[0],
+            "clips_per_s": b * 1e3 / timed[len(timed) // 2],
+            "heads": {k: list(v.shape) for k, v in _heads(out["preds"]).items()},
+            "errors": errors,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _conv_train_steps(cfg, seed, steps_per_epoch, problems, what):
+    """The config's train step at its batch (an OOM fails the phase):
+    ``CONV_WARMUP`` warm-up and ``CONV_TIMED`` timed steps on seeded clips
+    made on the card; every parameter and every running stat moves, the
+    losses are finite. Returns the record and the run (model, optimizer,
+    LR, state, step, batches) for a caller's further steps."""
+    import types
+
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
     from dist_tpu_torch.optim.optimizer import construct_optimizer
     from dist_tpu_torch.tasks.state import create_train_state, make_train_step
 
-    cfg = _tada_cfg(repo)
-    seed = int(cfg.RANDOM_SEED)
+    b = int(cfg.TRAIN.BATCH_SIZE)
     t0 = time.perf_counter()
-    model = build_model(cfg)
-    batches = _train_batches(cfg, TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS + 1,
-                             seed)
-    _tada_draw(model.module, seed, _prep(cfg, batches[-1]["video"][:4],
-                                         model.device))
-    optimizer, lr_fn = construct_optimizer(cfg, model.module,
-                                           TADA_STEPS_PER_EPOCH)
+    model = build_model(cfg, seed=seed)
+    batches = _conv_batches(cfg, CONV_WARMUP + CONV_TIMED, seed + 1, b,
+                            int(cfg.DATA.TRAIN_CROP_SIZE))
+    _draw_conv_weights(model.module, seed, _prep(
+        cfg, batches[-1]["video"][:4], model.device))
+    optimizer, lr_fn = construct_optimizer(cfg, model.module, steps_per_epoch)
     state = create_train_state(model, optimizer)
     step = make_train_step(model, cfg, optimizer, lr_fn)
     torch.cuda.synchronize()
@@ -3560,117 +3657,285 @@ def _tada_train(repo, problems):
     before = {k: p.detach().clone() for k, p in params.items()}
     stats = _bn_stats(model.module)
     torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    for batch in batches[:-1]:
+    times, metrics = [], []
+    for batch in batches:
         t0 = time.perf_counter()
-        metrics = step(state, batch)
+        m = step(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+        metrics.append({k: float(v) for k, v in m.items()})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in metrics]
     if not all(math.isfinite(v) for v in losses):
-        problems.append(f"train: losses {losses}")
+        problems.append(f"{what} train: losses {losses}")
     unmoved = [k for k, p in params.items() if torch.equal(p, before[k])]
-    if unmoved:
-        problems.append(f"train: parameters that did not move: {unmoved}")
-    after = _bn_stats(model.module)
-    still = [k for k in stats if torch.equal(after[k], stats[k])]
-    if still:
-        problems.append(f"train: running stats that did not move: {still}")
+    still = [k for k, v in _bn_stats(model.module).items()
+             if torch.equal(v, stats[k])]
+    if unmoved or still:
+        problems.append(f"{what} train: {len(unmoved)} parameters and "
+                        f"{len(still)} running stats did not move")
+    if "label_verb" in batches[0] and not {
+            "top1_err_verb", "top5_err_noun", "loss_verb_class",
+            "loss_noun_class"} <= set(metrics[-1]):
+        problems.append(f"{what} train: metrics {sorted(metrics[-1])}")
+    timed = sorted(times[CONV_WARMUP:])
+    rec = {"batch_size": b, "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+           "crop": int(cfg.DATA.TRAIN_CROP_SIZE),
+           "optimizer": cfg.OPTIMIZER.OPTIM_METHOD,
+           "nesterov": bool(cfg.OPTIMIZER.NESTEROV),
+           "param_groups": {g["group"]: len(g["params"])
+                            for g in optimizer.param_groups},
+           "params": sum(p.numel() for p in params.values()),
+           "build_s": build_s, "step_ms": times, "losses": losses,
+           "lr": [lr_fn(i) for i in range(len(times))],
+           "last_metrics": metrics[-1],
+           "step_ms_median": timed[len(timed) // 2],
+           "step_ms_min": timed[0],
+           "clips_per_s": b * 1e3 / timed[len(timed) // 2],
+           "peak_mem_gb": peak}
+    run = types.SimpleNamespace(model=model, optimizer=optimizer, lr_fn=lr_fn,
+                                state=state, step=step, batches=batches)
+    return rec, run
+
+
+def _tada_train(repo, problems):
+    """``_conv_train_steps`` on TAda2D-R50 (batch 16, fp32, SGD with
+    Nesterov momentum, its cosine LR with warm-up, dropout 0.5), TF32 as
+    the port runs it; then one step under ``BN.FREEZE true`` moves the
+    parameters and no running stat; then 3 steps with BatchNorm through a
+    rank's explicit expression (``_ExplicitBatchNorm``), timed beside."""
+    import torch
+    from dist_tpu_torch.models.base.models import VideoModel
+    from dist_tpu_torch.tasks.state import make_train_step
+
+    cfg = _conv_cfg(repo, TADA)
+    rec, run = _conv_train_steps(cfg, int(cfg.RANDOM_SEED),
+                                 TADA_STEPS_PER_EPOCH, problems, "tada")
+    params = dict(run.model.module.named_parameters())
+    after = _bn_stats(run.model.module)
     # BN.FREEZE: the same module and optimizer, one more step
-    frozen_cfg = _tada_cfg(repo, "BN.FREEZE", "true")
-    frozen = VideoModel(module=model.module, head=None, cfg=frozen_cfg)
+    frozen_cfg = _conv_cfg(repo, TADA, "BN.FREEZE", "true")
+    frozen = VideoModel(module=run.model.module, head=None, cfg=frozen_cfg)
     before = {k: p.detach().clone() for k, p in params.items()}
-    make_train_step(frozen, frozen_cfg, optimizer, lr_fn)(state, batches[-1])
-    moved = [k for k, v in _bn_stats(model.module).items()
+    make_train_step(frozen, frozen_cfg, run.optimizer, run.lr_fn)(
+        run.state, run.batches[-1])
+    moved = [k for k, v in _bn_stats(run.model.module).items()
              if not torch.equal(v, after[k])]
     if moved or all(torch.equal(p, before[k]) for k, p in params.items()):
-        problems.append(f"train: BN.FREEZE moved {len(moved)} running "
+        problems.append(f"tada train: BN.FREEZE moved {len(moved)} running "
                         "stats, or no parameter")
     # the same steps with a rank's BatchNorm expression, timed beside them
     explicit = []
     with _ExplicitBatchNorm():
-        for batch in batches[:TRAIN_WARMUP_STEPS + 3]:
+        for batch in run.batches[:CONV_WARMUP + 3]:
             t0 = time.perf_counter()
-            step(state, batch)
+            run.step(run.state, batch)
             torch.cuda.synchronize()
             explicit.append((time.perf_counter() - t0) * 1e3)
-    explicit = sorted(explicit[TRAIN_WARMUP_STEPS:])
-    timed = sorted(times[TRAIN_WARMUP_STEPS:])
-    b = int(cfg.TRAIN.BATCH_SIZE)
-    return {"batch_size": b, "optimizer": cfg.OPTIMIZER.OPTIM_METHOD,
-            "nesterov": bool(cfg.OPTIMIZER.NESTEROV),
-            "param_groups": {g["group"]: len(g["params"])
-                             for g in optimizer.param_groups},
-            "params": sum(p.numel() for p in params.values()),
-            "build_s": build_s, "step_ms": times, "losses": losses,
-            "lr": [lr_fn(i) for i in range(len(times))],
-            "step_ms_median": timed[len(timed) // 2],
-            "step_ms_min": timed[0],
-            "clips_per_s": b * 1e3 / timed[len(timed) // 2],
-            "peak_mem_gb": peak, "bn_freeze_moved_stats": len(moved),
-            "explicit_bn_step_ms": explicit,
-            "explicit_bn_step_ms_median": explicit[len(explicit) // 2]}
+    explicit = sorted(explicit[CONV_WARMUP:])
+    rec.update(bn_freeze_moved_stats=len(moved), explicit_bn_step_ms=explicit,
+               explicit_bn_step_ms_median=explicit[len(explicit) // 2])
+    return rec
 
 
-def _tada_train_agree(repo, problems):
-    """One train step (dropout 0, so that the two devices draw no
-    masks) on 2 clips of 8 x 224^2 from the same weights, card against
-    CPU, fp32 with TF32 off: the loss's relative difference, the relative
-    L2 of all running stats after the step and of all gradients together,
-    held to ``TADA_TRAIN_AGREEMENT_LIMITS``. The gradients of this random
-    net carry the convolutions' rounding amplified (cuDNN's algorithms
-    against oneDNN's), so their limit is loose; the control (the route
-    functions bypassed on the card) must break it."""
+class _Control:
+    """A control of an agreement check, on the card's module: ``fusion``
+    zeroes every lateral fusion conv (SlowFast), ``depthwise`` zeroes the
+    outer temporal taps of every depthwise conv (ir-CSN's ``b``: a (3, 3,
+    3) conv made (1, 3, 3)), ``gating`` bypasses every ``SelfGating``
+    (S3D-G), ``route`` makes every TAda route function return ``alpha =
+    1``. The weights and forwards are restored on exit."""
+
+    def __init__(self, module, kind):
+        self.module, self.kind = module, kind
+
+    def __enter__(self):
+        import torch
+        from dist_tpu_torch.models.backbones import s3dg, slowfast
+        from dist_tpu_torch.models.branches import tada
+
+        self._saved, self._forward = [], None
+        bypass = {"gating": (s3dg.SelfGating, lambda mod, x: x),
+                  "route": (tada.RouteFuncMLP, lambda mod, x: torch.ones_like(
+                      x[:, :, :, :1, :1]))}
+        if self.kind in bypass:
+            cls, forward = bypass[self.kind]
+            self._forward = (cls, cls.forward)
+            cls.forward = forward
+            return self
+        for m in self.module.modules():
+            if self.kind == "fusion" and isinstance(m, slowfast.FuseFastToSlow):
+                w, taps = m.conv_f2s.weight, slice(None)
+            elif self.kind == "depthwise" and isinstance(
+                    m, torch.nn.Conv3d) and m.groups > 1 and \
+                    m.weight.shape[2] == 3:
+                w, taps = m.weight, [0, 2]
+            else:
+                continue
+            self._saved.append((w, w.detach().clone()))
+            with torch.no_grad():
+                w[:, :, taps] = 0.0
+        if not self._saved:
+            raise AssertionError(f"control {self.kind}: nothing to change")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self._forward is not None:
+            cls, forward = self._forward
+            cls.forward = forward
+        with torch.no_grad():
+            for w, saved in self._saved:
+                w.copy_(saved)
+
+
+def _score_diff(got, want):
+    return max(float((g.cpu() - w).abs().max()) for g, w in
+               zip(_heads(got).values(), _heads(want).values()))
+
+
+def _conv_agree(cfg, control, limits, problems, what):
+    """For ``AGREEMENT_SEEDS`` weight seeds, ``CONV_AGREEMENT_CLIPS`` clips
+    at the test geometry on the card against the CPU, both fp32 with TF32
+    off: the largest score difference over the heads and the pooled
+    features' relative L2, held to ``limits``; the ``control`` on the card
+    must break them."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+
+    readings, controls = [], []
+    for i in range(AGREEMENT_SEEDS):
+        seed = int(cfg.RANDOM_SEED) + i
+        clips = _conv_clips(cfg, CONV_AGREEMENT_CLIPS, 100 + seed)
+        cpu = build_model(cfg, device="cpu", seed=seed)
+        _draw_conv_weights(cpu.module, seed, _prep(cfg, clips, "cpu"))
+        card = build_model(cfg, seed=seed)
+        card.module.load_state_dict(cpu.module.state_dict())
+        with torch.no_grad():
+            want, wfeat = cpu.apply({"video": _prep(cfg, clips, "cpu")})
+            video = _prep(cfg, clips, card.device)
+            got, feat = card.apply({"video": video})
+            with _Control(card.module, control):
+                cgot, cfeat = card.apply({"video": video})
+        readings.append({"seed": seed,
+                         "max_abs_score_diff": _score_diff(got, want),
+                         "feature_rel_l2": _rel_l2(feat, wfeat),
+                         "max_score": max(float(v.max()) for v in
+                                          _heads(want).values())})
+        controls.append({"seed": seed,
+                         "max_abs_score_diff": _score_diff(cgot, want),
+                         "feature_rel_l2": _rel_l2(cfeat, wfeat)})
+        del cpu, card
+        torch.cuda.empty_cache()
+    for r in readings:
+        if _breaches(r, limits):
+            problems.append(f"{what} agreement: seed {r['seed']} "
+                            f"{_breaches(r, limits)}")
+    for c in controls:
+        if not _breaches(c, limits):
+            problems.append(f"{what} agreement: the {control} control of "
+                            f"seed {c['seed']} is within the limits")
+    return {"clips": CONV_AGREEMENT_CLIPS,
+            "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "crop": int(cfg.DATA.TEST_CROP_SIZE), "readings": readings,
+            "control": control, "controls": controls, "limits": limits}
+
+
+def _conv_train_agree(cfg, steps_per_epoch, control, problems, what):
+    """For ``AGREEMENT_SEEDS`` weight seeds, one train step (dropout 0, so
+    that the two devices draw no masks) on ``CONV_AGREEMENT_CLIPS`` clips
+    at the train geometry from the same weights, card against CPU, both in
+    float64 (the module cast, the clips normalised on the CPU; for a dual
+    head with the verb and noun labels): the loss's relative difference,
+    the relative L2 of the running stats after the step, and the worst
+    gradient leaf's relative L2 (``_grad_diff`` with ``GRAD_FLOOR``), held
+    to ``FP64_STEP_LIMITS``; the ``control`` on the card must break the
+    gradients' limit."""
+    import contextlib
+
     import torch
     from dist_tpu_torch.models.base.models import build_model
     from dist_tpu_torch.optim.optimizer import construct_optimizer
     from dist_tpu_torch.tasks.state import create_train_state, make_train_step
 
-    cfg = _tada_cfg(repo, "VIDEO.HEAD.DROPOUT_RATE", "0.0")
-    seed = int(cfg.RANDOM_SEED)
-    clips = _tada_clips(cfg, TADA_AGREEMENT_CLIPS, 200 + seed,
-                        crop=cfg.DATA.TRAIN_CROP_SIZE)
-    labels = torch.tensor([3, 141])
-    weights = None
+    limits = FP64_STEP_LIMITS
+    readings, controls = [], []
+    nc = cfg.VIDEO.HEAD.NUM_CLASSES
+    dual = isinstance(nc, (list, tuple))
+    for i in range(AGREEMENT_SEEDS):
+        seed = int(cfg.RANDOM_SEED) + i
+        clips = _conv_clips(cfg, CONV_AGREEMENT_CLIPS, 200 + seed,
+                            crop=cfg.DATA.TRAIN_CROP_SIZE)
+        batch = {"video": _prep(cfg, clips, "cpu").double(),
+                 "labels": torch.tensor([3, 41]) % int(nc[0] if dual else nc)}
+        if dual:
+            batch.update(label_verb=batch["labels"],
+                         label_noun=torch.tensor([7, 250]) % int(nc[1]))
+        ref = build_model(cfg, device="cpu", seed=seed)
+        _draw_conv_weights(ref.module, seed, _prep(cfg, clips, "cpu"))
+        weights = {k: v.double() if v.is_floating_point() else v
+                   for k, v in ref.module.state_dict().items()}
+        del ref
 
-    def one_step(device):
-        nonlocal weights
-        model = build_model(cfg, device=device, seed=seed)
-        if weights is None:
-            _tada_draw(model.module, seed, _prep(cfg, clips, "cpu"))
-            weights = {k: v.clone() for k, v in model.module.state_dict().items()}
-        else:
-            model.module.load_state_dict(weights)
-        optimizer, lr_fn = construct_optimizer(cfg, model.module,
-                                               TADA_STEPS_PER_EPOCH)
-        metrics = make_train_step(model, cfg, optimizer, lr_fn)(
-            create_train_state(model, optimizer),
-            {"video": clips.to(model.device),
-             "labels": labels.to(model.device)})
-        grads = torch.cat([p.grad.detach().flatten().cpu()
-                           for p in model.module.parameters()])
-        stats = torch.cat([v.flatten().cpu() for v in
-                           _bn_stats(model.module).values()])
-        return float(metrics["loss"]), grads, stats
+        def one_step(device, kind=None):
+            model = build_model(cfg, device=device, seed=seed)
+            model.module.double().load_state_dict(weights)
+            optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                                   steps_per_epoch)
+            step = make_train_step(model, cfg, optimizer, lr_fn)
+            device_batch = {k: v.to(model.device) for k, v in batch.items()}
+            # the gradients as the step computed them, read before the
+            # optimizer's step: torch's foreach SGD (CUDA's default) adds
+            # the Nesterov momentum into .grad in place in a group without
+            # weight decay, the CPU's per-tensor SGD does not
+            grads = {}
+            optimizer.register_step_pre_hook(lambda *_: grads.update(
+                {k: p.grad.detach().cpu().clone()
+                 for k, p in model.module.named_parameters()}))
+            with (_Control(model.module, kind) if kind
+                  else contextlib.nullcontext()):
+                metrics = step(create_train_state(model, optimizer),
+                               device_batch)
+            stats = torch.cat([v.flatten().cpu() for v in
+                               _bn_stats(model.module).values()])
+            return float(metrics["loss"]), grads, stats
 
-    def reading(card, cpu):
-        (lg, gg, sg), (lc, gc, sc) = card, cpu
-        return {"loss_rel_diff": abs(lg - lc) / abs(lc),
-                "stats_rel_l2": _rel_l2(sg, sc), "grad_rel_l2": _rel_l2(gg, gc),
-                "grad_cosine": _cosine(gg.numpy(), gc.numpy()), "loss": lc}
+        def reading(card, cpu):
+            (lg, gg, sg), (lc, gc, sc) = card, cpu
+            if not all(g.dtype == torch.float64 for g in gg.values()):
+                problems.append(f"{what} train agreement: a gradient not "
+                                "float64")
+            diff = _grad_diff((lc, gc), (lg, gg), floor=GRAD_FLOOR)
+            return {"seed": seed, "loss_rel_diff": diff["loss_rel_diff"],
+                    "stats_rel_l2": _rel_l2(sg, sc),
+                    "max_grad_rel_err": diff["max_grad_rel_err"],
+                    "worst_rel_param": diff["worst_rel_param"],
+                    "min_grad_cosine": diff["min_grad_cosine"],
+                    "worst_tensors": diff["worst_tensors"],
+                    "grads_rel_l2": _rel_l2(torch.cat(
+                        [g.flatten() for g in gg.values()]), torch.cat(
+                        [g.flatten() for g in gc.values()])),
+                    "loss": lc}
 
-    cpu = one_step("cpu")
-    card = reading(one_step(None), cpu)         # None: the card
-    with _RouteBypassed():
-        control = reading(one_step(None), cpu)
-    if _breaches(card, TADA_TRAIN_AGREEMENT_LIMITS):
-        problems.append(f"train agreement: "
-                        f"{_breaches(card, TADA_TRAIN_AGREEMENT_LIMITS)}")
-    if not _breaches(control, TADA_TRAIN_AGREEMENT_LIMITS):
-        problems.append("train agreement: the control is within the limits")
-    return {"reading": card, "control": control,
-            "limits": TADA_TRAIN_AGREEMENT_LIMITS}
+        cpu = one_step("cpu")
+        readings.append(reading(one_step(None), cpu))     # None: the card
+        controls.append(reading(one_step(None, control), cpu))
+        torch.cuda.empty_cache()
+    for r in readings:
+        if _breaches(r, limits):
+            problems.append(f"{what} train agreement: seed {r['seed']} "
+                            f"{_breaches(r, limits)}")
+    for c in controls:
+        if "max_grad_rel_err" not in dict(_breaches(c, limits)):
+            problems.append(f"{what} train agreement: the {control} control "
+                            f"of seed {c['seed']} leaves the gradients "
+                            "within their limit")
+    return {"clips": CONV_AGREEMENT_CLIPS, "dtype": "float64",
+            "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "crop": int(cfg.DATA.TRAIN_CROP_SIZE), "readings": readings,
+            "control": control, "controls": controls, "limits": limits,
+            "grad_floor": GRAD_FLOOR}
 
 
 def _tada_run(repo, problems):
@@ -3733,7 +3998,7 @@ def _tada_run(repo, problems):
                 and sorted(saved["model_state"]) == sorted(own)):
             problems.append("run list: the checkpoint lacks the head or a "
                             "BatchNorm buffer")
-        clips = _prep(cfg, _tada_clips(cfg, 2, 300), state.model.device)
+        clips = _prep(cfg, _conv_clips(cfg, 2, 300), state.model.device)
         if len(tested) != 2:
             problems.append(f"run list: {len(tested)} test entries")
         for model in tested:
@@ -3782,12 +4047,80 @@ def _tada_run(repo, problems):
     return rec
 
 
-def tada(repo, card):
-    """TAda2D-R50 8x8 K400 at full width through the port's entry points:
-    served, trained and run through the run list with TF32 convolutions
-    as the port runs them, then held to the CPU with TF32 off (scores with
-    a control, one train step). Returns K1-K4's launches in the phase,
-    which must all be 0."""
+def _json_stats(path):
+    """The ``json_stats`` records of a run list's log file."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if "json_stats: " in line:
+                out.append(json.loads(line.split("json_stats: ", 1)[1]))
+    return out
+
+
+def _epic_run(repo, problems):
+    """The run list of ``python -m dist_tpu_torch.run`` on
+    ``slowfast_ek100`` at full width with synthetic clips
+    (``EPIC_RUN_OPTS``), TF32 as the port runs it: train (2 fold-epochs of
+    2 steps at batch 8, a val eval and a checkpoint after each) -> test ->
+    the automatic 10 x 3-view test. Every train step's log line carries
+    the per-head errors and losses, every val line the joint and
+    per-head errors, each test's final line the verb, noun and action
+    accuracies; every test view is counted once."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="epic_run_")
+    argv = ["--cfg", os.path.join(repo, EPIC["slowfast"])] + EPIC_RUN_OPTS \
+        + ["OUTPUT_DIR", tmp]
+    rec = {"overrides": EPIC_RUN_OPTS}
+    try:
+        t0 = time.perf_counter()
+        cfg, (state, single, multi), launches = _run_list(argv)
+        rec["run_list_s"] = time.perf_counter() - t0
+        rec["launches"] = launches
+        logs = {name: _json_stats(os.path.join(tmp, name)) for name in
+                sorted(os.listdir(tmp)) if name.endswith(".log")}
+        train_iters = [r for r in logs.get("training_log.log", [])
+                       if r["_type"] == "train_iter"]
+        vals = [r for r in logs.get("training_log.log", [])
+                if r["_type"] == "val_epoch"]
+        tests = [r for recs in logs.values() for r in recs
+                 if r["_type"] == "test_final_epic"]
+        if state.step != 4 or len(train_iters) != 4 or not all(
+                {"top1_err_verb", "top5_err_noun", "loss_verb_class",
+                 "loss_noun_class"} <= set(r) for r in train_iters):
+            problems.append(f"epic run list: {state.step} steps, train "
+                            f"lines {train_iters[-1:]}")
+        if len(vals) != 2 or not all({"top1_err", "top1_err_verb",
+                                      "top5_err_noun"} <= set(r)
+                                     for r in vals):
+            problems.append(f"epic run list: val lines {vals}")
+        if len(tests) != 2 or not all(
+                {"action_top1_acc", "verb_top1_acc", "noun_top5_acc"} <= set(r)
+                for r in tests):
+            problems.append(f"epic run list: test lines {tests}")
+        for meter, views in ((single, 1), (multi, 30)):
+            if meter.num_clips != views or not meter.seen.all() or \
+                    not all(np.isfinite(v).all()
+                            for v in meter.video_preds.values()):
+                problems.append(f"epic run list: the {views}-view test")
+        rec.update(steps=state.step, train_iter_last=train_iters[-1:],
+                   val_epochs=vals, tests=tests,
+                   test_views=[single.num_clips, multi.num_clips],
+                   test_clips_per_s=[len(m.seen) / m.timing["loop_s"]
+                                     for m in (single, multi)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def _conv_phase(name, card, parts, agreements, **info):
+    """A conv-family phase: ``parts`` (part, fn) run with cuDNN's TF32
+    convolutions as the port runs them, then ``agreements`` with TF32 off;
+    K1-K4's launches zeroed before each and summed; the phase's record
+    (with ``info``) emitted, and an AssertionError for any problem."""
     import logging
 
     import torch
@@ -3795,24 +4128,20 @@ def tada(repo, card):
     t0 = time.perf_counter()
     root = logging.getLogger()
     handlers, level = root.handlers[:], root.level
-    problems, rec = [], {"phase": "tada", "nvidia_smi": card, "config": TADA}
+    problems, rec = [], {"phase": name, "nvidia_smi": card, **info}
     launches = []
     tf32 = torch.backends.cudnn.allow_tf32
+    if not (torch.backends.cudnn.enabled and torch.backends.cudnn.is_available()):
+        raise AssertionError(f"{name}: cuDNN is off or missing")
     try:
-        # cuDNN's default, as the port runs: TF32 convolutions
-        torch.backends.cudnn.allow_tf32 = True
-        for part, fn in (("serving", _tada_serve), ("train", _tada_train),
-                         ("run_list", _tada_run)):
-            counts = _zero_counts()
-            rec[part] = fn(repo, problems)
-            launches.append(counts())
-            launches += rec[part].pop("launches", [])
-            torch.cuda.empty_cache()
-        torch.backends.cudnn.allow_tf32 = False
-        counts = _zero_counts()
-        rec["agreement"] = _tada_agree(repo, problems)
-        rec["train_agreement"] = _tada_train_agree(repo, problems)
-        launches.append(counts())
+        for allow_tf32, todo in ((True, parts), (False, agreements)):
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+            for part, fn in todo:
+                counts = _zero_counts()
+                rec[part] = fn(problems)
+                launches.append(counts())
+                launches += rec[part].pop("launches", [])
+                torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         _restore_logging(handlers, level)
@@ -3825,8 +4154,85 @@ def tada(repo, card):
     rec["pass"] = not problems
     emit(rec)
     if problems:
-        raise AssertionError("tada: " + "; ".join(problems))
+        raise AssertionError(f"{name}: " + "; ".join(problems))
     return total
+
+
+def tada(repo, card):
+    """TAda2D-R50 8x8 K400 at full width through the port's entry points:
+    served, trained and run through the run list with TF32 convolutions
+    as the port runs them, then held to the CPU with TF32 off (scores and
+    features, one float64 train step; the control bypasses every route
+    function). Returns K1-K4's launches in the phase, which must all be
+    0."""
+    cfg = _conv_cfg(repo, TADA)
+    flat = _conv_cfg(repo, TADA, "VIDEO.HEAD.DROPOUT_RATE", "0.0")
+    return _conv_phase(
+        "tada", card,
+        [("serving", lambda p: _conv_serve(cfg, TADA_SERVE_BATCH, p,
+                                           "tada serving")),
+         ("train", lambda p: _tada_train(repo, p)),
+         ("run_list", lambda p: _tada_run(repo, p))],
+        [("agreement", lambda p: _conv_agree(cfg, "route",
+                                             TADA_AGREEMENT_LIMITS, p, "tada")),
+         ("train_agreement", lambda p: _conv_train_agree(
+             flat, TADA_STEPS_PER_EPOCH, "route", p, "tada"))],
+        config=TADA)
+
+
+def epic(repo, card):
+    """SlowFast R50 8x8 (``SlowFastHeadx2``) and ir-CSN-152
+    (``BaseHeadx2``) on EPIC-KITCHENS-100 at full width through the
+    port's entry points: each evaluated through the eval step at its test
+    batch with the verb and noun labels, trained at the configs' batch 8
+    (the dual-label step), held to the CPU with TF32 off (scores and
+    features with a control; one float64 step's loss, running stats and
+    gradients, whose limit the same control must break; SlowFast's
+    control zeroes the lateral fusion convs, CSN's the depthwise convs'
+    outer temporal taps), and SlowFast's run list. Returns K1-K4's
+    launches in the phase, which must all be 0."""
+    cfgs = {k: _conv_cfg(repo, p) for k, p in EPIC.items()}
+    flat = {k: _conv_cfg(repo, p, "VIDEO.HEAD.DROPOUT_RATE", "0.0")
+            for k, p in EPIC.items()}
+    parts, agreements = [], []
+    for k, cfg in cfgs.items():
+        seed = int(cfg.RANDOM_SEED)
+        parts += [(f"{k}_eval", lambda p, cfg=cfg, seed=seed, k=k:
+                   _conv_eval(cfg, seed, p, k)),
+                  (f"{k}_train", lambda p, cfg=cfg, seed=seed, k=k:
+                   _conv_train_steps(cfg, seed, EPIC_STEPS_PER_EPOCH,
+                                     p, k)[0])]
+        agreements += [
+            (f"{k}_agreement", lambda p, cfg=cfg, k=k: _conv_agree(
+                cfg, EPIC_CONTROLS[k], EPIC_AGREEMENT_LIMITS[k], p, k)),
+            (f"{k}_train_agreement", lambda p, k=k: _conv_train_agree(
+                flat[k], EPIC_STEPS_PER_EPOCH, EPIC_CONTROLS[k], p, k))]
+    parts.append(("run_list", lambda p: _epic_run(repo, p)))
+    return _conv_phase("epic", card, parts, agreements)
+
+
+def s3dg(repo, card):
+    """S3D-G through the port's entry points at full width: served by
+    ``InferenceEngine`` at the HiCo++ 32 x 224^2 geometry (batch 8,
+    requests of 1, 3 and 8 clips), trained as the HiCo HMDB51 fine-tune
+    (16 x 112^2) at its batch 16, and held to the CPU with TF32 off
+    (scores and features at 32 x 224^2, one float64 step at 16 x 112^2; the control bypasses every ``SelfGating``).
+    Returns K1-K4's launches in the phase, which must all be 0."""
+    serve_cfg = _conv_cfg(repo, S3DG_SERVE, *S3DG_OPTS)
+    train_cfg = _conv_cfg(repo, S3DG_TRAIN, *S3DG_OPTS)
+    flat = _conv_cfg(repo, S3DG_TRAIN, *S3DG_OPTS,
+                     "VIDEO.HEAD.DROPOUT_RATE", "0.0")
+    seed = int(train_cfg.RANDOM_SEED)
+    parts = [("serving", lambda p: _conv_serve(serve_cfg, S3DG_SERVE_BATCH,
+                                               p, "s3dg")),
+             ("train", lambda p: _conv_train_steps(
+                 train_cfg, seed, S3DG_STEPS_PER_EPOCH, p, "s3dg")[0])]
+    agreements = [
+        ("agreement", lambda p: _conv_agree(serve_cfg, "gating",
+                                            S3DG_AGREEMENT_LIMITS, p, "s3dg")),
+        ("train_agreement", lambda p: _conv_train_agree(
+            flat, S3DG_STEPS_PER_EPOCH, "gating", p, "s3dg"))]
+    return _conv_phase("s3dg", card, parts, agreements)
 
 
 def _instance(mangled):
@@ -4006,6 +4412,8 @@ def main():
         tools_launches = tools(repo)
         zoo_launches = zoo(repo, card)
         tada_launches = tada(repo, card)
+        epic_launches = epic(repo, card)
+        s3dg_launches = s3dg(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -4079,6 +4487,8 @@ def main():
             entry["zoo_launches"] = {part: c[name]
                                      for part, c in zoo_launches.items()}
             entry["tada_launches"] = tada_launches[name]
+            entry["epic_launches"] = epic_launches[name]
+            entry["s3dg_launches"] = s3dg_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -4108,6 +4518,8 @@ def main():
             "zoo_launches": {part: c["attention_qkv_rows"]
                              for part, c in zoo_launches.items()},
             "tada_launches": tada_launches["attention_qkv_rows"],
+            "epic_launches": epic_launches["attention_qkv_rows"],
+            "s3dg_launches": s3dg_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

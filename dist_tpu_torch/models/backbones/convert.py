@@ -116,7 +116,8 @@ def state_dict_from_jax(variables, module) -> Dict[str, np.ndarray]:
     ``(D, H, W, I, O)`` -> ``(O, I, D, H, W)`` (a grouped conv keeps ``I
     = C / groups``), dense kernels ``(I, O)`` -> ``(O, I)``, flax BN
     ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-    ``running_mean``/``running_var``, ``num_batches_tracked`` 0."""
+    ``running_mean``/``running_var``, ``num_batches_tracked`` 0; fp32,
+    or float64 where the JAX leaf is float64."""
     out = {}
     for key, leaf in jax_table(module).items():
         if leaf is None:
@@ -127,5 +128,6 @@ def state_dict_from_jax(variables, module) -> Dict[str, np.ndarray]:
             x = np.transpose(x, (4, 3, 0, 1, 2))
         elif leaf.layout == "dense":
             x = x.T
-        out[key] = np.array(x, np.float32, order="C")
+        wide = np.float64 if x.dtype == np.float64 else np.float32
+        out[key] = np.array(x, wide, order="C")
     return out

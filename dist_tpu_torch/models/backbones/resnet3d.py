@@ -24,7 +24,7 @@ from dist_tpu_torch.models.base.models import (
     BRANCH_REGISTRY,
     STEM_REGISTRY,
 )
-from dist_tpu_torch.models.precision import maybe_bf16_input
+from dist_tpu_torch.models.precision import island_dtype, maybe_bf16_input
 
 _N_CONV_RESNET = {
     10: (1, 1, 1, 1),
@@ -227,7 +227,8 @@ class NonLocal(nn.Module):
         q = self.theta(x).flatten(2).transpose(1, 2)        # (B, N, inner)
         k = self.phi(x).flatten(2)                          # (B, inner, N)
         v = self.g(x).flatten(2).transpose(1, 2)            # (B, N, inner)
-        att = torch.bmm(q.float(), k.float()) * (q.shape[-1] ** -0.5)
+        wide = island_dtype(q)
+        att = torch.bmm(q.to(wide), k.to(wide)) * (q.shape[-1] ** -0.5)
         att = torch.softmax(att, dim=-1)
         out = torch.bmm(att.to(v.dtype), v)
         out = out.transpose(1, 2).reshape(b, -1, t, h, w)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from dist_tpu_torch.models.base.blocks import init_weights
 from dist_tpu_torch.models.base.bn import set_train_mode
+from dist_tpu_torch.models.precision import island_dtype
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
 
@@ -30,9 +31,28 @@ HEAD_REGISTRY = Registry("Head")
 STEM_REGISTRY = Registry("Stem")
 BRANCH_REGISTRY = Registry("Branch")
 
-_NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST "
-               "and ResNet3D families only (ROADMAP.md queue A, item 5: "
-               "other backbones and heads)")
+_NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST, "
+               "ResNet3D, SlowFast and S3D-G families only (ROADMAP.md "
+               "queue A, item 5: other backbones and heads)")
+
+
+def _eval_activation(out, activation):
+    """A head's eval-mode output: softmax or sigmoid in fp32, else as is."""
+    if activation == "softmax":
+        return torch.softmax(out.to(island_dtype(out)), dim=-1)
+    if activation == "sigmoid":
+        return torch.sigmoid(out.to(island_dtype(out)))
+    return out
+
+
+def _pooled(x):
+    """A head's input pooled: a dict's ``features`` (or ``vid_logits``); a
+    5-D map ``(B, C, T, H, W)`` its mean over T, H and W in fp32."""
+    if isinstance(x, dict):
+        x = x.get("features", x.get("vid_logits"))
+    if x.dim() == 5:
+        x = x.mean(dim=(2, 3, 4), dtype=island_dtype(x))
+    return x
 
 
 @HEAD_REGISTRY.register()
@@ -49,20 +69,45 @@ class BaseHead(nn.Module):
         self.out = nn.Linear(dim_in, num_classes)
 
     def forward(self, x):
-        if x.dim() == 5:            # (B, C, T, H, W) feature map
-            x = x.mean(dim=(2, 3, 4), dtype=torch.float32)
-        elif x.dim() > 2:
-            x = x.reshape(x.shape[0], -1).float()
+        x = _pooled(x)
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1).to(island_dtype(x))
         feat = x
         if self.dropout_rate > 0:
             x = F.dropout(x, self.dropout_rate, self.training)
         out = self.out(x)
         if not self.training:
-            if self.activation == "softmax":
-                out = torch.softmax(out.float(), dim=-1)
-            elif self.activation == "sigmoid":
-                out = torch.sigmoid(out.float())
+            out = _eval_activation(out, self.activation)
         return out, feat
+
+
+@HEAD_REGISTRY.register()
+class BaseHeadx2(nn.Module):
+    """The dual verb/noun head for EPIC-KITCHENS (the reference's
+    base_blocks.py:438-506): the pooled feature (a 5-D map's mean in
+    fp32), dropout, the linear layers ``out1`` and ``out2``, softmax (or
+    sigmoid) in fp32 in eval mode. Returns ``({"verb_class",
+    "noun_class"}, pooled features)``."""
+
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0,
+                 activation="softmax"):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.out1 = nn.Linear(dim_in, num_classes[0])
+        self.out2 = nn.Linear(dim_in, num_classes[1])
+
+    def forward(self, x):
+        feat = x = _pooled(x)
+        if self.dropout_rate > 0:
+            x = F.dropout(x, self.dropout_rate, self.training)
+        outs = {}
+        for key, linear in (("verb_class", self.out1),
+                            ("noun_class", self.out2)):
+            o = linear(x)
+            outs[key] = o if self.training else _eval_activation(
+                o, self.activation)
+        return outs, feat
 
 
 class BaseVideoModel(nn.Module):
@@ -92,10 +137,7 @@ class ClipVideoTextIdentity(nn.Module):
         out = x["logits_per_image"] if isinstance(x, dict) else x
         out = out.mean(dim=1)
         if not train:
-            if self.activation == "softmax":
-                out = torch.softmax(out.float(), dim=-1)
-            elif self.activation == "sigmoid":
-                out = torch.sigmoid(out.float())
+            out = _eval_activation(out, self.activation)
         return out, x
 
 
@@ -151,25 +193,34 @@ class VideoModel:
         return self.module.encode_text(tokens)
 
 
-def build_head(cfg):
-    """The configured head: ``ClipVideoTextIdentity`` (no weights) or a
-    ``BaseHead`` over the backbone's last ``NUM_FILTERS``."""
+def build_head(cfg, dim_in=None):
+    """The configured head: ``ClipVideoTextIdentity`` (no weights),
+    ``BaseHead`` or ``BaseHeadx2`` over ``dim_in`` features (default the
+    backbone's last ``NUM_FILTERS``), or a head built from ``cfg`` (the
+    SlowFast heads)."""
     name = cfg.VIDEO.HEAD.NAME
     if not name:
         return None
+    _register_backbones()
     cls = HEAD_REGISTRY.get(name)
     if cls is None:
         raise NotImplementedError(f"head {name!r} {_NOT_PORTED}")
+    if cls is ClipVideoTextIdentity:
+        return cls(activation=cfg.VIDEO.HEAD.ACTIVATION)
+    head = cfg.VIDEO.HEAD
+    common = (float(head.DROPOUT_RATE or 0.0), head.ACTIVATION)
+    dim_in = int(dim_in or cfg.VIDEO.BACKBONE.NUM_FILTERS[-1])
+    if cls is BaseHeadx2:
+        return cls(dim_in, tuple(int(n) for n in head.NUM_CLASSES), *common)
     if cls is BaseHead:
-        return cls(int(cfg.VIDEO.BACKBONE.NUM_FILTERS[-1]),
-                   int(cfg.VIDEO.HEAD.NUM_CLASSES or 0),
-                   float(cfg.VIDEO.HEAD.DROPOUT_RATE or 0.0),
-                   cfg.VIDEO.HEAD.ACTIVATION)
-    return cls(activation=cfg.VIDEO.HEAD.ACTIVATION)
+        return cls(dim_in, int(head.NUM_CLASSES or 0), *common)
+    return cls(cfg)
 
 
 def _register_backbones():
     import dist_tpu_torch.models.backbones.resnet3d  # noqa: F401
+    import dist_tpu_torch.models.backbones.s3dg  # noqa: F401
+    import dist_tpu_torch.models.backbones.slowfast  # noqa: F401
 
 
 def build_backbone_on_meta(cfg) -> nn.Module:
@@ -183,7 +234,7 @@ def build_backbone_on_meta(cfg) -> nn.Module:
         raise NotImplementedError(f"meta-arch {meta_arch!r} {_NOT_PORTED}")
     with torch.device("meta"):
         backbone = builder(cfg)
-        head = build_head(cfg)
+        head = build_head(cfg, getattr(backbone, "out_dim", None))
         if head is not None and next(head.parameters(), None) is not None:
             return BaseVideoModel(backbone, head)
     return backbone

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from dist_tpu_torch.models.base.blocks import Conv3d
 from dist_tpu_torch.models.base.bn import BatchNorm
 from dist_tpu_torch.models.base.models import BRANCH_REGISTRY
+from dist_tpu_torch.models.precision import island_dtype
 
 
 class ZeroConv3d(Conv3d):
@@ -47,8 +48,8 @@ class RouteFuncMLP(nn.Module):
                             padding=(k1 // 2, 0, 0), bias=False)
 
     def forward(self, x):
-        frame = x.mean(dim=(3, 4), keepdim=True, dtype=torch.float32)
-        glob = x.mean(dim=(2, 3, 4), keepdim=True, dtype=torch.float32)
+        frame = x.mean(dim=(3, 4), keepdim=True, dtype=island_dtype(x))
+        glob = x.mean(dim=(2, 3, 4), keepdim=True, dtype=island_dtype(x))
         h = F.relu(self.bn(self.a(frame + self.g(glob))))
         return self.b(h) + 1.0
 
@@ -77,7 +78,7 @@ def avg_pool_same(x, kernel):
     ``x``'s dtype once. Its backward is deterministic, where torch's CUDA
     ``avg_pool3d`` adds overlapping windows' gradients with atomics."""
     pads = [p for k in reversed(kernel) for p in (k // 2, k // 2)]
-    xp = F.pad(x.float(), pads)
+    xp = F.pad(x.to(island_dtype(x)), pads)
     size = [n + 2 * (k // 2) - k + 1 for n, k in zip(x.shape[2:], kernel)]
     out = 0
     for dt in range(kernel[0]):

@@ -25,6 +25,14 @@ def maybe_bf16_input(cfg, x):
     return x
 
 
+def island_dtype(x):
+    """The dtype of an fp32 island over ``x``: fp32, or float64 for a
+    float64 ``x``, so that a model cast to float64 computes in float64
+    throughout."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def fp32_island(fn, x):
-    """``fn(x)`` computed in fp32 and returned in ``x``'s dtype."""
-    return fn(x.float()).to(x.dtype)
+    """``fn(x)`` computed in fp32 (float64 for a float64 ``x``) and
+    returned in ``x``'s dtype."""
+    return fn(x.to(island_dtype(x))).to(x.dtype)

@@ -1,10 +1,13 @@
 """Supervised losses and the loss dispatch (port of the supervised path of
 ``dist_tpu/optim/losses.py``): cross-entropy, soft-target CE (whenever
 mixup/cutmix is on), BCE, MSE and label smoothing; dict-valued labels
-(EPIC verb/noun) sum the per-key losses. Losses are fp32 0-d tensors."""
+(EPIC verb/noun) sum the per-key losses. Losses are fp32 0-d tensors
+(float64 for float64 predictions)."""
 
 import torch
 import torch.nn.functional as F
+
+from dist_tpu_torch.models.precision import island_dtype
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
                "path only (ROADMAP.md queue A, item 5: SSL/HiCo and "
@@ -13,27 +16,33 @@ _NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
 
 def soft_target_cross_entropy(logits, target):
     """sum(-target * log_softmax(x)).mean()."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(_wide(logits), dim=-1)
     return (-target * logp).sum(dim=-1).mean()
+
+
+def _wide(x):
+    """``x`` in fp32, or float64 if it is float64."""
+    return x.to(island_dtype(x))
 
 
 def cross_entropy(logits, labels):
     """Plain CE on integer labels."""
-    return F.cross_entropy(logits.float(), labels.long())
+    return F.cross_entropy(_wide(logits), labels.long())
 
 
 def bce(probs, target):
     eps = 1e-7
-    p = probs.float().clamp(eps, 1 - eps)
+    p = _wide(probs).clamp(eps, 1 - eps)
     return -(target * torch.log(p) + (1 - target) * torch.log(1 - p)).mean()
 
 
 def bce_logit(logits, target):
-    return F.binary_cross_entropy_with_logits(logits.float(), target.float())
+    logits = _wide(logits)
+    return F.binary_cross_entropy_with_logits(logits, target.to(logits.dtype))
 
 
 def mse(pred, target):
-    return ((pred.float() - target) ** 2).mean()
+    return ((_wide(pred) - target) ** 2).mean()
 
 
 _LOSSES = {

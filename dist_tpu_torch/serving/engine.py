@@ -28,6 +28,14 @@ from dist_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
+# the JAX package's engine refuses a dual head at construction too (an
+# assertion, dist_tpu/serving/engine.py); its pointer to the submission
+# task does not apply, since that task is not ported
+_DUAL_HEAD = ("the serving engine serves single-label heads; a dual "
+              "verb/noun head (VIDEO.HEAD.NUM_CLASSES a list) is evaluated "
+              "through the eval step and the test task (python -m "
+              "dist_tpu_torch.run with TRAIN.ENABLE false)")
+
 
 class InferenceEngine:
     """Build once, then ``predict(clips) -> scores``.
@@ -43,7 +51,7 @@ class InferenceEngine:
 
     def __init__(self, cfg, batch_size=8, device=None):
         if isinstance(cfg.VIDEO.HEAD.NUM_CLASSES, (list, tuple)):
-            raise ValueError("the serving engine exposes single-label heads")
+            raise NotImplementedError(_DUAL_HEAD)
         self.cfg = cfg
         self.batch_size = int(batch_size)
         self.num_frames = int(cfg.DATA.NUM_INPUT_FRAMES)

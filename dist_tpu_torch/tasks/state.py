@@ -186,9 +186,11 @@ def make_train_step(model, cfg, optimizer, lr_fn):
 
     ``step(state, batch) -> metrics``, with ``batch`` = {"video": (B, T,
     H, W, 3) uint8 or float, "labels": (B,) int, "text_features":
-    optional}, all on the model's device. It normalises the video, mixes
-    it with draws that are a pure function of (``RANDOM_SEED + 1``,
-    ``state.step``), as the JAX step's ``fold_in(rng, state.step)``, so
+    optional}, and for EPIC's dual heads "label_verb" and "label_noun"
+    (B,) int, all on the model's device. It normalises the video, mixes
+    it (not under the verb/noun labels) with draws that are a pure
+    function of (``RANDOM_SEED + 1``, ``state.step``), as the JAX step's
+    ``fold_in(rng, state.step)``, so
     that a run resumed from a checkpoint draws what an uninterrupted run
     draws; then it runs the forward with ``train=True`` (the module in
     train mode, its BatchNorm on running stats under ``BN.FREEZE``, its
@@ -196,8 +198,13 @@ def make_train_step(model, cfg, optimizer, lr_fn):
     sets each group's LR from ``lr_fn(state.step)``, steps the
     optimizer, updates the EMA copy and
     returns {"loss", "top1_err", "top5_err", "lr"} as 0-d device tensors
-    (the loss parts, if any, beside them). After it, each trainable
-    parameter's ``.grad`` holds this step's gradient."""
+    (the loss parts, if any, beside them). Under the verb/noun labels the
+    errors are the joint action errors, with the per-head ones beside
+    them (``_epic_errors``); dict predictions without them count 0.
+    Each trainable parameter's ``.grad`` holds this step's gradient when
+    the optimizer steps (``optimizer.register_step_pre_hook`` reads it
+    there); after it, torch's foreach SGD, CUDA's default, has added the
+    Nesterov momentum into ``.grad`` in a group without weight decay."""
     if cfg.AUGMENTATION.get("USE_GPU", False):
         raise NotImplementedError(_DEVICE_AUG)
     mixup_on = bool(cfg.AUGMENTATION.MIXUP.ENABLE
@@ -210,8 +217,14 @@ def make_train_step(model, cfg, optimizer, lr_fn):
 
     def step(state, batch):
         video = _prep_video(cfg, batch["video"])
+        epic = "label_verb" in batch
         labels = {"supervised": batch["labels"]}
-        if mc is not None and mc.enabled:
+        if epic:
+            # EPIC's dual verb/noun labels: a dict target, whose losses
+            # are summed per key; no mixup for it, as in the JAX step
+            labels["supervised"] = {"verb_class": batch["label_verb"],
+                                    "noun_class": batch["label_noun"]}
+        if mc is not None and mc.enabled and not epic:
             d = mixup.draw(mc, step_generator(mix_seed, state.step),
                            video.shape[2], video.shape[3])
             video, labels["supervised_mixup"] = mixup.apply(
@@ -243,12 +256,25 @@ def make_train_step(model, cfg, optimizer, lr_fn):
                         state.ema[k].mul_(decay).add_(v, alpha=1.0 - decay)
 
         with torch.no_grad():
-            c1, c5 = topks_correct(preds.detach(), batch["labels"], (1, 5))
-            n = preds.shape[0]
-            metrics = {"loss": loss.detach(),
-                       "top1_err": (1.0 - c1 / n) * 100.0,
-                       "top5_err": (1.0 - c5 / n) * 100.0,
-                       "lr": torch.full((), lr, device=preds.device),
+            head_errs = {}
+            if isinstance(preds, dict):
+                preds = {k: v.detach() for k, v in preds.items()}
+                if epic:
+                    # the joint action errors are the headline ones, the
+                    # per-head errors ride beside them
+                    top1, top5, head_errs = _epic_errors(
+                        preds, batch["label_verb"], batch["label_noun"],
+                        normalized=False)
+                else:
+                    top1 = top5 = torch.zeros((), device=video.device)
+            else:
+                c1, c5 = topks_correct(preds.detach(), batch["labels"], (1, 5))
+                n = preds.shape[0]
+                top1, top5 = (1.0 - c1 / n) * 100.0, (1.0 - c5 / n) * 100.0
+            metrics = {"loss": loss.detach(), "top1_err": top1,
+                       "top5_err": top5,
+                       "lr": torch.full((), lr, device=video.device),
+                       **head_errs,
                        **{k: v.detach() for k, v in parts.items()}}
         state.step += 1
         return metrics

@@ -950,3 +950,139 @@ def test_tiny_tada2d_on_the_card_matches_the_cpu():
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     assert float((sg - sc).norm() / sc.norm()) <= 1e-5
     assert all(fn.launches == 0 for fn in counts)
+
+
+# The conv family beyond TAda2D, tiny, card against CPU (cuDNN's
+# convolutions against oneDNN's): eval scores in fp32 with TF32 off within
+# CONV_SCORE_ATOL (the tiny models' CPU parity tolerance); one train step
+# in float64 on both sides (in fp32 these random deep nets' gradients
+# carry the convolutions' rounding grown with depth, 9.3 % all together
+# on the H100): its loss within CONV_LOSS_RTOL (relative), its running
+# stats within CONV_STATS_REL (relative L2, all together) and every
+# gradient leaf within CONV_GRAD_REL of its own norm (or of GRAD_FLOOR
+# times the largest leaf's, for a gradient that is 0 in exact
+# arithmetic): chip_smoke.py's FP64_STEP_LIMITS, set before the card's
+# first reading.
+CONV_SCORE_ATOL = 2e-4
+CONV_LOSS_RTOL = 1e-10
+CONV_STATS_REL = 1e-10
+CONV_GRAD_REL = 1e-7
+GRAD_FLOOR = 1e-6
+CONV_TINY = {
+    "slowfast": ("configs/projects/tada/slowfast_ek100.yaml",
+                 ["VIDEO.BACKBONE.NUM_FILTERS", "[32, 32, 64, 128, 256]",
+                  "DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "64",
+                  "DATA.TEST_CROP_SIZE", "64", "VIDEO.HEAD.NUM_CLASSES",
+                  "[5, 7]", "VIDEO.HEAD.DROPOUT_RATE", "0.0"], 2),
+    "csn": ("configs/projects/tada/csn_ek100.yaml",
+            ["VIDEO.BACKBONE.DEPTH", "10",
+             "VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 32, 64, 128]",
+             "DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "64",
+             "DATA.TEST_CROP_SIZE", "64", "VIDEO.HEAD.NUM_CLASSES", "[5, 7]",
+             "VIDEO.HEAD.DROPOUT_RATE", "0.0"], 2),
+    "s3dg": ("configs/projects/hico/ft_s3dg_hmdb.yaml",
+             ["DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "32",
+              "DATA.TEST_CROP_SIZE", "32", "VIDEO.HEAD.NUM_CLASSES", "7",
+              "VIDEO.HEAD.DROPOUT_RATE", "0.0",
+              "TRAIN.CHECKPOINT_FILE_PATH", ""], 8),
+}
+
+
+def _rel_l2(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _worst_leaf(got, want):
+    """(relative L2, name) of the gradient leaf of ``got`` farthest from
+    ``want``'s, each relative to its norm in ``want`` or to GRAD_FLOOR
+    times the largest such norm where that is larger."""
+    least = GRAD_FLOOR * max(float(w.norm()) for w in want.values())
+    return max((float((got[k] - w).norm()) / max(float(w.norm()), least,
+                                                  1e-300), k)
+               for k, w in want.items())
+
+
+def tiny_conv_readings(name):
+    """The card-against-CPU readings of the test below for one of
+    CONV_TINY: ({"scores": the largest score difference over the heads
+    (fp32), "loss", "stats", "grads", "worst": the float64 step's}, the
+    CPU step's metric names, the card step's)."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import (
+        _prep_video,
+        create_train_state,
+        make_train_step,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path, opts, n = CONV_TINY[name]
+    cfg = load_config(os.path.join(repo, path), opts, make_output_dir=False)
+    t, s = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
+    gen = torch.Generator().manual_seed(1)
+    clips = torch.randint(0, 256, (n, t, s, s, 3), generator=gen,
+                          dtype=torch.int32).to(torch.uint8)
+    batch = {"video": _prep_video(cfg, clips).double(),
+             "labels": torch.arange(n) % 5}
+    if name != "s3dg":
+        batch.update(label_verb=torch.arange(n) % 5,
+                     label_noun=(torch.arange(n) + 3) % 7)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    with torch.no_grad():
+        want, _ = cpu.apply({"video": _prep_video(cfg, clips)})
+        got, _ = card.apply({"video": _prep_video(cfg, clips.cuda())})
+    if name == "s3dg":
+        want, got = {"": want}, {"": got}
+    scores = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+    out = []
+    for model in (cpu, card):
+        model.module.double()
+        opt, lr_fn = construct_optimizer(cfg, model.module, 4)
+        # the gradients before the optimizer's step: CUDA's foreach SGD
+        # adds the Nesterov momentum into .grad in place where a group has
+        # no weight decay
+        grads = {}
+        opt.register_step_pre_hook(lambda *_, m=model: grads.update(
+            {k: p.grad.cpu().clone() for k, p in m.module.named_parameters()}))
+        metrics = make_train_step(model, cfg, opt, lr_fn)(
+            create_train_state(model, opt),
+            {k: v.to(model.device) for k, v in batch.items()})
+        stats = torch.cat([v.flatten().cpu() for k, v in
+                           model.module.state_dict().items()
+                           if k.endswith("running_var")
+                           or k.endswith("running_mean")])
+        assert all(g.dtype == torch.float64 for g in grads.values())
+        out.append(({k: float(v) for k, v in metrics.items()}, stats, grads))
+    (mc, sc, gc), (mg, sg, gg) = out
+    grads, worst = _worst_leaf(gg, gc)
+    return {"scores": scores,
+            "loss": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+            "stats": _rel_l2(sg, sc), "grads": grads, "worst": worst}, \
+        set(mc), set(mg)
+
+
+@pytest.mark.parametrize("name", list(CONV_TINY))
+def test_tiny_conv_family_on_the_card_matches_the_cpu(name):
+    """A tiny SlowFast with ``SlowFastHeadx2``, ir-CSN with ``BaseHeadx2``
+    (both with the verb/noun labels, so the dual-label step) and S3D-G
+    with ``BaseHead``: eval scores, then one SGD step in float64, on the
+    card against the CPU from the same weights; K1-K4 launch no time."""
+    counts = (att.fused_attention_qkv, att.attention_qkv_rows,
+              tn.fused_temporal_net, tn.fused_temporal_net_bwd)
+    for fn in counts:
+        fn.launches = 0
+    reading, cpu_metrics, card_metrics = tiny_conv_readings(name)
+    assert cpu_metrics == card_metrics
+    if name != "s3dg":
+        assert {"top1_err_verb", "top5_err_noun",
+                "loss_verb_class"} <= card_metrics
+    assert reading["scores"] <= CONV_SCORE_ATOL, reading
+    assert reading["loss"] <= CONV_LOSS_RTOL, reading
+    assert reading["stats"] <= CONV_STATS_REL, reading
+    assert reading["grads"] <= CONV_GRAD_REL, reading
+    assert all(fn.launches == 0 for fn in counts)

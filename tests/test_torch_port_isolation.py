@@ -58,6 +58,9 @@ def test_importing_the_port_loads_nothing_forbidden():
             "dist_tpu_torch.models.base.bn",
             "dist_tpu_torch.models.branches.tada",
             "dist_tpu_torch.models.precision"} <= set(modules), modules
+    # SlowFast and S3D-G
+    assert {"dist_tpu_torch.models.backbones.slowfast",
+            "dist_tpu_torch.models.backbones.s3dg"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

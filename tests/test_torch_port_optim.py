@@ -307,21 +307,17 @@ def _port_probe(cfg, module, value, grad):
     return {k: p.detach().numpy() - value for k, p in module.named_parameters()}
 
 
-@pytest.mark.parametrize("opts", [[], ["TRAIN.LR_REDUCE", "true"]],
-                         ids=["sgd", "lr_reduce"])
-def test_tada2d_groups_match_jax_through_the_table(repo_root, opts):
-    """Every TAda2D parameter's group equals the JAX package's label of
-    its counterpart (``models/backbones/convert.py::jax_table``), and one
+def _groups_match_jax(repo_root, path, opts, frames):
+    """Every parameter's group equals the JAX package's label of its
+    counterpart (``models/backbones/convert.py::jax_table``), and one
     step of each optimizer moves it alike: from 0 with gradient 1 (the
     group's LR multiplier) and from 1 with gradient 0 (its weight decay),
-    within ``rtol=1e-5``. ConvBN's BatchNorm (JAX ``.../bn``, the port's
-    ``..._bn``) is in the BN group without decay; the TAda block's own
-    ``a_bn``, ``b_bn`` ... are not, in both packages."""
+    within ``rtol=1e-5``. Returns the port's labels."""
     from dist_tpu_torch.models.backbones.convert import jax_table
 
-    cfg, jcfg = _cfgs(repo_root, TADA, TADA_TINY + opts)
+    cfg, jcfg = _cfgs(repo_root, path, opts)
     shapes = jax.eval_shape(lambda: jax_build_model(jcfg).init(
-        jax.random.PRNGKey(0), {"video": jnp.zeros((1, 4, 32, 32, 3))}))
+        jax.random.PRNGKey(0), {"video": jnp.zeros((1, frames, 32, 32, 3))}))
     zeros, ones = (jax.tree_util.tree_map(
         lambda s: np.full(s.shape, v, np.float32), shapes) for v in (0, 1))
     labels = jopt.param_labels(jcfg, zeros)
@@ -341,7 +337,65 @@ def test_tada2d_groups_match_jax_through_the_table(repo_root, opts):
         for probe, want in ((got_grad, per_grad), (got_decay, per_decay)):
             (g,), (w,) = np.unique(probe[k]), np.unique(_jax_leaf(want, leaf))
             assert g == pytest.approx(float(w), rel=1e-5), k
+    return got
+
+
+@pytest.mark.parametrize("opts", [[], ["TRAIN.LR_REDUCE", "true"]],
+                         ids=["sgd", "lr_reduce"])
+def test_tada2d_groups_match_jax_through_the_table(repo_root, opts):
+    """Every TAda2D parameter's group equals the JAX package's label of
+    its counterpart (``models/backbones/convert.py::jax_table``), and one
+    step of each optimizer moves it alike: from 0 with gradient 1 (the
+    group's LR multiplier) and from 1 with gradient 0 (its weight decay),
+    within ``rtol=1e-5``. ConvBN's BatchNorm (JAX ``.../bn``, the port's
+    ``..._bn``) is in the BN group without decay; the TAda block's own
+    ``a_bn``, ``b_bn`` ... are not, in both packages."""
+    got = _groups_match_jax(repo_root, TADA, TADA_TINY + opts, 4)
     assert got["backbone.conv1.a_bn.weight"] == optimizer.BN
     assert got["backbone.conv2.res_1.conv_branch.b_rf.bn.weight"] == optimizer.BN
     assert got["backbone.conv2.res_1.conv_branch.a_bn.weight"] != optimizer.BN
     assert len(set(got.values())) == (3 if opts else 2)
+
+
+# the fine-tune configs (SGD, Nesterov, weight decay 1e-4, BN.WEIGHT_DECAY
+# 0), tiny: an LR of 1000 at step 0, as TADA_TINY
+CONV_TINY = ["DATA.NUM_INPUT_FRAMES", "8", "OPTIMIZER.WARMUP_EPOCHS", "0",
+             "OPTIMIZER.BASE_LR", "1000", "TRAIN.CHECKPOINT_FILE_PATH", ""]
+SLOWFAST_TINY = ["VIDEO.BACKBONE.NUM_FILTERS", "[32, 32, 64, 128, 256]",
+                 "VIDEO.HEAD.NUM_CLASSES", "[5, 7]"]
+
+
+@pytest.mark.parametrize("opts", [[], ["TRAIN.LR_REDUCE", "true"]],
+                         ids=["sgd", "lr_reduce"])
+@pytest.mark.parametrize("path", [
+    "configs/projects/tada/slowfast_ek100.yaml",
+    "configs/projects/hico/ft_s3dg_hmdb.yaml"], ids=["slowfast", "s3dg"])
+def test_slowfast_and_s3dg_groups_match_jax_through_the_table(repo_root,
+                                                              path, opts):
+    """SlowFast with ``SlowFastHeadx2`` and S3D-G with ``BaseHead``, each
+    parameter's group and one step's moves as the JAX package's (see
+    ``_groups_match_jax``). JAX's rule is a path segment that starts with
+    ``bn`` or contains ``norm``: the fusion BatchNorm ``fusionN/bn`` and
+    S3D-G's ``bn`` and ``bn2`` are in the BN group (``BN.WEIGHT_DECAY``);
+    ``SelfGating``'s ``fc`` and the heads decay."""
+    slowfast = "slowfast" in path
+    got = _groups_match_jax(repo_root, path, CONV_TINY + opts
+                            + (SLOWFAST_TINY if slowfast else []), 8)
+    if slowfast:
+        assert got["backbone.fusion1.bn.weight"] == optimizer.BN
+        assert got["backbone.slow_conv1.a_bn.weight"] == optimizer.BN
+        assert got["backbone.fast_conv2.res_1_branch.a_bn.bias"] == \
+            optimizer.BN
+        decayed = ["backbone.fusion1.conv_f2s.weight",
+                   "backbone.slow_conv2.res_1_branch.a.weight",
+                   "head.out1.weight", "head.out2.weight"]
+    else:
+        for name in ("backbone.Conv_1a.bn.weight", "backbone.Conv_1a.bn2.bias",
+                     "backbone.Mixed_3b.branch1_1.bn2.weight"):
+            assert got[name] == optimizer.BN, name
+        decayed = ["backbone.Mixed_3b.gating_b0.fc.weight",
+                   "backbone.Mixed_5c.gating_b3.fc.bias", "head.out.weight"]
+    trained = optimizer.BODY if opts else optimizer.TRAINABLE
+    for name in decayed:
+        want = optimizer.TRAINABLE if name.startswith("head.") else trained
+        assert got[name] == want, name

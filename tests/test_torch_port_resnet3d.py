@@ -157,21 +157,20 @@ def test_stem_and_branch_eval_match_jax(repo_root, kind, name, depth,
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
-def test_full_width_tada2d_matches_the_jax_tree(repo_root):
-    """TAda2D-R50 8x8 K400 at full width, on the meta device: every
-    entry of the port's state dict has its JAX counterpart at the shape
-    the layout implies, and every JAX leaf has one entry (27.5 M
-    weights)."""
-    cfg, jcfg = cfgs(repo_root, "configs/projects/tada/k400/tada2d_8x8.yaml")
+def assert_tree_maps_one_to_one(repo_root, path, frames, crop, opts=()):
+    """The config at full width on the meta device: every entry of the
+    port's state dict has its JAX leaf at the shape the layout implies,
+    and every JAX leaf one entry. Returns (module, weights)."""
+    cfg, jcfg = cfgs(repo_root, path, opts)
     module = pm.build_backbone_on_meta(cfg)
     assert isinstance(module, pm.BaseVideoModel)
     shapes = jax.eval_shape(lambda: jax_build_model(jcfg).init(
         jax.random.PRNGKey(0),
-        {"video": jnp.zeros((1, 8, 224, 224, 3), jnp.float32)}))
+        {"video": jnp.zeros((1, frames, crop, crop, 3), jnp.float32)}))
     flat = {}
     for coll, tree in shapes.items():
-        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-            flat[(coll, "/".join(str(p.key) for p in path))] = leaf.shape
+        for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            flat[(coll, "/".join(str(q.key) for q in p))] = leaf.shape
     sd = module.state_dict()
     table = jax_table(module)
     assert set(table) == set(sd)
@@ -186,11 +185,23 @@ def test_full_width_tada2d_matches_the_jax_tree(repo_root):
         elif leaf.layout == "dense":
             shape = shape[::-1]
         assert tuple(sd[key].shape) == tuple(shape), key
+        assert (leaf.collection, leaf.path) not in seen, key
         seen.add((leaf.collection, leaf.path))
     assert seen == set(flat)
     n = sum(p.numel() for p in module.parameters())
     assert n == sum(int(np.prod(s)) for (c, _), s in flat.items()
-                    if c in ("params", "head")) and 27.4e6 < n < 27.6e6
+                    if c in ("params", "head"))
+    return module, n
+
+
+def test_full_width_tada2d_matches_the_jax_tree(repo_root):
+    """TAda2D-R50 8x8 K400 at full width, on the meta device: every
+    entry of the port's state dict has its JAX counterpart at the shape
+    the layout implies, and every JAX leaf has one entry (27.5 M
+    weights)."""
+    _, n = assert_tree_maps_one_to_one(
+        repo_root, "configs/projects/tada/k400/tada2d_8x8.yaml", 8, 224)
+    assert 27.4e6 < n < 27.6e6
 
 
 @pytest.mark.parametrize("name", TADA_CONFIGS)

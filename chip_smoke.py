@@ -208,6 +208,31 @@
    control with every ``SelfGating`` bypassed must break (in (d) the
    gradients' limit). K1-K4 must
    launch no time in the phase.
+16. ViT: the HiCo++ ViT-S HMDB51 fine-tune (``VIT``, 21.91 M weights,
+   fp32, ``AUTOAUGMENT`` off, random weights) at full width: its weights
+   and forward GFLOP a clip at 112^2 and 128^2 (on the meta device); (a)
+   served by ``InferenceEngine`` at batch 8 at its test crop 128^2 (1025
+   tokens: the position table resized from 7 x 7 to 8 x 8 a frame),
+   requests of 1, 3 and 8 clips; (b) trained at its batch 64 at 112^2
+   (AdamW, stochastic depth 0.1), 2 warm-up and 5 timed steps, step ms,
+   clips/s, peak memory, every parameter moved; (c) its run list
+   (``VIT_RUN_OPTS``: 2 epochs of 2 steps, val, the test and the 10-view
+   test of 2 videos at 128^2); (d) one step of the linear probe
+   (``VIT_LFT``: only ``head.*`` moves, the backbone bit for bit); then
+   with TF32 off, for three weight seeds, (e) scores and features of 2
+   clips at 128^2 against the CPU (``VIT_AGREEMENT_LIMITS``) and (f) one
+   float64 step at 112^2 (``FP64_STEP_LIMITS``); the ``qkv`` control
+   (the fused projection read as ``[q | v | k]``) must break (e)'s limits
+   and (f)'s gradients'. K1-K4 must launch no time in the phase.
+17. Transformers: TimeSformer, ViViT, the ViViT factorized encoder,
+   TAda-ConvNeXt-T in both variants and ``VitVideoEncoder``
+   (``TRANSFORMERS``) at the full width of their pool files over
+   ``configs/pool/base.yaml`` (16 x 112^2, fp32, 400 classes, batch 16):
+   each one's weights and forward GFLOP a clip, the eval step and the
+   train step (2 warm-up and 5 timed batches each: ms, clips/s, peak
+   memory), then 2 clips on the card against the CPU with TF32 off
+   (``TRANSFORMERS_AGREEMENT_LIMITS``). K1-K4 must launch no time in the
+   phase.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -235,7 +260,8 @@ launches as ``test_launches`` and the train run's (a) as
 l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
 ``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
 under ``zoo`` each zoo shape's numbers; ``tada_launches``,
-``epic_launches`` and ``s3dg_launches`` those phases' (0);
+``epic_launches``, ``s3dg_launches``, ``vit_launches`` and
+``transformers_launches`` those phases' (0);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -544,6 +570,56 @@ S3DG_SERVE_BATCH = 8
 S3DG_STEPS_PER_EPOCH = 224
 # as EPIC's; the control bypasses every SelfGating
 S3DG_AGREEMENT_LIMITS = {"max_abs_score_diff": 2.7e-6, "feature_rel_l2": 2.2e-4}
+# the vit phase: the HiCo++ ViT-S HMDB51 fine-tune (384 wide, 12 layers,
+# 6 heads, patch 16, 16 frames, 51 classes, 21.9 M weights, fp32, AdamW)
+# from random weights with AUTOAUGMENT off (data/rand_augment.py is not
+# ported: ROADMAP.md queue A): served at its test crop 128^2 (1025 tokens:
+# the position table resized from 7 x 7 to 8 x 8 a frame) at batch 8,
+# trained at its batch 64 at 112^2 (785 tokens); the epoch as HMDB51
+# split 1's 3,570 training clips at 64
+VIT = "configs/projects/hico++/ft_vit-s_hmdb.yaml"
+VIT_LFT = "configs/projects/hico++/ft-hmdb51/lft_hico++_uk400_vit-s_16x112.yaml"
+VIT_OPTS = ["AUGMENTATION.AUTOAUGMENT.ENABLE", "false",
+            "TRAIN.CHECKPOINT_FILE_PATH", ""]
+VIT_SERVE_BATCH = 8
+VIT_STEPS_PER_EPOCH = 56
+# card against CPU, 3 weight seeds, fp32 with TF32 off: scores and
+# features at 128^2; set before the card's first reading (PERF.md, section 6).
+# The control reads the fused projection as [q | v | k] and must break
+# them, and in the float64 step (FP64_STEP_LIMITS, stochastic depth and
+# dropout off on both sides) the gradients' limit
+VIT_AGREEMENT_LIMITS = {"max_abs_score_diff": 1e-5, "feature_rel_l2": 1e-4}
+# the run list: 2 epochs of 2 steps at batch 64 (128 synthetic clips), a
+# val eval and a checkpoint after each, the test of 2 videos in 1 and in
+# 10 views at 128^2
+VIT_RUN_OPTS = VIT_OPTS + [
+    "DATA.SYNTHETIC", "true", "TRAIN.NUM_SAMPLES_LIMIT", "128",
+    "TEST.NUM_SAMPLES_LIMIT", "2", "OPTIMIZER.MAX_EPOCH", "2",
+    "TRAIN.NUM_FOLDS", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+    "TRAIN.EVAL_PERIOD", "1", "LOG_PERIOD", "1", "LOG_MODEL_INFO", "false",
+    "LOG_CONFIG_INFO", "false"]
+# the transformers phase: each pool backbone at full width over
+# configs/pool/base.yaml (16 frames of 112^2, fp32) with 400 classes,
+# evaluated and trained at batch 16 (the base's 100 and 128 cut: the
+# fp32 TimeSformer step at 128 would not fit in 80 GB), 2 warm-up and 5
+# timed batches each; scores and features of 2 clips against the CPU,
+# TF32 off, one seed, within TRANSFORMERS_AGREEMENT_LIMITS (set before
+# the card's first reading)
+TRANSFORMERS = {
+    "timesformer": ("configs/pool/backbone/timesformer.yaml", []),
+    "vivit": ("configs/pool/backbone/vivit.yaml", []),
+    "vivit_fac_enc": ("configs/pool/backbone/vivit_fac_enc.yaml", []),
+    "tada_convnext_tiny": ("configs/pool/backbone/tada_convnext_tiny.yaml",
+                           []),
+    "tada_convnext_tiny_original": (
+        "configs/pool/backbone/tada_convnext_tiny_original.yaml", []),
+    "vit_video_encoder": ("configs/pool/backbone/vivit.yaml",
+                          ["VIDEO.BACKBONE.META_ARCH", "VitVideoEncoder"])}
+TRANSFORMERS_OPTS = ["VIDEO.HEAD.NUM_CLASSES", "400", "TRAIN.BATCH_SIZE",
+                     "16", "TEST.BATCH_SIZE", "16"]
+TRANSFORMERS_STEPS_PER_EPOCH = 15000
+TRANSFORMERS_AGREEMENT_LIMITS = {"max_abs_score_diff": 1e-5,
+                                 "feature_rel_l2": 1e-4}
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -3405,7 +3481,9 @@ def _conv_clips(cfg, n, seed, crop=None):
 def _draw_conv_weights(module, seed, video):
     """Weights away from their init: every BatchNorm's scale in [0.5,
     1.5) (``b_avgpool_bn``'s included) and bias N(0, 0.1), the route
-    functions' zero-init ``b`` He-scaled, from a CPU generator seeded with
+    functions' zero-init ``b`` (and TAda-ConvNeXt's ``b_bias``)
+    He-scaled, TAda-ConvNeXt's layer scale in [0.05, 0.15) (not 1e-6:
+    every block counts), from a CPU generator seeded with
     ``seed``; then the running stats from ``video`` (normalised): in one
     eval-mode forward each BatchNorm, in the order they run, takes its
     input's per-channel mean and variance (at least a tenth of the
@@ -3414,6 +3492,10 @@ def _draw_conv_weights(module, seed, video):
     import torch
     from dist_tpu_torch.models.base.bn import BatchNorm
     from dist_tpu_torch.models.branches.tada import RouteFuncMLP
+    from dist_tpu_torch.models.branches.tada_convnext import (
+        RouteFuncNeXt,
+        _TAdaConvNeXtBlockBase,
+    )
 
     gen = torch.Generator().manual_seed(seed)
 
@@ -3428,9 +3510,12 @@ def _draw_conv_weights(module, seed, video):
             m.weight.copy_(0.5 + draw(m.weight.shape, "uniform"))
             m.bias.copy_(0.1 * draw(m.bias.shape, "normal"))
         for m in module.modules():
-            if isinstance(m, RouteFuncMLP):
-                w = m.b.weight
+            for w in ([m.b.weight] if isinstance(m, RouteFuncMLP) else
+                      [m.b.weight, m.b_bias.weight]
+                      if isinstance(m, RouteFuncNeXt) else []):
                 w.copy_(draw(w.shape, "normal") * (2.0 / w[0].numel()) ** 0.5)
+            if isinstance(m, _TAdaConvNeXtBlockBase):
+                m.gamma.copy_(0.05 + 0.1 * draw(m.gamma.shape, "uniform"))
 
     def pre_hook(bn, args):
         x = args[0].detach().float()
@@ -3744,7 +3829,8 @@ class _Control:
     outer temporal taps of every depthwise conv (ir-CSN's ``b``: a (3, 3,
     3) conv made (1, 3, 3)), ``gating`` bypasses every ``SelfGating``
     (S3D-G), ``route`` makes every TAda route function return ``alpha =
-    1``. The weights and forwards are restored on exit."""
+    1``, ``qkv`` reads the transformers' fused projection as ``[q | v |
+    k]``. The weights and forwards are restored on exit."""
 
     def __init__(self, module, kind):
         self.module, self.kind = module, kind
@@ -3755,12 +3841,18 @@ class _Control:
         from dist_tpu_torch.models.branches import tada
 
         self._saved, self._forward = [], None
+        if self.kind == "qkv":
+            from dist_tpu_torch.models.backbones import video_transformer
+            attend = video_transformer.attend
+            video_transformer.attend = lambda q, k, v, *a: attend(q, v, k, *a)
+            self._forward = (video_transformer, "attend", attend)
+            return self
         bypass = {"gating": (s3dg.SelfGating, lambda mod, x: x),
                   "route": (tada.RouteFuncMLP, lambda mod, x: torch.ones_like(
                       x[:, :, :, :1, :1]))}
         if self.kind in bypass:
             cls, forward = bypass[self.kind]
-            self._forward = (cls, cls.forward)
+            self._forward = (cls, "forward", cls.forward)
             cls.forward = forward
             return self
         for m in self.module.modules():
@@ -3783,8 +3875,7 @@ class _Control:
         import torch
 
         if self._forward is not None:
-            cls, forward = self._forward
-            cls.forward = forward
+            setattr(*self._forward)
         with torch.no_grad():
             for w, saved in self._saved:
                 w.copy_(saved)
@@ -3898,7 +3989,8 @@ def _conv_train_agree(cfg, steps_per_epoch, control, problems, what):
                 metrics = step(create_train_state(model, optimizer),
                                device_batch)
             stats = torch.cat([v.flatten().cpu() for v in
-                               _bn_stats(model.module).values()])
+                               _bn_stats(model.module).values()]
+                              + [torch.zeros(0, dtype=torch.float64)])
             return float(metrics["loss"]), grads, stats
 
         def reading(card, cpu):
@@ -3908,7 +4000,8 @@ def _conv_train_agree(cfg, steps_per_epoch, control, problems, what):
                                 "float64")
             diff = _grad_diff((lc, gc), (lg, gg), floor=GRAD_FLOOR)
             return {"seed": seed, "loss_rel_diff": diff["loss_rel_diff"],
-                    "stats_rel_l2": _rel_l2(sg, sc),
+                    # a model without BatchNorm has no running stats
+                    "stats_rel_l2": _rel_l2(sg, sc) if sc.numel() else 0.0,
                     "max_grad_rel_err": diff["max_grad_rel_err"],
                     "worst_rel_param": diff["worst_rel_param"],
                     "min_grad_cosine": diff["min_grad_cosine"],
@@ -4235,6 +4328,196 @@ def s3dg(repo, card):
     return _conv_phase("s3dg", card, parts, agreements)
 
 
+def _vit_run(repo, problems):
+    """The run list of ``python -m dist_tpu_torch.run`` on the ViT-S
+    fine-tune at full width with synthetic clips (``VIT_RUN_OPTS``):
+    train (2 epochs of 2 steps at batch 64, a val eval and a checkpoint
+    after each) -> test -> the automatic 10-view test, the tests at
+    128^2 where the model trains at 112^2; every test view counted once,
+    finite scores."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="vit_run_")
+    argv = ["--cfg", os.path.join(repo, VIT)] + VIT_RUN_OPTS + ["OUTPUT_DIR",
+                                                               tmp]
+    rec = {"overrides": VIT_RUN_OPTS}
+    try:
+        t0 = time.perf_counter()
+        cfg, (state, single, multi), launches = _run_list(argv)
+        rec["run_list_s"] = time.perf_counter() - t0
+        rec["launches"] = launches
+        logs = {name: _json_stats(os.path.join(tmp, name)) for name in
+                sorted(os.listdir(tmp)) if name.endswith(".log")}
+        train_iters = [r for r in logs.get("training_log.log", [])
+                       if r["_type"] == "train_iter"]
+        vals = [r for r in logs.get("training_log.log", [])
+                if r["_type"] == "val_epoch"]
+        tests = [r for recs in logs.values() for r in recs
+                 if r["_type"] == "test_final"]
+        if state.step != 4 or len(train_iters) != 4 or \
+                not all(math.isfinite(r["loss"]) for r in train_iters):
+            problems.append(f"vit run list: {state.step} steps, train lines "
+                            f"{train_iters[-1:]}")
+        if len(vals) != 2 or len(tests) != 2:
+            problems.append(f"vit run list: val lines {vals}, test lines "
+                            f"{tests}")
+        for meter, views in ((single, 1), (multi, 10)):
+            if meter.num_clips != views or not meter.seen.all() or \
+                    not np.isfinite(meter.video_preds).all():
+                problems.append(f"vit run list: the {views}-view test")
+        rec.update(steps=state.step, train_iter_last=train_iters[-1:],
+                   val_epochs=vals, tests=tests,
+                   test_views=[single.num_clips, multi.num_clips],
+                   test_crop=int(cfg.DATA.TEST_CROP_SIZE),
+                   test_clips_per_s=[len(m.seen) / m.timing["loop_s"]
+                                     for m in (single, multi)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def _vit_lft(repo, problems):
+    """One step of the ViT-S linear probe (``TRAIN.ONLY_LINEAR``) at batch
+    64: the head moves and every backbone weight stays bit for bit."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    cfg = _conv_cfg(repo, VIT_LFT, *VIT_OPTS)
+    model = build_model(cfg)
+    before = {k: v.detach().clone()
+              for k, v in model.module.state_dict().items()}
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           VIT_STEPS_PER_EPOCH)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    batch = _conv_batches(cfg, 1, int(cfg.RANDOM_SEED) + 3,
+                          int(cfg.TRAIN.BATCH_SIZE),
+                          int(cfg.DATA.TRAIN_CROP_SIZE))[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(create_train_state(model, optimizer), batch)["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    moved = sorted(k for k, v in model.module.state_dict().items()
+                   if not torch.equal(v, before[k]))
+    heads = sorted(k for k in before if k.startswith("head."))
+    if moved != heads or not math.isfinite(loss):
+        problems.append(f"vit lft: moved {moved}, loss {loss}")
+    return {"batch_size": int(cfg.TRAIN.BATCH_SIZE), "loss": loss,
+            "step_ms": step_ms, "moved": moved,
+            "trainable": sum(p.numel() for p in model.module.parameters()
+                             if p.requires_grad),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def vit(repo, card):
+    """The HiCo++ ViT-S HMDB51 fine-tune (``VIT``) at full width through
+    the port's entry points, fp32: (a) served by ``InferenceEngine`` at
+    batch 8 at its test crop 128^2 (requests of 1, 3 and 8 clips); (b)
+    trained at its batch 64 at 112^2 (AdamW, stochastic depth 0.1): 2
+    warm-up and 5 timed steps; (c) its run list (``VIT_RUN_OPTS``); (d)
+    one step of the linear probe; then with TF32 off, for three weight
+    seeds, (e) scores and features at 128^2 and (f) one float64 step at
+    112^2 against the CPU (``VIT_AGREEMENT_LIMITS``, ``FP64_STEP_LIMITS``),
+    which the ``qkv`` control must break. Returns K1-K4's launches in
+    the phase, which must all be 0."""
+    cfg = _conv_cfg(repo, VIT, *VIT_OPTS)
+    flat = _conv_cfg(repo, VIT, *VIT_OPTS, "VIDEO.BACKBONE.DROP_PATH", "0.0",
+                     "VIDEO.HEAD.DROPOUT_RATE", "0.0")
+    seed = int(cfg.RANDOM_SEED)
+    parts = [("model", lambda p: _model_info(cfg, [
+                 int(cfg.DATA.TRAIN_CROP_SIZE), int(cfg.DATA.TEST_CROP_SIZE)])),
+             ("serving", lambda p: _conv_serve(cfg, VIT_SERVE_BATCH, p,
+                                               "vit")),
+             ("train", lambda p: _conv_train_steps(
+                 cfg, seed, VIT_STEPS_PER_EPOCH, p, "vit")[0]),
+             ("run_list", lambda p: _vit_run(repo, p)),
+             ("lft", lambda p: _vit_lft(repo, p))]
+    agreements = [
+        ("agreement", lambda p: _conv_agree(cfg, "qkv", VIT_AGREEMENT_LIMITS,
+                                            p, "vit")),
+        ("train_agreement", lambda p: _conv_train_agree(
+            flat, VIT_STEPS_PER_EPOCH, "qkv", p, "vit"))]
+    return _conv_phase("vit", card, parts, agreements, config=VIT)
+
+
+def _model_info(cfg, crops=None):
+    """The model's meta-arch, branch, head, weight count and forward
+    GFLOP a clip at each of ``crops`` (default the train crop), counted on
+    the meta device (``utils/misc.py::flops_count``)."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_backbone_on_meta
+    from dist_tpu_torch.utils.misc import flops_count
+
+    module = build_backbone_on_meta(cfg).eval()
+    t = int(cfg.DATA.NUM_INPUT_FRAMES)
+    crops = crops or [int(cfg.DATA.TRAIN_CROP_SIZE)]
+    return {"meta_arch": cfg.VIDEO.BACKBONE.META_ARCH,
+            "branch": cfg.VIDEO.BACKBONE.BRANCH.NAME,
+            "head": cfg.VIDEO.HEAD.NAME,
+            "weights": sum(q.numel() for q in module.parameters()),
+            "gflop_forward_clip": {str(c): flops_count(module, torch.empty(
+                (1, t, c, c, 3), device="meta")) / 1e9 for c in crops}}
+
+
+def _transformer_agree(cfg, problems, what):
+    """2 clips at the test geometry on the card against the CPU, fp32 with
+    TF32 off, the weights of ``RANDOM_SEED`` drawn by
+    ``_draw_conv_weights``: the largest score difference and the pooled
+    features' relative L2, within ``TRANSFORMERS_AGREEMENT_LIMITS``."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+
+    seed = int(cfg.RANDOM_SEED)
+    clips = _conv_clips(cfg, CONV_AGREEMENT_CLIPS, 100 + seed)
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    _draw_conv_weights(cpu.module, seed, _prep(cfg, clips, "cpu"))
+    card = build_model(cfg, seed=seed)
+    card.module.load_state_dict(cpu.module.state_dict())
+    with torch.no_grad():
+        want, wfeat = cpu.apply({"video": _prep(cfg, clips, "cpu")})
+        got, feat = card.apply({"video": _prep(cfg, clips, card.device)})
+    reading = {"seed": seed, "clips": CONV_AGREEMENT_CLIPS,
+               "crop": int(cfg.DATA.TEST_CROP_SIZE),
+               "max_abs_score_diff": _score_diff(got, want),
+               "feature_rel_l2": _rel_l2(feat, wfeat),
+               "max_score": float(want.max()),
+               "limits": TRANSFORMERS_AGREEMENT_LIMITS}
+    if _breaches(reading, TRANSFORMERS_AGREEMENT_LIMITS):
+        problems.append(f"{what} agreement: "
+                        f"{_breaches(reading, TRANSFORMERS_AGREEMENT_LIMITS)}")
+    return reading
+
+
+def transformers(repo, card):
+    """The pool backbones at full width over ``configs/pool/base.yaml``
+    (``TRANSFORMERS``: TimeSformer, ViViT, the ViViT factorized encoder,
+    TAda-ConvNeXt-T in both variants, ``VitVideoEncoder`` by
+    ``META_ARCH``), fp32, 400 classes, batch 16 (``TRANSFORMERS_OPTS``):
+    each through the eval step at 16 x 112^2 (2 warm-up and 5 timed
+    batches) and the train step (Adam, the base's) with TF32 convolutions, then
+    held to the CPU with TF32 off (``_transformer_agree``). Returns
+    K1-K4's launches in the phase, which must all be 0."""
+    parts, agreements = [], []
+    for k, (path, opts) in TRANSFORMERS.items():
+        cfg = _conv_cfg(repo, path, *opts, *TRANSFORMERS_OPTS)
+        seed = int(cfg.RANDOM_SEED)
+
+        parts += [(f"{k}_model", lambda p, cfg=cfg: _model_info(cfg)),
+                  (f"{k}_eval", lambda p, cfg=cfg, seed=seed, k=k:
+                   _conv_eval(cfg, seed, p, k)),
+                  (f"{k}_train", lambda p, cfg=cfg, seed=seed, k=k:
+                   _conv_train_steps(cfg, seed, TRANSFORMERS_STEPS_PER_EPOCH,
+                                     p, k)[0])]
+        agreements.append((f"{k}_agreement", lambda p, cfg=cfg, k=k:
+                           _transformer_agree(cfg, p, k)))
+    return _conv_phase("transformers", card, parts, agreements)
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -4414,6 +4697,8 @@ def main():
         tada_launches = tada(repo, card)
         epic_launches = epic(repo, card)
         s3dg_launches = s3dg(repo, card)
+        vit_launches = vit(repo, card)
+        transformers_launches = transformers(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -4489,6 +4774,8 @@ def main():
             entry["tada_launches"] = tada_launches[name]
             entry["epic_launches"] = epic_launches[name]
             entry["s3dg_launches"] = s3dg_launches[name]
+            entry["vit_launches"] = vit_launches[name]
+            entry["transformers_launches"] = transformers_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -4520,6 +4807,9 @@ def main():
             "tada_launches": tada_launches["attention_qkv_rows"],
             "epic_launches": epic_launches["attention_qkv_rows"],
             "s3dg_launches": s3dg_launches["attention_qkv_rows"],
+            "vit_launches": vit_launches["attention_qkv_rows"],
+            "transformers_launches":
+                transformers_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

@@ -35,9 +35,9 @@ DATASET_REGISTRY = Registry("Dataset")
 SSV2_FLIP_LABEL_MAP = {86: 87, 87: 86, 93: 94, 94: 93, 166: 167, 167: 166}
 
 _SSL_TODO = ("PRETRAIN.ENABLE (the SSL view generator, dist_tpu/ssl/) is not "
-             "ported yet (ROADMAP.md queue A, item 5: SSL/HiCo)")
+             "ported yet (ROADMAP.md queue A: SSL/HiCo pretraining)")
 _RAND_AUG_TODO = ("AUGMENTATION.{} (data/rand_augment.py) is not ported yet "
-                  "(ROADMAP.md queue A, item 5: rand_augment)")
+                  "(ROADMAP.md queue A: data/rand_augment.py)")
 
 
 def load_label_texts(cfg, anno_dir):

@@ -38,7 +38,7 @@ COLLATE_FN_REGISTRY = Registry("CollateFn")
 
 _PROCESS_POOL_TODO = ("DATA_LOADER.WORKER_TYPE: process (a process pool for "
                       "GIL-bound augmentation) is not ported yet (ROADMAP.md "
-                      "queue A, item 5: rand_augment); use 'thread'")
+                      "queue A: data/rand_augment.py); use 'thread'")
 
 
 @COLLATE_FN_REGISTRY.register()

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 _BLUR_TODO = ("gaussian_blur_clip (SSL pretraining views) is not ported yet "
-              "(ROADMAP.md queue A, item 5: SSL/HiCo)")
+              "(ROADMAP.md queue A: SSL/HiCo pretraining)")
 
 
 # --------------------------------------------------------------------------

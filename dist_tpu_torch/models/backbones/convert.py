@@ -1,5 +1,5 @@
-"""The bridge from the JAX package's conv-family variables to the port's
-state dict.
+"""The bridge from the JAX package's conv-family and transformer
+variables to the port's state dict.
 
 The JAX model's variables are ``{"params": ..., "batch_stats": ...,
 "head": ...}`` trees (nested dicts of arrays, flax layouts). The port's
@@ -17,7 +17,13 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch.nn as nn
 
+from dist_tpu_torch.models.base.blocks import LayerNorm
 from dist_tpu_torch.models.base.bn import BatchNorm
+
+# parameters the JAX modules declare themselves (``self.param``), under
+# the same name in both packages
+_BARE = ("cls_token", "cls_token_out", "pos_embd", "temp_embd", "mask_token",
+         "gamma", "dwconv_bias")
 
 # the port's top-level child -> (JAX collection of its parameters, of its
 # BatchNorm running stats)
@@ -54,7 +60,11 @@ def _leaves(module):
     if isinstance(module, nn.Linear):
         return {"weight": ("kernel", "dense", False),
                 "bias": ("bias", "as_is", False)}
-    return {}
+    if isinstance(module, LayerNorm):
+        return {"weight": ("scale", "as_is", False),
+                "bias": ("bias", "as_is", False)}
+    return {name: (name, "as_is", False) for name in _BARE
+            if name in module._parameters}
 
 
 def jax_table(module) -> Dict[str, Optional[JaxLeaf]]:
@@ -116,8 +126,10 @@ def state_dict_from_jax(variables, module) -> Dict[str, np.ndarray]:
     ``(D, H, W, I, O)`` -> ``(O, I, D, H, W)`` (a grouped conv keeps ``I
     = C / groups``), dense kernels ``(I, O)`` -> ``(O, I)``, flax BN
     ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-    ``running_mean``/``running_var``, ``num_batches_tracked`` 0; fp32,
-    or float64 where the JAX leaf is float64."""
+    ``running_mean``/``running_var``, ``num_batches_tracked`` 0, flax
+    LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, the modules' own
+    parameters (``_BARE``) as they are; fp32, or float64 where the JAX
+    leaf is float64."""
     out = {}
     for key, leaf in jax_table(module).items():
         if leaf is None:

@@ -32,8 +32,11 @@ STEM_REGISTRY = Registry("Stem")
 BRANCH_REGISTRY = Registry("Branch")
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST, "
-               "ResNet3D, SlowFast and S3D-G families only (ROADMAP.md "
-               "queue A, item 5: other backbones and heads)")
+               "ResNet3D, SlowFast, S3D-G, video-transformer and ConvNeXt "
+               "families (ROADMAP.md queue A: SSL/HiCo pretraining for the "
+               "contrastive heads, TAL for the localization backbone and "
+               "BMNHead, What no shipped config reaches for "
+               "ClipVideoHeadLinear)")
 
 
 def _eval_activation(out, activation):
@@ -195,9 +198,10 @@ class VideoModel:
 
 def build_head(cfg, dim_in=None):
     """The configured head: ``ClipVideoTextIdentity`` (no weights),
-    ``BaseHead`` or ``BaseHeadx2`` over ``dim_in`` features (default the
-    backbone's last ``NUM_FILTERS``), or a head built from ``cfg`` (the
-    SlowFast heads)."""
+    ``BaseHead``, ``BaseHeadx2``, ``TransformerHead`` (``PRE_LOGITS``)
+    or ``TransformerHeadx2`` over ``dim_in`` features (default the
+    backbone's last ``NUM_FILTERS``, else its ``NUM_FEATURES``), or a
+    head built from ``cfg`` (the SlowFast heads)."""
     name = cfg.VIDEO.HEAD.NAME
     if not name:
         return None
@@ -209,11 +213,16 @@ def build_head(cfg, dim_in=None):
         return cls(activation=cfg.VIDEO.HEAD.ACTIVATION)
     head = cfg.VIDEO.HEAD
     common = (float(head.DROPOUT_RATE or 0.0), head.ACTIVATION)
-    dim_in = int(dim_in or cfg.VIDEO.BACKBONE.NUM_FILTERS[-1])
-    if cls is BaseHeadx2:
+    bb = cfg.VIDEO.BACKBONE
+    dim_in = int(dim_in or (bb.NUM_FILTERS[-1] if bb.NUM_FILTERS
+                            else bb.NUM_FEATURES))
+    if name in ("BaseHeadx2", "TransformerHeadx2"):
         return cls(dim_in, tuple(int(n) for n in head.NUM_CLASSES), *common)
     if cls is BaseHead:
         return cls(dim_in, int(head.NUM_CLASSES or 0), *common)
+    if name == "TransformerHead":
+        return cls(dim_in, int(head.NUM_CLASSES or 0), *common,
+                   pre_logits=bool(head.get("PRE_LOGITS", False)))
     return cls(cfg)
 
 
@@ -221,6 +230,10 @@ def _register_backbones():
     import dist_tpu_torch.models.backbones.resnet3d  # noqa: F401
     import dist_tpu_torch.models.backbones.s3dg  # noqa: F401
     import dist_tpu_torch.models.backbones.slowfast  # noqa: F401
+    import dist_tpu_torch.models.backbones.video_transformer  # noqa: F401
+    import dist_tpu_torch.models.backbones.vit_video  # noqa: F401
+    import dist_tpu_torch.models.branches.tada_convnext  # noqa: F401
+    import dist_tpu_torch.models.heads.transformer_head  # noqa: F401
 
 
 def build_backbone_on_meta(cfg) -> nn.Module:

@@ -136,7 +136,8 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     (``DiSTNetwork``). The JAX package also remats the CLIP towers' scan
     body; here a frozen tower runs under ``no_grad`` and keeps nothing for
     a backward, and an unfrozen one cannot train on the card until the
-    attention kernel has a backward (ROADMAP.md queue A, item 4)."""
+    attention kernel has a backward (ROADMAP.md queue A: An attention
+    backward)."""
     if arch is None:
         name = cfg.VIDEO.BACKBONE.META_ARCH_NAME
         if name not in ARCHITECTURES:

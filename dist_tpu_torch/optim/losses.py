@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from dist_tpu_torch.models.precision import island_dtype
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
-               "path only (ROADMAP.md queue A, item 5: SSL/HiCo and "
+               "path only (ROADMAP.md queue A: SSL/HiCo pretraining, "
                "TAL)")
 
 

@@ -48,7 +48,8 @@ BN = "bn_group"             # bn/norm params (BN.WEIGHT_DECAY, lr_reduce)
 REDUCE_SCALE = 0.1
 
 _LARS = ("LARS is not ported yet: the PyTorch port has no layer-wise "
-         "trust-ratio optimizer (ROADMAP.md queue A, item 2.5)")
+         "trust-ratio optimizer (ROADMAP.md queue A: SSL/HiCo "
+         "pretraining)")
 
 
 def _segments(name):

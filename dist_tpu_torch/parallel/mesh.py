@@ -26,7 +26,7 @@ from dist_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-_TODO = "is not ported yet (ROADMAP.md queue A, item 2: multi-GPU, {})"
+_TODO = "is not ported yet (ROADMAP.md queue A: Multi-GPU, the rest, {})"
 _MODEL_TODO = "TPU.MESH.MODEL > 1 (the tensor-parallel model axis) " + \
     _TODO.format("4: the tensor-parallel model axis")
 _PIPE_TODO = "TPU.MESH.PIPE > 1 (the GPipe pipe axis, parallel/pipeline.py) " \

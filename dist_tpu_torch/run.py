@@ -24,7 +24,7 @@ from dist_tpu_torch.config.config import load_from_args
 from dist_tpu_torch.parallel import collectives, launch
 
 _SUBMISSION_TODO = ("the submission test (tasks/submission.py) is not ported "
-                    "yet (ROADMAP.md queue A, item 5)")
+                    "yet (ROADMAP.md queue A: tasks/submission.py)")
 
 
 def _prepare_data(cfg):

@@ -178,7 +178,8 @@ def step_rng(device, seed, step):
 
 
 _DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
-               "ported yet (ROADMAP.md queue A, item 2.4)")
+               "ported yet (ROADMAP.md queue A: SSL/HiCo pretraining, "
+               "untrimmed video and the device views)")
 
 
 def make_train_step(model, cfg, optimizer, lr_fn):

@@ -5,7 +5,8 @@ Per clip-view forward -> softmax scores; the TestMeter regroups views by
 data-parallel group each rank scores its own shard of the views and the
 ranks gather every rank's scores, labels and ids before the meter, so
 every rank finalizes the same accuracies. Frame-parallel eval
-(``TPU.SHARD_FRAMES``) waits for ROADMAP.md queue A, item 2.3.
+(``TPU.SHARD_FRAMES``) waits for ROADMAP.md queue A: Multi-GPU, the
+rest.
 """
 
 import os
@@ -31,10 +32,10 @@ from dist_tpu_torch.utils.meters import EpicKitchenMeter, TestMeter
 logger = logging.get_logger(__name__)
 
 _SHARD_FRAMES_TODO = ("TPU.SHARD_FRAMES (frame-parallel eval) is not ported "
-                      "yet (ROADMAP.md queue A, item 2: multi-GPU, 3: "
+                      "yet (ROADMAP.md queue A: Multi-GPU, the rest, 3: "
                       "TPU.SHARD_FRAMES)")
 _VIS_TODO = ("VISUALIZATION.ENABLE (utils/visualization.py) is not ported yet "
-             "(ROADMAP.md queue A, item 3)")
+             "(ROADMAP.md queue A: Tools that wait on the card's machine)")
 
 
 def _check_supported(cfg):

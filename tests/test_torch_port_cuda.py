@@ -944,7 +944,8 @@ def test_tiny_tada2d_on_the_card_matches_the_cpu():
         stats = torch.cat([v.flatten().cpu() for k, v in
                            model.module.state_dict().items()
                            if k.endswith("running_var")
-                           or k.endswith("running_mean")])
+                           or k.endswith("running_mean")]
+                          + [torch.zeros(0, dtype=torch.float64)])
         out.append((float(metrics["loss"]), stats))
     (lc, sc), (lg, sg) = out
     assert abs(lg - lc) <= 1e-5 * abs(lc)
@@ -1002,11 +1003,12 @@ def _worst_leaf(got, want):
                for k, w in want.items())
 
 
-def tiny_conv_readings(name):
+def tiny_conv_readings(name, table=CONV_TINY):
     """The card-against-CPU readings of the test below for one of
-    CONV_TINY: ({"scores": the largest score difference over the heads
-    (fp32), "loss", "stats", "grads", "worst": the float64 step's}, the
-    CPU step's metric names, the card step's)."""
+    ``table`` (CONV_TINY or TRANSFORMER_TINY): ({"scores": the largest
+    score difference over the heads (fp32), "loss", "stats", "grads",
+    "worst": the float64 step's}, the CPU step's metric names, the card
+    step's)."""
     import os
 
     from dist_tpu_torch.config import load_config
@@ -1019,15 +1021,16 @@ def tiny_conv_readings(name):
     )
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    path, opts, n = CONV_TINY[name]
+    path, opts, n = table[name]
     cfg = load_config(os.path.join(repo, path), opts, make_output_dir=False)
+    dual = isinstance(cfg.VIDEO.HEAD.NUM_CLASSES, (list, tuple))
     t, s = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
     gen = torch.Generator().manual_seed(1)
     clips = torch.randint(0, 256, (n, t, s, s, 3), generator=gen,
                           dtype=torch.int32).to(torch.uint8)
     batch = {"video": _prep_video(cfg, clips).double(),
              "labels": torch.arange(n) % 5}
-    if name != "s3dg":
+    if dual:
         batch.update(label_verb=torch.arange(n) % 5,
                      label_noun=(torch.arange(n) + 3) % 7)
     cpu = build_model(cfg, device="cpu")
@@ -1036,7 +1039,7 @@ def tiny_conv_readings(name):
     with torch.no_grad():
         want, _ = cpu.apply({"video": _prep_video(cfg, clips)})
         got, _ = card.apply({"video": _prep_video(cfg, clips.cuda())})
-    if name == "s3dg":
+    if not dual:
         want, got = {"": want}, {"": got}
     scores = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
     out = []
@@ -1055,14 +1058,16 @@ def tiny_conv_readings(name):
         stats = torch.cat([v.flatten().cpu() for k, v in
                            model.module.state_dict().items()
                            if k.endswith("running_var")
-                           or k.endswith("running_mean")])
+                           or k.endswith("running_mean")]
+                          + [torch.zeros(0, dtype=torch.float64)])
         assert all(g.dtype == torch.float64 for g in grads.values())
         out.append(({k: float(v) for k, v in metrics.items()}, stats, grads))
     (mc, sc, gc), (mg, sg, gg) = out
     grads, worst = _worst_leaf(gg, gc)
     return {"scores": scores,
             "loss": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
-            "stats": _rel_l2(sg, sc), "grads": grads, "worst": worst}, \
+            "stats": _rel_l2(sg, sc) if sc.numel() else 0.0, "grads": grads,
+            "worst": worst}, \
         set(mc), set(mg)
 
 
@@ -1086,3 +1091,61 @@ def test_tiny_conv_family_on_the_card_matches_the_cpu(name):
     assert reading["stats"] <= CONV_STATS_REL, reading
     assert reading["grads"] <= CONV_GRAD_REL, reading
     assert all(fn.launches == 0 for fn in counts)
+
+
+# a tiny TimeSformer (divided attention) and a tiny TAda-ConvNeXt (the
+# avg-pool variant, layer scale 0.5 so that every block counts), both
+# without stochastic depth, at their train crop: the limits of the conv
+# family above
+TRANSFORMER_TINY = {
+    "timesformer": ("configs/pool/backbone/timesformer.yaml",
+                    ["VIDEO.BACKBONE.NUM_FEATURES", "64",
+                     "VIDEO.BACKBONE.NUM_HEADS", "2", "VIDEO.BACKBONE.DEPTH",
+                     "2", "VIDEO.BACKBONE.PATCH_SIZE", "8",
+                     "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE",
+                     "32", "VIDEO.HEAD.NUM_CLASSES", "7"], 2),
+    "tada_convnext": ("configs/pool/backbone/tada_convnext_tiny.yaml",
+                      ["VIDEO.BACKBONE.NUM_FILTERS", "[8, 16, 32, 64]",
+                       "VIDEO.BACKBONE.DEPTH", "[1, 1, 2, 1]",
+                       "VIDEO.BACKBONE.BRANCH.NAME",
+                       "TAdaConvNeXtBlockAvgPoolGELU",
+                       "VIDEO.BACKBONE.LARGE_SCALE_INIT_VALUE", "0.5",
+                       "VIDEO.BACKBONE.DROP_PATH", "0.0",
+                       "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE",
+                       "64", "DATA.TEST_CROP_SIZE", "64",
+                       "VIDEO.HEAD.NUM_CLASSES", "7"], 2),
+}
+
+
+@pytest.mark.parametrize("name", list(TRANSFORMER_TINY))
+def test_tiny_transformers_on_the_card_match_the_cpu(name):
+    """The tiny TimeSformer and TAda-ConvNeXt: eval scores, then one Adam
+    step in float64, on the card against the CPU from the same weights,
+    within the conv family's limits; K1-K4 launch no time."""
+    counts = (att.fused_attention_qkv, att.attention_qkv_rows,
+              tn.fused_temporal_net, tn.fused_temporal_net_bwd)
+    for fn in counts:
+        fn.launches = 0
+    reading, cpu_metrics, card_metrics = tiny_conv_readings(
+        name, TRANSFORMER_TINY)
+    assert cpu_metrics == card_metrics
+    assert reading["scores"] <= CONV_SCORE_ATOL, reading
+    assert reading["loss"] <= CONV_LOSS_RTOL, reading
+    assert reading["stats"] <= CONV_STATS_REL, reading
+    assert reading["grads"] <= CONV_GRAD_REL, reading
+    assert all(fn.launches == 0 for fn in counts)
+
+
+@pytest.mark.parametrize("sides", [(7, 8), (8, 7), (4, 6)])
+def test_position_table_resize_on_the_card(sides):
+    """``resize_grid`` on the card equals the CPU's within fp32 rounding,
+    growing (ViT-S's 7 -> 8) and shrinking (antialiased)."""
+    from dist_tpu_torch.models.backbones.video_transformer import resize_grid
+
+    s0, s1 = sides
+    grid = torch.randn((16, s0, s0, 384),
+                       generator=torch.Generator().manual_seed(s0 + s1))
+    want = resize_grid(grid, s1)
+    got = resize_grid(grid.cuda(), s1)
+    assert got.shape == (16, s1, s1, 384) and got.is_cuda
+    _within(got.cpu(), want, atol=1e-6, rtol=1e-6)

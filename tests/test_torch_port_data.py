@@ -205,10 +205,13 @@ def test_decode_retry_takes_the_neighbour(repo_root, tmp_path, monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_item(repo_root):
-    for opts in (["PRETRAIN.ENABLE", "true"],
-                 ["AUGMENTATION.AUTOAUGMENT.ENABLE", "true"],
-                 ["AUGMENTATION.RANDOM_ERASING.ENABLE", "true"]):
+    for opts, item in (
+            (["PRETRAIN.ENABLE", "true"], "SSL/HiCo pretraining"),
+            (["AUGMENTATION.AUTOAUGMENT.ENABLE", "true"],
+             "data/rand_augment.py"),
+            (["AUGMENTATION.RANDOM_ERASING.ENABLE", "true"],
+             "data/rand_augment.py")):
         cfg, _ = _cfgs(repo_root, *opts)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
-                           "item 5"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue A: {item}"):
             datasets.Synthetic(cfg, "train")

@@ -233,6 +233,29 @@
    memory), then 2 clips on the card against the CPU with TF32 off
    (``TRANSFORMERS_AGREEMENT_LIMITS``). K1-K4 must launch no time in the
    phase.
+18. SSL: the pretrain configs ``SSL`` at full width and their own
+   batches of views (16 x 112^2, fp32, TF32 convolutions, random
+   weights, synthetic uint8 views made on the card): SimCLR S3D-G (32 x
+   2), HiCo-L (32 x 3), HiCo++ M6 S3D-G (40 x 12 = 480 clips, else the
+   first of ``SSL_FALLBACK_VIDEOS`` whose memory, reckoned from the
+   SimCLR step's peak a clip, fits ``SSL_MEMORY_SHARE`` of the card, each
+   try recorded) and HiCo++ M6 ViT-S (8 x 12), each through
+   ``make_train_step`` with the ``USE_GPU`` augmentation (counted: once a
+   step), its contrastive head, SSL loss and LARS: 2 warm-up and 3 timed
+   steps, step ms, clips/s, peak memory, finite losses, every weight of
+   two or more dimensions moved; then the SimCLR run list
+   (``SSL_RUN_OPTS``: the train entry alone, 2 epochs of 2 steps at 32 x
+   2 on synthetic views through the loader), uninterrupted and, in
+   another directory, preempted after ``SSL_PREEMPT_AFTER`` steps and
+   resumed: the LARS buffers the resume loads equal the checkpoint's bit
+   for bit, the checkpoint holds the head's running stats. Then with
+   TF32 off: the device augmentation's apply on 64 rows on the card
+   against the CPU on the same factors (``SSL_AUG_LIMIT``; a control
+   with every flip inverted must break it) and, per config, one float64
+   step on 2 videos of at most 4 views, card against CPU
+   (``FP64_STEP_LIMITS``; a control with the heads' BatchNorm on its
+   running stats must break the gradients' limit). K1-K4 must launch no
+   time in the phase.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -260,8 +283,8 @@ launches as ``test_launches`` and the train run's (a) as
 l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
 ``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
 under ``zoo`` each zoo shape's numbers; ``tada_launches``,
-``epic_launches``, ``s3dg_launches``, ``vit_launches`` and
-``transformers_launches`` those phases' (0);
+``epic_launches``, ``s3dg_launches``, ``vit_launches``,
+``transformers_launches`` and ``ssl_launches`` those phases' (0);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -620,6 +643,45 @@ TRANSFORMERS_OPTS = ["VIDEO.HEAD.NUM_CLASSES", "400", "TRAIN.BATCH_SIZE",
 TRANSFORMERS_STEPS_PER_EPOCH = 15000
 TRANSFORMERS_AGREEMENT_LIMITS = {"max_abs_score_diff": 1e-5,
                                  "feature_rel_l2": 1e-4}
+# the ssl phase: SSL pretraining at the configs' own widths and batches
+# (16 x 112^2, LARS, the device augmentation), synthetic uint8 views made
+# on the card; the HiCo++ M6 S3D-G batch (40 videos x 12 views) is tried
+# at 40 videos, then 20 and 10, the first whose memory, reckoned from
+# the SimCLR step's peak per clip, fits in SSL_MEMORY_SHARE of the card
+# (and then runs without an OOM)
+SSL = {"simclr": "configs/projects/hico/simclr_k400_s3dg.yaml",
+       "hico": "configs/projects/hico/pt-k400/s3dg-hico-l.yaml",
+       "hico_pp": "configs/projects/hico++/pt-k400/s3dg-hico++m6.yaml",
+       "hico_pp_vit": "configs/projects/hico++/pt-k400f/vit-s-hico++m6.yaml"}
+SSL_STEPS_PER_EPOCH = 1000
+SSL_WARMUP = 2
+SSL_TIMED = 3
+SSL_FALLBACK_VIDEOS = (40, 20, 10)
+SSL_MEMORY_SHARE = 0.9
+# the float64 step, card against CPU, at a cut batch: 2 videos of at most
+# 4 views (HiCo++ pairs views, so 4 keeps two pairs a video), the
+# FP64_STEP_LIMITS of the conv phases; the control runs the heads'
+# BatchNorm on its running stats on the card and must break the
+# gradients' limit
+SSL_AGREEMENT_VIDEOS = 2
+SSL_AGREEMENT_VIEWS = 4
+# the device augmentation's apply on the card against the CPU on the same
+# factors, SimCLR's recipe on 64 rows of 16 x 112^2 in [0, 1] (fp32):
+# the largest difference, set before the card's first reading; a control
+# with every row's flip inverted must break it
+SSL_AUG_ROWS = 64
+SSL_AUG_LIMIT = {"max_abs_diff": 5e-5}
+# the run list: the SimCLR S3D-G config at full width on synthetic views
+# (batch 32 of 2 views), 2 epochs of 2 steps; uninterrupted, then in
+# another OUTPUT_DIR preempted after SSL_PREEMPT_AFTER steps (a mid-epoch
+# checkpoint) and resumed: the LARS buffers the resume loads equal the
+# checkpoint's bit for bit
+SSL_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.NUM_SAMPLES_LIMIT", "64",
+                "TRAIN.NUM_FOLDS", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+                "OPTIMIZER.MAX_EPOCH", "2", "LOG_PERIOD", "1",
+                "DATA_LOADER.NUM_WORKERS", "8", "LOG_MODEL_INFO", "false",
+                "LOG_CONFIG_INFO", "false"]
+SSL_PREEMPT_AFTER = 3
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -4518,6 +4580,422 @@ def transformers(repo, card):
     return _conv_phase("transformers", card, parts, agreements)
 
 
+def _ssl_batches(cfg, n, seed, videos):
+    """``n`` batches of ``videos`` videos of synthetic uint8 views (B,
+    views, T, S, S, 3) made on the card, with their ``contrastive``
+    labels."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    views = int(cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO)
+    t, s = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TRAIN_CROP_SIZE)
+    return [{"video": torch.randint(0, 256, (videos, views, t, s, s, 3),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32).to(torch.uint8),
+             "labels": torch.zeros(videos, dtype=torch.long, device="cuda"),
+             "contrastive": torch.arange(views, device="cuda").repeat(
+                 videos, 1)} for _ in range(n)]
+
+
+class _CountAugment:
+    """Counts the device augmentation's applies (the train step's
+    ``augment_device.apply``) inside the block."""
+
+    def __enter__(self):
+        from dist_tpu_torch.ops import augment_device
+
+        self.calls, self._apply = 0, augment_device.apply
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._apply(*args, **kw)
+
+        augment_device.apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        from dist_tpu_torch.ops import augment_device
+
+        augment_device.apply = self._apply
+
+
+def _ssl_steps(cfg, videos, problems, what):
+    """The config's train step at ``videos`` videos of its views on the
+    card: ``SSL_WARMUP`` warm-up and ``SSL_TIMED`` timed steps; finite
+    losses, every weight of two or more dimensions moved, the device
+    augmentation applied once a step. An OOM propagates."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import LARS, construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    seed = int(cfg.RANDOM_SEED)
+    views = int(cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           SSL_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    batches = _ssl_batches(cfg, SSL_WARMUP + SSL_TIMED, seed + 1, videos)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    before = {k: p.detach().clone() for k, p in
+              model.module.named_parameters() if p.dim() > 1}
+    times, metrics = [], []
+    with _CountAugment() as aug:
+        for batch in batches:
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    mem = _memory(base, batches=batches)
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        problems.append(f"{what} train: losses {losses}")
+    unmoved = [k for k, p in model.module.named_parameters()
+               if k in before and torch.equal(p, before[k])]
+    if unmoved:
+        problems.append(f"{what} train: {len(unmoved)} weights did not move: "
+                        f"{unmoved[:5]}")
+    if aug.calls != len(batches) or not isinstance(optimizer, LARS):
+        problems.append(f"{what} train: {aug.calls} device augmentations in "
+                        f"{len(batches)} steps, optimizer "
+                        f"{type(optimizer).__name__}")
+    timed = sorted(times[SSL_WARMUP:])
+    clips = videos * views
+    rec = {"videos": videos, "views": views, "clips": clips,
+           "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+           "crop": int(cfg.DATA.TRAIN_CROP_SIZE),
+           "head": cfg.VIDEO.HEAD.NAME, "loss_name": cfg.PRETRAIN.LOSS,
+           "optimizer": type(optimizer).__name__,
+           "lars_groups": {g["group"]: g["lars"]
+                           for g in optimizer.param_groups},
+           "params": sum(p.numel() for p in model.module.parameters()),
+           "device_augment_calls": aug.calls, "build_s": build_s,
+           "step_ms": times, "losses": losses,
+           "lr": [lr_fn(i) for i in range(len(times))],
+           "last_metrics": metrics[-1],
+           "step_ms_median": timed[len(timed) // 2],
+           "step_ms_min": timed[0],
+           "clips_per_s": clips * 1e3 / timed[len(timed) // 2],
+           "peak_mem_gb": mem["peak_gb"], "memory": mem}
+    del model, optimizer, state, step, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _ssl_train(cfg, problems, what, per_clip=None):
+    """``_ssl_steps`` at the config's batch; under ``per_clip`` (the
+    bytes a clip took in the SimCLR step), the first of
+    ``SSL_FALLBACK_VIDEOS`` whose reckoned memory fits
+    ``SSL_MEMORY_SHARE`` of the card and runs without an OOM, each try
+    recorded."""
+    import torch
+
+    videos = int(cfg.TRAIN.BATCH_SIZE)
+    if per_clip is None:
+        return _ssl_steps(cfg, videos, problems, what)
+    total = torch.cuda.get_device_properties(0).total_memory
+    views = int(cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO)
+    tries = []
+    for v in [videos] + [v for v in SSL_FALLBACK_VIDEOS if v < videos]:
+        need = per_clip["base"] + per_clip["bytes"] * v * views
+        fits = need < SSL_MEMORY_SHARE * total
+        tries.append({"videos": v, "reckoned_gb": need / 2 ** 30,
+                      "card_gb": total / 2 ** 30, "fits": fits})
+        if not fits:
+            continue
+        try:
+            rec = _ssl_steps(cfg, v, problems, what)
+        except torch.OutOfMemoryError as e:
+            tries[-1]["oom"] = str(e).splitlines()[0]
+            torch.cuda.empty_cache()
+            continue
+        rec.update(config_videos=videos, tries=tries)
+        return rec
+    problems.append(f"{what} train: no batch fits: {tries}")
+    return {"tries": tries}
+
+
+def _ssl_aug_agree(cfg, problems):
+    """The device augmentation's apply on ``SSL_AUG_ROWS`` rows of
+    synthetic views on the card against the CPU on the same factors
+    (``tasks/state.py::augment_draws``), fp32: the largest difference
+    within ``SSL_AUG_LIMIT``; the control, every flip inverted on the
+    card, must break it."""
+    import dataclasses
+
+    import torch
+    from dist_tpu_torch.ops import augment_device
+    from dist_tpu_torch.tasks.state import augment_draws
+
+    c = augment_device.DeviceAugConfig.from_cfg(cfg)
+    video = _ssl_batches(cfg, 1, int(cfg.RANDOM_SEED) + 5,
+                         SSL_AUG_ROWS // 2)[0]["video"]
+    video = video.reshape((-1,) + tuple(video.shape[2:])).float() / 255.0
+    f = augment_draws(c, video.shape[0], int(cfg.RANDOM_SEED) + 3, 0)
+    want = augment_device.apply(video.cpu(), f, c)
+    got = augment_device.apply(video, f, c)
+    control = augment_device.apply(video, {**f, "flip": ~f["flip"]}, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_REPEATS):
+        augment_device.apply(video, f, c)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_REPEATS
+    reading = {"max_abs_diff": float((got.cpu() - want).abs().max())}
+    breach = {"max_abs_diff": float((control.cpu() - want).abs().max())}
+    if _breaches(reading, SSL_AUG_LIMIT):
+        problems.append(f"ssl augmentation: {reading}")
+    if not _breaches(breach, SSL_AUG_LIMIT):
+        problems.append(f"ssl augmentation: the flip control {breach} is "
+                        "within the limit")
+    return {"rows": video.shape[0], "shape": list(video.shape),
+            "config": dataclasses.asdict(c),
+            "draws": {k: int(v.sum()) for k, v in f.items()
+                      if v.dtype == torch.bool},
+            "reading": reading, "control": breach, "limits": SSL_AUG_LIMIT,
+            "apply_ms": ms}
+
+
+class _HeadBNOnRunningStats:
+    """The control of the SSL step: the contrastive heads' BatchNorm
+    layers on their running stats while the step trains."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        from dist_tpu_torch.models.base import bn
+
+        self._set = bn.set_train_mode
+        head = self.module.head
+
+        def set_mode(module, train, frozen=False):
+            out = self._set(module, train, frozen)
+            for m in head.modules():
+                if isinstance(m, bn.BatchNorm):
+                    m.eval()
+            return out
+
+        import dist_tpu_torch.models.base.models as models
+        self._models = models
+        models.set_train_mode = set_mode
+        return self
+
+    def __exit__(self, *exc):
+        self._models.set_train_mode = self._set
+
+
+def _ssl_train_agree(cfg, problems, what):
+    """One float64 train step, card against CPU, from the same weights on
+    ``SSL_AGREEMENT_VIDEOS`` videos of ``min(views, SSL_AGREEMENT_VIEWS)``
+    normalised views (float, so no device augmentation): the loss, the
+    running stats and the worst gradient leaf within
+    ``FP64_STEP_LIMITS``; the control (``_HeadBNOnRunningStats``) on the
+    card must break the gradients' limit."""
+    import contextlib
+
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    views = min(int(cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO), SSL_AGREEMENT_VIEWS)
+    cfg = cfg.deep_copy()
+    cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO = views
+    seed = int(cfg.RANDOM_SEED)
+    clips = _conv_clips(cfg, SSL_AGREEMENT_VIDEOS * views, 300 + seed,
+                        crop=cfg.DATA.TRAIN_CROP_SIZE)
+    video = _prep(cfg, clips, "cpu").double()
+    batch = {"video": video.reshape((SSL_AGREEMENT_VIDEOS, views)
+                                    + tuple(video.shape[1:])),
+             "labels": torch.zeros(SSL_AGREEMENT_VIDEOS, dtype=torch.long),
+             "contrastive": torch.arange(views).repeat(SSL_AGREEMENT_VIDEOS,
+                                                       1)}
+    ref = build_model(cfg, device="cpu", seed=seed)
+    weights = {k: v.double() if v.is_floating_point() else v
+               for k, v in ref.module.state_dict().items()}
+    del ref
+
+    def one_step(device, control=False):
+        model = build_model(cfg, device=device, seed=seed)
+        model.module.double().load_state_dict(weights)
+        optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                               SSL_STEPS_PER_EPOCH)
+        step = make_train_step(model, cfg, optimizer, lr_fn)
+        grads = {}
+        optimizer.register_step_pre_hook(lambda *_: grads.update(
+            {k: p.grad.detach().cpu().clone()
+             for k, p in model.module.named_parameters()}))
+        with (_HeadBNOnRunningStats(model.module) if control
+              else contextlib.nullcontext()):
+            metrics = step(create_train_state(model, optimizer),
+                           {k: v.to(model.device) for k, v in batch.items()})
+        stats = torch.cat([v.flatten().cpu() for v in
+                           _bn_stats(model.module).values()])
+        return float(metrics["loss"]), grads, stats
+
+    def reading(card, cpu):
+        (lg, gg, sg), (lc, gc, sc) = card, cpu
+        diff = _grad_diff((lc, gc), (lg, gg), floor=GRAD_FLOOR)
+        return {"loss_rel_diff": diff["loss_rel_diff"],
+                "stats_rel_l2": _rel_l2(sg, sc),
+                "max_grad_rel_err": diff["max_grad_rel_err"],
+                "worst_rel_param": diff["worst_rel_param"],
+                "min_grad_cosine": diff["min_grad_cosine"],
+                "worst_tensors": diff["worst_tensors"], "loss": lc,
+                "float64": all(g.dtype == torch.float64
+                               for g in gg.values())}
+
+    cpu = one_step("cpu")
+    got = reading(one_step(None), cpu)
+    control = reading(one_step(None, control=True), cpu)
+    if _breaches(got, FP64_STEP_LIMITS) or not got["float64"]:
+        problems.append(f"{what} train agreement: "
+                        f"{_breaches(got, FP64_STEP_LIMITS)}")
+    if "max_grad_rel_err" not in dict(_breaches(control, FP64_STEP_LIMITS)):
+        problems.append(f"{what} train agreement: the head BatchNorm control "
+                        "leaves the gradients within their limit")
+    torch.cuda.empty_cache()
+    return {"videos": SSL_AGREEMENT_VIDEOS, "views": views,
+            "dtype": "float64", "reading": got, "control": control,
+            "limits": FP64_STEP_LIMITS, "grad_floor": GRAD_FLOOR}
+
+
+def _ssl_run(repo, problems):
+    """The run list of ``python -m dist_tpu_torch.run`` on the SimCLR
+    S3D-G config at full width on synthetic views (``SSL_RUN_OPTS``):
+    only the train entry; 2 epochs uninterrupted, then in another
+    directory preempted after ``SSL_PREEMPT_AFTER`` steps and resumed,
+    whose loaded LARS buffers equal the checkpoint's bit for bit; each
+    run's steps, finite losses and the checkpoint's head and LARS state;
+    the resumed weights' distance to the uninterrupted run's, a
+    reading."""
+    import shutil
+    import tempfile
+
+    import torch
+    from dist_tpu_torch.optim.optimizer import LARS
+    from dist_tpu_torch.tasks import train as train_task
+
+    tmp = tempfile.mkdtemp(prefix="ssl_run_")
+    rec, loaded = {"overrides": SSL_RUN_OPTS}, {}
+    load = train_task.cu.load_train_checkpoint
+
+    def recording_load(cfg, state, **kw):
+        out = load(cfg, state, **kw)
+        loaded.update({k: v["momentum_buffer"].clone() for k, v in
+                       out[0].optimizer.state_dict()["state"].items()})
+        return out
+
+    def one(out, *opts):
+        argv = (["--cfg", os.path.join(repo, SSL["simclr"])] + SSL_RUN_OPTS
+                + list(opts) + ["OUTPUT_DIR", out])
+        t0 = time.perf_counter()
+        cfg, results, launches = _run_list(argv)
+        logs = _json_stats(os.path.join(out, "training_log.log"))
+        iters = [r for r in logs if r["_type"] == "train_iter"]
+        state = results[0]
+        return {"seconds": time.perf_counter() - t0,
+                "entries": len(results), "launches": launches,
+                "preempted": isinstance(state, SystemExit),
+                "steps": getattr(state, "step", None),
+                "losses": [r["loss"] for r in iters],
+                "optimizer": type(getattr(state, "optimizer", None)).__name__,
+                "videos": int(cfg.TRAIN.BATCH_SIZE),
+                "views": int(cfg.PRETRAIN.NUM_CLIPS_PER_VIDEO)}, state
+
+    try:
+        rec["whole"], whole = one(os.path.join(tmp, "whole"))
+        rec["cut"], _ = one(os.path.join(tmp, "cut"),
+                            "TRAIN.PREEMPT_AFTER_ITERS", str(SSL_PREEMPT_AFTER))
+        names = sorted(n for n in os.listdir(
+            os.path.join(tmp, "cut", "checkpoints")) if n.endswith(".pyth"))
+        rec["cut_checkpoints"] = names
+        ckpt = torch.load(os.path.join(tmp, "cut", "checkpoints", names[-1]),
+                          map_location="cpu", weights_only=False)
+        saved = {k: v["momentum_buffer"]
+                 for k, v in ckpt["optimizer_state"]["state"].items()}
+        train_task.cu.load_train_checkpoint = recording_load
+        try:
+            rec["resumed"], resumed = one(os.path.join(tmp, "cut"))
+        finally:
+            train_task.cu.load_train_checkpoint = load
+        equal = (set(saved) == set(loaded) and bool(saved) and all(
+            torch.equal(loaded[k].cpu(), saved[k]) for k in saved))
+        heads = sorted(k for k in ckpt["model_state"]
+                       if k.startswith("head.") and "running" in k)
+        rec.update(lars_buffers=len(saved), lars_restored_bit_for_bit=equal,
+                   head_stats_in_checkpoint=heads,
+                   resumed_vs_whole_rel_l2=_rel_l2(
+                       torch.cat([p.flatten() for p in
+                                  resumed.model.module.parameters()]),
+                       torch.cat([p.flatten() for p in
+                                  whole.model.module.parameters()])))
+        for name in ("whole", "resumed"):
+            r = rec[name]
+            if r["entries"] != 1 or r["steps"] != 4 or r["preempted"] or \
+                    r["optimizer"] != "LARS" or \
+                    not all(math.isfinite(v) for v in r["losses"]):
+                problems.append(f"ssl run list: the {name} run {r}")
+        if not rec["cut"]["preempted"] or \
+                "_iter_" not in rec["cut_checkpoints"][-1]:
+            problems.append(f"ssl run list: the preempted run {rec['cut']}, "
+                            f"checkpoints {rec['cut_checkpoints']}")
+        if not equal or not heads:
+            problems.append(f"ssl run list: LARS buffers restored bit for "
+                            f"bit {equal}, head stats {heads}")
+        if not isinstance(resumed.optimizer, LARS):
+            problems.append("ssl run list: the resumed run is not on LARS")
+        rec["launches"] = [c for r in ("whole", "cut", "resumed")
+                           for c in rec[r].pop("launches")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def ssl(repo, card):
+    """SSL pretraining at full width through the port's entry points
+    (``SSL``): each config trained on the card at its own batch of views
+    (HiCo++ M6's S3D-G at the first of ``SSL_FALLBACK_VIDEOS`` that fits,
+    reckoned from the SimCLR step's memory a clip) with its device
+    augmentation, contrastive head, SSL loss and LARS; the SimCLR run
+    list with a save and a resume; then with TF32 off the device
+    augmentation's apply card against CPU and one float64 step of each
+    config card against CPU, with their controls. Returns K1-K4's
+    launches in the phase, which must all be 0."""
+    cfgs = {k: _conv_cfg(repo, p) for k, p in SSL.items()}
+    per_clip = {}
+
+    def simclr(p):
+        rec = _ssl_train(cfgs["simclr"], p, "simclr")
+        mem = rec["memory"]
+        per_clip.update(base=mem["base_gb"] * 2 ** 30,
+                        bytes=(mem["peak_gb"] - mem["base_gb"]) * 2 ** 30
+                        / rec["clips"])
+        return rec
+
+    parts = [("simclr_train", simclr),
+             ("hico_train", lambda p: _ssl_train(cfgs["hico"], p, "hico")),
+             ("hico_pp_train", lambda p: _ssl_train(cfgs["hico_pp"], p,
+                                                    "hico_pp", per_clip)),
+             ("hico_pp_vit_train", lambda p: _ssl_train(
+                 cfgs["hico_pp_vit"], p, "hico_pp_vit")),
+             ("run_list", lambda p: _ssl_run(repo, p))]
+    agreements = [("augment_agreement",
+                   lambda p: _ssl_aug_agree(cfgs["simclr"], p))]
+    agreements += [(f"{k}_train_agreement",
+                    lambda p, k=k: _ssl_train_agree(cfgs[k], p, k))
+                   for k in SSL]
+    return _conv_phase("ssl", card, parts, agreements,
+                       configs=dict(SSL))
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -4699,6 +5177,7 @@ def main():
         s3dg_launches = s3dg(repo, card)
         vit_launches = vit(repo, card)
         transformers_launches = transformers(repo, card)
+        ssl_launches = ssl(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -4776,6 +5255,7 @@ def main():
             entry["s3dg_launches"] = s3dg_launches[name]
             entry["vit_launches"] = vit_launches[name]
             entry["transformers_launches"] = transformers_launches[name]
+            entry["ssl_launches"] = ssl_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -4810,6 +5290,7 @@ def main():
             "vit_launches": vit_launches["attention_qkv_rows"],
             "transformers_launches":
                 transformers_launches["attention_qkv_rows"],
+            "ssl_launches": ssl_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

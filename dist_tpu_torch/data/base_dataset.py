@@ -7,6 +7,12 @@ neighbour fallback. ``__getitem__`` returns numpy:
 
     {"video": uint8 (T, S, S, 3), "label": int64, "index": int64}
 
+Under ``PRETRAIN.ENABLE`` a train sample decodes
+``NUM_CLIPS_PER_VIDEO`` distinct clips (one decoder pass) and the SSL
+view generator (``ssl/generator.py``) turns them into views:
+
+    {"video": uint8 (n, T, S, S, 3), "label", "contrastive": (n,), "index"}
+
 Test splits replicate each video ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS``
 times; ``index -> (clip_idx, spatial_idx)`` as in the JAX package, so
 that the TestMeter regroups views by ``index // num_clips``. Per-sample
@@ -34,8 +40,6 @@ DATASET_REGISTRY = Registry("Dataset")
 # (base_dataset.py:416-431)
 SSV2_FLIP_LABEL_MAP = {86: 87, 87: 86, 93: 94, 94: 93, 166: 167, 167: 166}
 
-_SSL_TODO = ("PRETRAIN.ENABLE (the SSL view generator, dist_tpu/ssl/) is not "
-             "ported yet (ROADMAP.md queue A: SSL/HiCo pretraining)")
 _RAND_AUG_TODO = ("AUGMENTATION.{} (data/rand_augment.py) is not ported yet "
                   "(ROADMAP.md queue A: data/rand_augment.py)")
 
@@ -113,19 +117,24 @@ class BaseVideoDataset(abc.ABC):
                                * cfg.TEST.NUM_SPATIAL_CROPS)
         else:
             raise NotImplementedError(f"Split {split} not supported")
-        if cfg.PRETRAIN.ENABLE:
-            raise NotImplementedError(_SSL_TODO)
         for key in ("AUTOAUGMENT", "RANDOM_ERASING"):
             aug = cfg.AUGMENTATION.get(key)
             if split == "train" and aug and aug.ENABLE:
                 raise NotImplementedError(_RAND_AUG_TODO.format(key))
 
         self._num_frames = cfg.DATA.NUM_INPUT_FRAMES
+        self._sampling_rate = cfg.DATA.SAMPLING_RATE
         self._construct_dataset(cfg)
 
         self.text_tokens = None
         if cfg.DATA.DATASET_LABEL_TEXT.ENABLE:
             self._load_dataset_labels(cfg)
+
+        # SSL pretraining: the view generator runs in __getitem__
+        self.ssl_generator = None
+        if cfg.PRETRAIN.ENABLE:
+            from dist_tpu_torch.ssl.generator import build_ssl_generator
+            self.ssl_generator = build_ssl_generator(cfg, split)
 
     # ---- to be provided by subclasses ----
     @abc.abstractmethod
@@ -172,9 +181,32 @@ class BaseVideoDataset(abc.ABC):
         return len(self._samples)
 
     # ---- decode ----
+    def _ssl_clips(self):
+        """Clips a train sample decodes for the SSL views: 1 outside
+        pretraining."""
+        if self.ssl_generator is None or self.split != "train":
+            return 1
+        return int(self.cfg.PRETRAIN.get("NUM_CLIPS_PER_VIDEO", 1))
+
     def _decode_video(self, sample_info, index, rng):
+        """(frames, spatial_idx); for SSL pretraining's train split a list
+        of ``NUM_CLIPS_PER_VIDEO`` clips, each at its own random frame
+        indices, decoded in one pass over the union of the indices."""
         clip_idx, spatial_idx = self._view_indices(index)
         num_frames, fps = probe_video(sample_info["path"])
+        n_clips = self._ssl_clips()
+        if n_clips > 1:
+            index_lists = [
+                sampling.get_frame_indices(
+                    self.cfg, num_frames, fps, clip_idx,
+                    self.cfg.TEST.NUM_ENSEMBLE_VIEWS, rng=rng,
+                    random_sample=True)
+                for _ in range(n_clips)]
+            frames = read_video(sample_info["path"],
+                                np.concatenate(index_lists))
+            bounds = np.cumsum([0] + [len(lst) for lst in index_lists])
+            return [frames[a:b] for a, b in zip(bounds[:-1], bounds[1:])], \
+                spatial_idx
         indices = sampling.get_frame_indices(
             self.cfg, num_frames, fps, clip_idx,
             self.cfg.TEST.NUM_ENSEMBLE_VIEWS, rng=rng,
@@ -269,6 +301,12 @@ class BaseVideoDataset(abc.ABC):
 
         label = int(sample_info["supervised_label"]) \
             if not isinstance(sample_info["supervised_label"], dict) else 0
+        if self.ssl_generator is not None:
+            views, labels = self.ssl_generator(
+                frames if isinstance(frames, list) else [frames], {}, rng)
+            return {"video": views, "label": np.int64(label),
+                    "contrastive": labels["self-supervised"]["contrastive"],
+                    "index": np.int64(index)}
         frames = self._transform(frames, spatial_idx, rng)
 
         # the label-remapping flip applies to SSV2 only (reference

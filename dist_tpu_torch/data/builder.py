@@ -28,7 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from dist_tpu_torch.data import datasets  # noqa: F401  (registers them)
+# the dataset modules register their classes
+from dist_tpu_torch.data import datasets, long_video  # noqa: F401
 from dist_tpu_torch.data.base_dataset import DATASET_REGISTRY
 from dist_tpu_torch.parallel.mesh import data_axis_size
 from dist_tpu_torch.utils.device import resolve_device

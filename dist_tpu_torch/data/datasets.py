@@ -108,14 +108,23 @@ class Synthetic(BaseVideoDataset):
                 "supervised_label": vid % int(nc or 10)}
 
     def _decode_video(self, sample_info, index, rng):
+        """The video's seeded frames; for SSL pretraining's train split
+        ``NUM_CLIPS_PER_VIDEO`` distinct clips, clip ``i`` seeded by
+        ``hash((vid, i))``, as the JAX package's."""
         _, spatial_idx = self._view_indices(index)
         vid = int(sample_info["path"].split("//")[1])
         size = max(self.cfg.DATA.TRAIN_CROP_SIZE, self.cfg.DATA.TEST_CROP_SIZE,
                    self.cfg.DATA.TEST_SCALE)
-        g = np.random.default_rng(vid)
-        frames = g.integers(0, 256, (self._num_frames, size, size, 3),
-                            dtype=np.uint8)
-        return frames, spatial_idx
+
+        def clip(seed):
+            return np.random.default_rng(seed).integers(
+                0, 256, (self._num_frames, size, size, 3), dtype=np.uint8)
+
+        n_clips = self._ssl_clips()
+        if n_clips > 1:
+            return [clip(hash((vid, i)) & 0x7FFFFFFF)
+                    for i in range(n_clips)], spatial_idx
+        return clip(vid), spatial_idx
 
     def _load_dataset_labels(self, cfg):
         nc = cfg.VIDEO.HEAD.NUM_CLASSES

@@ -11,15 +11,19 @@ arithmetic itself, in integers, on all frames of a clip at once: 11-bit
 fixed-point weights and OpenCV's vectorised rounding, equal to
 ``cv2.resize`` bit for bit.
 
+The SSL views' blur (:func:`gaussian_blur_clip`) is OpenCV's
+``GaussianBlur`` on uint8 likewise, computed here in integers: its
+bit-exact kernel in 8-bit fixed point and ``BORDER_REFLECT_101``, equal to
+``cv2.GaussianBlur`` bit for bit.
+
 Device side: :func:`normalize_device`, the float conversion and mean/std
 normalisation, runs on the video's device inside the step.
 """
 
+import math
+
 import numpy as np
 import torch
-
-_BLUR_TODO = ("gaussian_blur_clip (SSL pretraining views) is not ported yet "
-              "(ROADMAP.md queue A: SSL/HiCo pretraining)")
 
 
 # --------------------------------------------------------------------------
@@ -290,9 +294,68 @@ def color_jitter_clip(frames, rng, brightness=0, contrast=0, saturation=0,
     return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
+def _gaussian_kernel(n, sigma):
+    """OpenCV's bit-exact Gaussian kernel of odd size ``n`` in 8-bit fixed
+    point (``getGaussianKernelBitExact``, then its error-diffusion
+    rounding): int weights summing to 256, computed in float64 in
+    OpenCV's order."""
+    if sigma <= 0:
+        sigma = n * 0.15 + 0.35
+    scale = -0.125 / (sigma * sigma)
+    half = (n - 1) // 2
+    # exp(-x^2 / (2 sigma^2)) at x = i - half, taken as (2x)^2 * -1/8
+    values = [math.exp(float(x * x) * scale) for x in range(1 - n, 0, 2)]
+    inv = 1.0 / (2.0 * sum(values) + 1.0)
+    out, err, total = [0] * n, 0.0, 0
+    for i, v in enumerate(values):
+        adj = v * inv * 256.0 + err
+        q = int(np.rint(adj))
+        err = adj - q
+        out[i] = out[n - 1 - i] = q
+        total += q
+    out[half] = 256 - 2 * total
+    return np.asarray(out, np.int32)
+
+
+def _reflect_101(n, pad):
+    """Source indices of an axis of ``n`` padded by ``pad`` on each side
+    with OpenCV's ``BORDER_REFLECT_101`` (``gfedcb|abcdefgh|gfedcba``)."""
+    idx = np.abs(np.arange(-pad, n + pad))
+    return np.where(idx >= n, 2 * (n - 1) - idx, idx)
+
+
+def _blur_frames(frames, k, sigma):
+    """``cv2.GaussianBlur(frame, (k, k), sigma)`` of every uint8 frame of
+    a (T, H, W, C) clip: OpenCV's fixed-point path, a horizontal pass to
+    8 fractional bits, a vertical one to 16, rounded half up to uint8."""
+    t, h, w, c = frames.shape
+    kern = _gaussian_kernel(k, sigma)
+    pad = k // 2
+    x = frames[:, :, _reflect_101(w, pad)].astype(np.int32)
+    rows = kern[0] * x[:, :, :w]
+    for j in range(1, k):
+        rows += kern[j] * x[:, :, j:j + w]
+    rows = rows[:, _reflect_101(h, pad)]
+    out = kern[0] * rows[:, :h]
+    for j in range(1, k):
+        out += kern[j] * rows[:, j:j + h]
+    out += 1 << 15
+    out >>= 16
+    return np.minimum(out, 255).astype(np.uint8)
+
+
 def gaussian_blur_clip(frames, rng, sigma_range=(0.1, 2.0)):
-    """SimCLR-style Gaussian blur of SSL pretraining views: not ported."""
-    raise NotImplementedError(_BLUR_TODO)
+    """SimCLR-style Gaussian blur on uint8 (T,H,W,C): one sigma drawn
+    uniformly per clip, kernel ~10% of the short side (odd, >= 3), equal to
+    the JAX package's ``cv2.GaussianBlur`` of each frame bit for bit.
+
+    The reference's SSL blur constructs ``GaussianBlur(kernel_size=1)``,
+    an identity filter; this is the intended SimCLR blur, as the JAX
+    package's."""
+    sigma = float(rng.uniform(*sigma_range))
+    k = min(frames.shape[1], frames.shape[2]) // 10
+    k = max(k | 1, 3)  # odd, >= 3
+    return _blur_frames(np.asarray(frames), k, sigma)
 
 
 # --------------------------------------------------------------------------

@@ -56,7 +56,9 @@ class BatchNorm(nn.BatchNorm3d):
     """flax's BatchNorm over the channel axis 1 of ``(B, C, ...)``, an
     fp32 island: the input is normalised in fp32 and returned in its
     dtype. ``momentum`` is flax's (0.9: the running stats keep 0.9 of
-    themselves a step); ``zero_init`` starts the scale at 0."""
+    themselves a step); ``zero_init`` starts the scale at 0. On ``(N,
+    C)`` features it is flax's ``nn.BatchNorm`` over the batch (the
+    contrastive heads' projections: ``momentum=0.99, eps=1e-3``)."""
 
     def __init__(self, num_features, momentum=0.9, eps=1e-5,
                  zero_init=False):

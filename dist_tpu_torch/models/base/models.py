@@ -33,10 +33,9 @@ BRANCH_REGISTRY = Registry("Branch")
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST, "
                "ResNet3D, SlowFast, S3D-G, video-transformer and ConvNeXt "
-               "families (ROADMAP.md queue A: SSL/HiCo pretraining for the "
-               "contrastive heads, TAL for the localization backbone and "
-               "BMNHead, What no shipped config reaches for "
-               "ClipVideoHeadLinear)")
+               "families and the contrastive heads (ROADMAP.md queue A: "
+               "TAL for the localization backbone and BMNHead, What no "
+               "shipped config reaches for ClipVideoHeadLinear)")
 
 
 def _eval_activation(out, activation):
@@ -198,10 +197,12 @@ class VideoModel:
 
 def build_head(cfg, dim_in=None):
     """The configured head: ``ClipVideoTextIdentity`` (no weights),
-    ``BaseHead``, ``BaseHeadx2``, ``TransformerHead`` (``PRE_LOGITS``)
-    or ``TransformerHeadx2`` over ``dim_in`` features (default the
-    backbone's last ``NUM_FILTERS``, else its ``NUM_FEATURES``), or a
-    head built from ``cfg`` (the SlowFast heads)."""
+    ``BaseHead``, ``BaseHeadx2``, ``TransformerHead`` (``PRE_LOGITS``),
+    ``TransformerHeadx2`` or a contrastive head
+    (``models/heads/contrastive.py``, from ``PRETRAIN.CONTRASTIVE``) over
+    ``dim_in`` features (default the backbone's last ``NUM_FILTERS``,
+    else its ``NUM_FEATURES``), or a head built from ``cfg`` (the
+    SlowFast heads)."""
     name = cfg.VIDEO.HEAD.NAME
     if not name:
         return None
@@ -223,6 +224,8 @@ def build_head(cfg, dim_in=None):
     if name == "TransformerHead":
         return cls(dim_in, int(head.NUM_CLASSES or 0), *common,
                    pre_logits=bool(head.get("PRE_LOGITS", False)))
+    if name.startswith("ContrastiveHead"):
+        return cls(cfg, dim_in)
     return cls(cfg)
 
 
@@ -233,6 +236,7 @@ def _register_backbones():
     import dist_tpu_torch.models.backbones.video_transformer  # noqa: F401
     import dist_tpu_torch.models.backbones.vit_video  # noqa: F401
     import dist_tpu_torch.models.branches.tada_convnext  # noqa: F401
+    import dist_tpu_torch.models.heads.contrastive  # noqa: F401
     import dist_tpu_torch.models.heads.transformer_head  # noqa: F401
 
 

@@ -1,7 +1,8 @@
-"""Supervised losses and the loss dispatch (port of the supervised path of
+"""Supervised losses and the loss dispatch (port of
 ``dist_tpu/optim/losses.py``): cross-entropy, soft-target CE (whenever
 mixup/cutmix is on), BCE, MSE and label smoothing; dict-valued labels
-(EPIC verb/noun) sum the per-key losses. Losses are fp32 0-d tensors
+(EPIC verb/noun) sum the per-key losses; under ``PRETRAIN.ENABLE`` the
+SSL losses of ``optim/contrastive.py``. Losses are fp32 0-d tensors
 (float64 for float64 predictions)."""
 
 import torch
@@ -10,8 +11,7 @@ import torch.nn.functional as F
 from dist_tpu_torch.models.precision import island_dtype
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
-               "path only (ROADMAP.md queue A: SSL/HiCo pretraining, "
-               "TAL)")
+               "and SSL paths only (ROADMAP.md queue A: TAL)")
 
 
 def soft_target_cross_entropy(logits, target):
@@ -68,13 +68,31 @@ def label_smoothing(labels, num_classes, smoothing):
     return one_hot * (on - off) + off
 
 
+def ssl_loss(cfg, preds, logits, labels, cur_epoch=0.0):
+    """``PRETRAIN.LOSS`` split on ``+``, each part weighted by its
+    ``LOSS_WEIGHTS`` entry, on ``labels["self-supervised"]``; a part's
+    entries whose name holds "debug" are reported and not summed."""
+    from dist_tpu_torch.optim.contrastive import SSL_LOSSES
+
+    loss, loss_in_parts = 0.0, {}
+    weights = list(cfg.PRETRAIN.LOSS_WEIGHTS)
+    for idx, item in enumerate(cfg.PRETRAIN.LOSS.split("+")):
+        fn = SSL_LOSSES.get_strict("Loss_" + item)
+        parts, _ = fn(cfg, preds, logits, labels.get("self-supervised", {}),
+                      cur_epoch)
+        for k, v in parts.items():
+            loss_in_parts[k] = v
+            if "debug" not in k:
+                loss = loss + weights[idx] * v
+    return loss, loss_in_parts
+
+
 def calculate_loss(cfg, preds, logits, labels, cur_epoch=0.0):
-    """The loss of the supervised path. ``labels`` is the dataset's dict:
-    {"supervised": ..., "supervised_mixup": ...}. Returns
-    (loss, loss_in_parts)."""
-    del logits, cur_epoch        # read by the SSL and TAL losses only
+    """The loss. ``labels`` is the dataset's dict: {"supervised": ...,
+    "supervised_mixup": ..., "self-supervised": {"contrastive": ...}}.
+    Returns (loss, loss_in_parts)."""
     if cfg.PRETRAIN.ENABLE:
-        raise NotImplementedError(f"PRETRAIN.ENABLE {_NOT_PORTED}")
+        return ssl_loss(cfg, preds, logits, labels, cur_epoch)
     if cfg.LOCALIZATION.ENABLE:
         raise NotImplementedError(f"LOCALIZATION.ENABLE {_NOT_PORTED}")
     loss_in_parts = {}

@@ -15,7 +15,9 @@
 - ``adam`` and ``adamw`` are both ``torch.optim.AdamW`` (decoupled decay,
   eps 1e-8), as the JAX package chains ``scale_by_adam`` and
   ``add_decayed_weights`` for both; ``sgd`` is ``torch.optim.SGD`` with
-  momentum, nesterov and dampening (the JAX package's ``_torch_sgd_trace``).
+  momentum, nesterov and dampening (the JAX package's ``_torch_sgd_trace``);
+  ``lars`` is :class:`LARS`, the JAX package's ``optax.lars`` chain, with
+  the BN group on plain SGD momentum under ``OPTIMIZER.BN_LARS_EXCLUDE``.
 - Each group carries ``lr_mult``; the train step sets every group's
   ``lr = lr_fn(step) * lr_mult`` before ``optimizer.step()``.
 
@@ -47,9 +49,64 @@ BODY = "body_reduced"       # non-head params under TRAIN.LR_REDUCE+FINE_TUNE
 BN = "bn_group"             # bn/norm params (BN.WEIGHT_DECAY, lr_reduce)
 REDUCE_SCALE = 0.1
 
-_LARS = ("LARS is not ported yet: the PyTorch port has no layer-wise "
-         "trust-ratio optimizer (ROADMAP.md queue A: SSL/HiCo "
-         "pretraining)")
+
+
+class LARS(torch.optim.Optimizer):
+    """Layer-wise adaptive rate scaling as the JAX package chains it:
+    ``optax.lars(learning_rate=1.0, weight_decay, momentum, nesterov)``,
+    then the group's LR as an outer scale. For each parameter ``w`` with
+    gradient ``g``:
+
+    1. ``u = g + weight_decay * w`` (decayed weights);
+    2. ``u = u * trust_coefficient * |w| / |u|``, the ratio taken as 1
+       where either norm is 0 (optax's ``scale_by_trust_ratio``, eps 0);
+    3. the momentum trace ``m = momentum * m + u`` (zeros at the start),
+       and the update ``u + momentum * m`` under Nesterov, else ``m``;
+    4. ``w -= lr * update``.
+
+    So the trace holds updates before the LR: under a changing LR (warm-up,
+    cosine) the step is not torch's "LR then momentum". A group with
+    ``lars=False`` (the BN group under ``OPTIMIZER.BN_LARS_EXCLUDE``)
+    skips step 2, which leaves plain SGD momentum (optax's
+    ``add_decayed_weights`` and ``trace``). The trace is the state's
+    ``momentum_buffer``, saved and restored with the optimizer's state
+    dict."""
+
+    def __init__(self, params, lr=0.0, weight_decay=0.0, momentum=0.9,
+                 nesterov=False, trust_coefficient=0.001, lars=True):
+        super().__init__(params, dict(
+            lr=lr, weight_decay=weight_decay, momentum=momentum,
+            nesterov=nesterov, trust_coefficient=trust_coefficient,
+            lars=lars))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            wd, mom = group["weight_decay"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad.add(p, alpha=wd) if wd else p.grad.clone()
+                if group["lars"]:
+                    w_norm = torch.linalg.vector_norm(p)
+                    u_norm = torch.linalg.vector_norm(u)
+                    ratio = group["trust_coefficient"] * w_norm / u_norm
+                    ratio = torch.where((w_norm == 0) | (u_norm == 0),
+                                        torch.ones_like(ratio), ratio)
+                    u.mul_(ratio)
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                buf = state["momentum_buffer"]
+                buf.mul_(mom).add_(u)
+                update = u.add_(buf, alpha=mom) if group["nesterov"] else buf
+                p.add_(update, alpha=-group["lr"])
+        return loss
+
 
 
 def _segments(name):
@@ -148,9 +205,7 @@ def construct_optimizer(cfg, module, steps_per_epoch, start_epoch=0):
     parameters (the frozen ones get ``requires_grad_(False)``), and
     ``lr_fn(step)``, the schedule's LR before the groups' ``lr_mult``."""
     method = cfg.OPTIMIZER.OPTIM_METHOD
-    if method == "lars":
-        raise NotImplementedError(_LARS)
-    if method not in ("sgd", "adam", "adamw"):
+    if method not in ("sgd", "adam", "adamw", "lars"):
         raise NotImplementedError(f"Unsupported optimizer {method}")
     dist_enabled = _dist_enabled(cfg)
     lr_mult = (float(cfg.OPTIMIZER.get("NEW_NET_LRMULT", 1.0))
@@ -178,7 +233,14 @@ def construct_optimizer(cfg, module, steps_per_epoch, start_epoch=0):
     groups = [{"params": members[k], "weight_decay": group_opts[k][0],
                "lr_mult": lr_mult * group_opts[k][1], "group": k}
               for k in group_opts if members[k]]
-    if method == "sgd":
+    if method == "lars":
+        # the BN group skips the trust ratio (the reference's lars_exclude)
+        exclude = bool(cfg.OPTIMIZER.get("BN_LARS_EXCLUDE", False))
+        for g in groups:
+            g["lars"] = not (exclude and g["group"] == BN)
+        optimizer = LARS(groups, momentum=float(cfg.OPTIMIZER.MOMENTUM),
+                         nesterov=bool(cfg.OPTIMIZER.NESTEROV))
+    elif method == "sgd":
         optimizer = torch.optim.SGD(
             groups, lr=0.0, momentum=float(cfg.OPTIMIZER.MOMENTUM),
             dampening=float(cfg.OPTIMIZER.get("DAMPENING", 0.0) or 0.0),

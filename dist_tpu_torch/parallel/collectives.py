@@ -3,8 +3,10 @@
 
 The train step's gradient mean is DDP's (``parallel/mesh.py::wrap_ddp``);
 what remains is the host side: gathering the ranks' numpy results, the
-mean of their scalars, the agreed flags and a barrier. Each is the
-identity in a process outside any group. Under NCCL the exchanged values
+mean of their scalars, the agreed flags and a barrier; and, inside the
+step, :func:`gather_with_grad`, the rows of every rank for a loss that
+mixes samples (the SSL losses). Each is the identity in a process outside
+any group. Under NCCL the exchanged values
 ride this rank's card, under gloo the CPU. ``local_rows`` has no
 counterpart: each rank holds exactly its own rows.
 """
@@ -35,6 +37,42 @@ def _device():
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+class _GatherSplice(torch.autograd.Function):
+    """Forward: every rank's rows, in rank order. Backward: this rank's
+    slice of the gradient times the world size."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(get_world_size())]
+        dist.all_gather(parts, x)
+        # this rank's own rows, so that the rows are x itself
+        parts[get_rank()] = x
+        ctx.rows, ctx.rank = x.shape[0], get_rank()
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.rows
+        return grad[lo:lo + ctx.rows] * get_world_size()
+
+
+def gather_with_grad(x):
+    """Every rank's rows of ``x`` (the same count on each), concatenated
+    in rank order, with a gradient to this rank's own rows (the
+    reference's ``construct_logits_with_gradient``).
+
+    Every rank then computes the loss of the global batch, as the JAX
+    step does in one program. Each rank's gradient reaches only its own
+    rows, so the backward multiplies it by the world size: DDP's mean over
+    the ranks then gives the global loss's gradient, both to the weights
+    before the gather (each rank holds its rows' part) and to those after
+    it (each rank holds the whole). Outside a group: ``x``."""
+    if get_world_size() == 1:
+        return x
+    return _GatherSplice.apply(x)
 
 
 def all_gather_arrays(*arrays):

@@ -1,6 +1,7 @@
 """Train state and steps (port of ``dist_tpu/tasks/state.py``): video
 preparation, the once-per-run label-text features, the eval step with its
-top-k errors over the pad mask, and the supervised train step.
+top-k errors over the pad mask, and the train step (supervised, or SSL
+pretraining on multi-view batches with the device augmentation).
 
 The JAX package's step is one jitted function; here it is eager PyTorch
 that queues its work on the card and returns its metrics as 0-d device
@@ -16,6 +17,7 @@ import torch
 
 from dist_tpu_torch.data import mixup
 from dist_tpu_torch.data.transforms import normalize_device
+from dist_tpu_torch.ops import augment_device
 from dist_tpu_torch.optim.losses import calculate_loss
 from dist_tpu_torch.optim.optimizer import set_lr
 from dist_tpu_torch.parallel import collectives
@@ -177,18 +179,43 @@ def step_rng(device, seed, step):
         yield
 
 
-_DEVICE_AUG = ("AUGMENTATION.USE_GPU (dist_tpu/ops/augment_device.py) is not "
-               "ported yet (ROADMAP.md queue A: SSL/HiCo pretraining, "
-               "untrimmed video and the device views)")
+def augment_draws(c, rows, seed, step):
+    """The device augmentation's factors for this rank's ``rows`` rows of
+    step ``step``: drawn for the global batch (every rank's rows) from
+    ``step_generator(seed, step)`` and sliced to this rank's, so that
+    the rows of a group get the factors one process would give the
+    concatenated batch."""
+    world, rank = collectives.get_world_size(), collectives.get_rank()
+    draws = augment_device.draw(c, rows * world, step_generator(seed, step))
+    return {k: v[rank * rows:(rank + 1) * rows] for k, v in draws.items()}
+
+
+def _augment_on_device(cfg, video, c, seed, step):
+    """uint8 video -> [0, 1] -> the device augmentation -> normalised
+    with ``DATA.MEAN``/``STD``, on the video's device."""
+    v01 = video.float() / 255.0
+    v01 = augment_device.apply(v01, augment_draws(c, v01.shape[0], seed, step),
+                               c)
+    mean = torch.tensor(list(cfg.DATA.MEAN), dtype=v01.dtype,
+                        device=v01.device)
+    std = torch.tensor(list(cfg.DATA.STD), dtype=v01.dtype, device=v01.device)
+    return (v01 - mean) / std
 
 
 def make_train_step(model, cfg, optimizer, lr_fn):
-    """The supervised train step.
+    """The train step.
 
     ``step(state, batch) -> metrics``, with ``batch`` = {"video": (B, T,
     H, W, 3) uint8 or float, "labels": (B,) int, "text_features":
     optional}, and for EPIC's dual heads "label_verb" and "label_noun"
-    (B,) int, all on the model's device. It normalises the video, mixes
+    (B,) int, all on the model's device. Under ``PRETRAIN.ENABLE`` the
+    video is the views (B, n, T, H, W, 3), flattened to rows ``b * n +
+    v`` before anything else, the batch carries "contrastive" (B, n),
+    read by the SSL losses as ``labels["self-supervised"]``, and the
+    errors count 0; under ``AUGMENTATION.USE_GPU`` a uint8 video is
+    augmented on its device (``ops/augment_device.py``, the factors drawn
+    from (``RANDOM_SEED + 3``, ``state.step``) by :func:`augment_draws`)
+    before it is normalised. Otherwise it normalises the video, mixes
     it (not under the verb/noun labels) with draws that are a pure
     function of (``RANDOM_SEED + 1``, ``state.step``), as the JAX step's
     ``fold_in(rng, state.step)``, so
@@ -206,18 +233,28 @@ def make_train_step(model, cfg, optimizer, lr_fn):
     the optimizer steps (``optimizer.register_step_pre_hook`` reads it
     there); after it, torch's foreach SGD, CUDA's default, has added the
     Nesterov momentum into ``.grad`` in a group without weight decay."""
-    if cfg.AUGMENTATION.get("USE_GPU", False):
-        raise NotImplementedError(_DEVICE_AUG)
     mixup_on = bool(cfg.AUGMENTATION.MIXUP.ENABLE
                     or cfg.AUGMENTATION.CUTMIX.ENABLE)
     mc = mixup.MixupConfig.from_cfg(cfg) if mixup_on else None
     decay = ema_decay(cfg)
+    pretrain = bool(cfg.PRETRAIN.ENABLE)
+    aug = (augment_device.DeviceAugConfig.from_cfg(cfg)
+           if cfg.AUGMENTATION.get("USE_GPU", False) else None)
     mix_seed = int(cfg.RANDOM_SEED) + 1
     drop_seed = int(cfg.RANDOM_SEED) + 2
+    aug_seed = int(cfg.RANDOM_SEED) + 3
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(state, batch):
-        video = _prep_video(cfg, batch["video"])
+        video = batch["video"]
+        if video.dim() == 6:
+            # SSL views: flattened before the augmentation, so that it
+            # acts on (T, H, W) and not on the view axis
+            video = video.reshape((-1,) + tuple(video.shape[2:]))
+        if aug is not None and video.dtype == torch.uint8:
+            video = _augment_on_device(cfg, video, aug, aug_seed, state.step)
+        else:
+            video = _prep_video(cfg, video)
         epic = "label_verb" in batch
         labels = {"supervised": batch["labels"]}
         if epic:
@@ -225,7 +262,9 @@ def make_train_step(model, cfg, optimizer, lr_fn):
             # are summed per key; no mixup for it, as in the JAX step
             labels["supervised"] = {"verb_class": batch["label_verb"],
                                     "noun_class": batch["label_noun"]}
-        if mc is not None and mc.enabled and not epic:
+        if pretrain and "contrastive" in batch:
+            labels["self-supervised"] = {"contrastive": batch["contrastive"]}
+        if mc is not None and mc.enabled and not epic and not pretrain:
             d = mixup.draw(mc, step_generator(mix_seed, state.step),
                            video.shape[2], video.shape[3])
             video, labels["supervised_mixup"] = mixup.apply(
@@ -258,7 +297,9 @@ def make_train_step(model, cfg, optimizer, lr_fn):
 
         with torch.no_grad():
             head_errs = {}
-            if isinstance(preds, dict):
+            if pretrain:
+                top1 = top5 = torch.zeros((), device=video.device)
+            elif isinstance(preds, dict):
                 preds = {k: v.detach() for k, v in preds.items()}
                 if epic:
                     # the joint action errors are the headline ones, the

@@ -309,7 +309,7 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
             device_batch = {"video": to_device(batch["video"], device),
                             "labels": to_device(batch["label"], device,
                                                 torch.long)}
-            for key in ("label_verb", "label_noun"):
+            for key in ("label_verb", "label_noun", "contrastive"):
                 if key in batch:
                     # the rank's rows, as its video
                     device_batch[key] = to_device(batch[key], device,

@@ -1149,3 +1149,98 @@ def test_position_table_resize_on_the_card(sides):
     got = resize_grid(grid.cuda(), s1)
     assert got.shape == (16, s1, s1, 384) and got.is_cuda
     _within(got.cpu(), want, atol=1e-6, rtol=1e-6)
+
+
+# SSL pretraining: the device augmentation's apply on the card against the
+# CPU on the same factors (fp32, values in [0, 1]; chip_smoke.py's
+# SSL_AUG_LIMIT), and one float64 SSL step of the S3D-G configs, card
+# against CPU, within the conv family's limits
+SSL_AUG_LIMIT = 5e-5
+SSL_TINY = {
+    "hico": ("configs/projects/hico/pt-k400/s3dg-hico-l.yaml", 3),
+    "hico_pp": ("configs/projects/hico++/pt-k400/s3dg-hico++m6.yaml", 4),
+}
+SSL_TINY_OPTS = ["DATA.NUM_INPUT_FRAMES", "8", "DATA.TRAIN_CROP_SIZE", "32",
+                 "DATA.TEST_CROP_SIZE", "32", "DATA.TEST_SCALE", "32",
+                 "PRETRAIN.CONTRASTIVE.HEAD_MID_DIM", "64",
+                 "PRETRAIN.CONTRASTIVE.HEAD_OUT_DIM", "32"]
+
+
+def _ssl_cfg(path, *opts):
+    import os
+
+    from dist_tpu_torch.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(os.path.join(repo, path), list(opts),
+                       make_output_dir=False)
+
+
+def test_ssl_device_augment_on_the_card_matches_the_cpu():
+    from dist_tpu_torch.ops import augment_device as pa
+    from dist_tpu_torch.tasks.state import augment_draws
+
+    cfg = _ssl_cfg(SSL_TINY["hico"][0])
+    c = pa.DeviceAugConfig.from_cfg(cfg)
+    gen = torch.Generator().manual_seed(3)
+    video = torch.rand((16, 8, 56, 56, 3), generator=gen)
+    f = augment_draws(c, 16, 5, 2)
+    want = pa.apply(video, f, c)
+    got = pa.apply(video.cuda(), f, c)
+    assert got.is_cuda
+    assert float((got.cpu() - want).abs().max()) <= SSL_AUG_LIMIT
+    flipped = pa.apply(video.cuda(), {**f, "flip": ~f["flip"]}, c)
+    assert float((flipped.cpu() - want).abs().max()) > SSL_AUG_LIMIT
+
+
+@pytest.mark.parametrize("name", list(SSL_TINY))
+def test_tiny_ssl_step_on_the_card_matches_the_cpu(name):
+    """One float64 SSL step (S3D-G at 8 x 32^2, its contrastive head
+    narrowed, LARS) on 2 videos of normalised views, card against CPU from
+    the same weights: the loss, the running stats and the worst gradient
+    leaf within the conv family's limits; K1-K4 launch no time."""
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import LARS, construct_optimizer
+    from dist_tpu_torch.tasks.state import (
+        _prep_video,
+        create_train_state,
+        make_train_step,
+    )
+
+    counts = (att.fused_attention_qkv, att.attention_qkv_rows,
+              tn.fused_temporal_net, tn.fused_temporal_net_bwd)
+    for fn in counts:
+        fn.launches = 0
+    path, views = SSL_TINY[name]
+    cfg = _ssl_cfg(path, *SSL_TINY_OPTS, "PRETRAIN.NUM_CLIPS_PER_VIDEO",
+                   str(views))
+    gen = torch.Generator().manual_seed(4)
+    clips = torch.randint(0, 256, (2 * views, 8, 32, 32, 3), generator=gen,
+                          dtype=torch.int32).to(torch.uint8)
+    video = _prep_video(cfg, clips).double()
+    batch = {"video": video.reshape((2, views) + tuple(video.shape[1:])),
+             "labels": torch.zeros(2, dtype=torch.long),
+             "contrastive": torch.arange(views).repeat(2, 1)}
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    out = []
+    for model in (cpu, card):
+        model.module.double()
+        opt, lr_fn = construct_optimizer(cfg, model.module, 4)
+        assert isinstance(opt, LARS)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_, m=model: grads.update(
+            {k: p.grad.cpu().clone() for k, p in m.module.named_parameters()}))
+        metrics = make_train_step(model, cfg, opt, lr_fn)(
+            create_train_state(model, opt),
+            {k: v.to(model.device) for k, v in batch.items()})
+        stats = torch.cat([v.flatten().cpu() for k, v in
+                           model.module.state_dict().items()
+                           if k.endswith(("running_var", "running_mean"))])
+        out.append((float(metrics["loss"]), stats, grads))
+    (lc, sc, gc), (lg, sg, gg) = out
+    assert abs(lg - lc) / abs(lc) <= CONV_LOSS_RTOL
+    assert _rel_l2(sg, sc) <= CONV_STATS_REL
+    assert _worst_leaf(gg, gc)[0] <= CONV_GRAD_REL, _worst_leaf(gg, gc)
+    assert all(fn.launches == 0 for fn in counts)

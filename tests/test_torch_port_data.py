@@ -206,7 +206,6 @@ def test_decode_retry_takes_the_neighbour(repo_root, tmp_path, monkeypatch):
 
 def test_unported_options_name_their_roadmap_item(repo_root):
     for opts, item in (
-            (["PRETRAIN.ENABLE", "true"], "SSL/HiCo pretraining"),
             (["AUGMENTATION.AUTOAUGMENT.ENABLE", "true"],
              "data/rand_augment.py"),
             (["AUGMENTATION.RANDOM_ERASING.ENABLE", "true"],
@@ -215,3 +214,8 @@ def test_unported_options_name_their_roadmap_item(repo_root):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue A: {item}"):
             datasets.Synthetic(cfg, "train")
+    # SSL pretraining is ported: the dataset builds its views' generator
+    # instead of refusing
+    cfg, _ = _cfgs(repo_root, "PRETRAIN.ENABLE", "true")
+    cfg.PRETRAIN.GENERATOR = "ContrastiveGenerator"
+    assert datasets.Synthetic(cfg, "train").ssl_generator is not None

@@ -61,6 +61,13 @@ def test_importing_the_port_loads_nothing_forbidden():
     # SlowFast and S3D-G
     assert {"dist_tpu_torch.models.backbones.slowfast",
             "dist_tpu_torch.models.backbones.s3dg"} <= set(modules), modules
+    # SSL pretraining: the views, the heads, the losses, the device
+    # augmentation, untrimmed video
+    assert {"dist_tpu_torch.ssl.generator",
+            "dist_tpu_torch.models.heads.contrastive",
+            "dist_tpu_torch.optim.contrastive",
+            "dist_tpu_torch.ops.augment_device",
+            "dist_tpu_torch.data.long_video"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -118,11 +118,19 @@ def test_label_smoothing_and_calculate_loss_match_jax(repo_root):
 
 
 def test_unported_losses_raise(repo_root):
-    for key in ("PRETRAIN.ENABLE", "LOCALIZATION.ENABLE"):
-        cfg, _ = _cfgs(repo_root, FLAGSHIP, [key, "true"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            losses.calculate_loss(cfg, torch.zeros(2, 3), None,
-                                  {"supervised": torch.zeros(2).long()})
+    """The TAL losses are not ported and raise naming their queue; the
+    SSL losses are: ``PRETRAIN.ENABLE`` dispatches to them."""
+    cfg, _ = _cfgs(repo_root, FLAGSHIP, ["LOCALIZATION.ENABLE", "true"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        losses.calculate_loss(cfg, torch.zeros(2, 3), None,
+                              {"supervised": torch.zeros(2).long()})
+    cfg, _ = _cfgs(repo_root, "configs/projects/hico/simclr_k400_s3dg.yaml")
+    emb = torch.nn.functional.normalize(torch.randn(4, 8), dim=-1)
+    loss, parts = losses.calculate_loss(
+        cfg, torch.zeros(4, 3), emb, {"supervised": torch.zeros(2).long(),
+                                      "self-supervised": {
+                                          "contrastive": torch.zeros(2, 2)}})
+    assert torch.isfinite(loss) and "loss_contrastive" in parts
 
 
 def test_topks_correct_matches_jax_with_k_clamped():
@@ -271,8 +279,14 @@ def test_adjust_lr_scales_by_the_one_card_batch(repo_root, tiny):
 
 
 def test_lars_raises(repo_root):
+    """``lars`` builds the port's ``LARS`` (held to the JAX chain by
+    ``tests/test_torch_port_lars.py``), and an unknown method raises."""
     cfg, _ = _cfgs(repo_root, TINY, ["OPTIMIZER.OPTIM_METHOD", "lars"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    opt, _ = optimizer.construct_optimizer(cfg, build_model(cfg, device="cpu")
+                                           .module, 4)
+    assert isinstance(opt, optimizer.LARS)
+    cfg, _ = _cfgs(repo_root, TINY, ["OPTIMIZER.OPTIM_METHOD", "lamb"])
+    with pytest.raises(NotImplementedError, match="lamb"):
         optimizer.construct_optimizer(cfg, build_model(cfg, device="cpu")
                                       .module, 4)
 

@@ -83,5 +83,11 @@ def test_color_jitter_matches_jax(seed, consistent):
 
 
 def test_gaussian_blur_waits_for_ssl():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.gaussian_blur_clip(_clip((1, 8, 8, 3)), np.random.default_rng(0))
+    """The SSL blur is the JAX package's ``cv2.GaussianBlur`` blur bit
+    for bit on the same draw (more sizes in
+    ``tests/test_torch_port_ssl_data.py``)."""
+    frames = _clip((2, 24, 30, 3))
+    got = tt.gaussian_blur_clip(frames, np.random.default_rng(0))
+    want = jt.gaussian_blur_clip(frames, np.random.default_rng(0))
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, frames)

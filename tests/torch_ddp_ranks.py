@@ -194,3 +194,38 @@ def run_lists(*argv_lists):
 def ddp_steps(step_args):
     """``ddp_step(*args)`` for each of ``step_args``, in one group."""
     return [ddp_step(*a) for a in step_args]
+
+
+def ssl_head_and_loss(cases):
+    """For each (cfg, head weights, pooled features (N, C), views a
+    video): the contrastive head in train mode on this rank's rows of the
+    features (rank r on videos [r * B / world, (r + 1) * B / world)) and
+    the SSL loss, then the backward. Returns per case the loss, the
+    head's gradients, the features' gradient (this rank's rows) and the
+    running stats after the forward. Outside a group: the whole batch."""
+    from dist_tpu_torch.models.base.models import build_head
+    from dist_tpu_torch.optim.losses import calculate_loss
+
+    rank, world = C.get_rank(), C.get_world_size()
+    out = []
+    for cfg, weights, feats, views in cases:
+        head = build_head(cfg, feats.shape[1])
+        head.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in weights.items()})
+        head.train()
+        rows = feats.shape[0] // world
+        x = torch.from_numpy(feats[rank * rows:(rank + 1) * rows].copy())
+        x.requires_grad_(True)
+        preds, logits = head(x)
+        labels = {"self-supervised": {"contrastive": torch.arange(views)
+                                      .repeat(rows // views, 1)}}
+        loss, _ = calculate_loss(cfg, preds, logits, labels)
+        loss.backward()
+        out.append({"loss": loss.item(),
+                    "grads": {k: p.grad.numpy().copy()
+                              for k, p in head.named_parameters()},
+                    "feature_grad": x.grad.numpy().copy(),
+                    "stats": {k: v.numpy().copy()
+                              for k, v in head.state_dict().items()
+                              if k.endswith(("running_mean", "running_var"))}})
+    return out

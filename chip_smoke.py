@@ -190,9 +190,10 @@
    running stat moved. Then SlowFast's run list (``EPIC_RUN_OPTS``:
    train, val, test, the 10 x 3-view test on synthetic clips; every step's
    log line with the per-head errors, the tests' with the verb, noun and
-   action accuracies). Then with TF32 off, for three weight seeds: (c) 2
+   action accuracies). Then with TF32 off: (c) for three weight seeds, 2
    clips on the card against the CPU (``EPIC_AGREEMENT_LIMITS``) and (d)
-   one float64 train step's loss, running stats and worst gradient leaf
+   for ``EPIC_TRAIN_AGREEMENT_SEEDS`` (one), one float64 train step's
+   loss, running stats and worst gradient leaf
    (``FP64_STEP_LIMITS``); the controls, SlowFast's lateral
    fusion convs zeroed and CSN's depthwise convs cut to (1, 3, 3), must
    break (c)'s limits and (d)'s gradients'. K1-K4 must launch no time in
@@ -209,7 +210,7 @@
    gradients' limit). K1-K4 must
    launch no time in the phase.
 16. ViT: the HiCo++ ViT-S HMDB51 fine-tune (``VIT``, 21.91 M weights,
-   fp32, ``AUTOAUGMENT`` off, random weights) at full width: its weights
+   fp32, as shipped, random weights) at full width: its weights
    and forward GFLOP a clip at 112^2 and 128^2 (on the meta device); (a)
    served by ``InferenceEngine`` at batch 8 at its test crop 128^2 (1025
    tokens: the position table resized from 7 x 7 to 8 x 8 a frame),
@@ -256,6 +257,42 @@
    (``FP64_STEP_LIMITS``; a control with the heads' BatchNorm on its
    running stats must break the gradients' limit). K1-K4 must launch no
    time in the phase.
+19. Augment: the ViT-S fine-tune (``VIT``) as shipped, RandAugment
+   ``rand-m9-mstd0.5-inc1`` on after the crop, through its run list's
+   train entry (``AUGMENT_OPTS``: ``AUGMENT_STEPS`` steps at batch 64 of
+   16 x 112^2 synthetic clips) with the loader's 8 workers as spawned
+   processes (``DATA_LOADER.WORKER_TYPE process``) and then as threads:
+   each run's step ms (the first, which waits on the pool's start,
+   apart), clips/s, loader-wait share, peak memory, finite losses; then
+   a process pool's first ``AUGMENT_COMPARE_BATCHES`` batches equal a
+   thread pool's bit for bit, and a control with RandAugment off must
+   differ. K1-K4 must launch no time in the phase.
+20. Submission: (a) the flagship with ``SUBMISSION.ENABLE`` at full
+   width through the run list (``SUBMISSION_OPTS``: the submission entry
+   alone, 2 synthetic videos in 10 x 3 views at batch 16, K1 and K2
+   fused): K1 12 a batch and 12 at set-up, K2 12 a batch; the generic
+   JSON (version 0.1); each video's 30-view sums held to the test
+   task's on the same views (``SUBMISSION_LIMITS``), which a control
+   leaving the last batch's views out must break; (b) SlowFast R50's
+   EPIC-100 dual head (``EPIC_RUN_OPTS``, ``SUBMISSION_EPIC_OPTS``): the
+   EPIC JSON's shape (version 0.2, the supervision levels, 97 verb, 300
+   noun and 100 ranked action scores a video) and its top-100 actions
+   against the eval step's preds summed over the same views
+   (``SUBMISSION_EPIC_LIMITS``), with the same control.
+21. TAL: BMN on EPIC-100 features (``TAL``) at full width (100 snippets
+   of 2304 features, ``DIM1D`` 256, ``DSCALE`` 100, verb/noun maps [97,
+   300]), random weights, seeded features and labels: its weights and
+   forward GFLOP; Adam at batch 16, ``TAL_WARMUP`` warm-up and
+   ``TAL_TIMED`` timed steps (step ms, samples/s, peak memory, every
+   weight moved); the trained model's preds through ``tal/``'s proposals,
+   soft-NMS post-processing and ``EpicDetection`` against ground truth
+   from each video's top detection (mAP in (0, 1]; a control with the
+   ground truth past the video's end must break it); then with TF32
+   off, for three seeds, the forward of 2 samples card against CPU in
+   fp32 (``TAL_AGREEMENT_LIMITS``) and one float64 step
+   (``FP64_STEP_LIMITS``), which a control whose proposal windows are
+   one snippet longer must break. K1-K4 must launch no time in the
+   phase.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -284,7 +321,9 @@ l14 phase's launches there; ``ddp_launches`` the ddp phase's, by part;
 ``zoo_launches`` the zoo phase's, by dry-run row and for classify, and
 under ``zoo`` each zoo shape's numbers; ``tada_launches``,
 ``epic_launches``, ``s3dg_launches``, ``vit_launches``,
-``transformers_launches`` and ``ssl_launches`` those phases' (0);
+``transformers_launches``, ``ssl_launches``, ``augment_launches`` and
+``tal_launches`` those phases' (0), ``submission_launches`` the
+flagship's submission entry's;
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -566,6 +605,10 @@ CONV_AGREEMENT_CLIPS = 2
 # one float64 step within FP64_STEP_LIMITS; the control named per model
 # must break the first, and the second's gradients
 EPIC_CONTROLS = {"slowfast": "fusion", "csn": "depthwise"}
+# the float64 step against the CPU for weight seed RANDOM_SEED alone (the
+# CPU's float64 steps of the two full-width models took most of the
+# phase's 167.5 s at three seeds; cut to make room for the later phases)
+EPIC_TRAIN_AGREEMENT_SEEDS = 1
 EPIC_AGREEMENT_LIMITS = {
     "slowfast": {"max_abs_score_diff": 2.7e-6, "feature_rel_l2": 2.2e-5},
     "csn": {"max_abs_score_diff": 1.6e-4, "feature_rel_l2": 8.0e-4}}
@@ -595,15 +638,15 @@ S3DG_STEPS_PER_EPOCH = 224
 S3DG_AGREEMENT_LIMITS = {"max_abs_score_diff": 2.7e-6, "feature_rel_l2": 2.2e-4}
 # the vit phase: the HiCo++ ViT-S HMDB51 fine-tune (384 wide, 12 layers,
 # 6 heads, patch 16, 16 frames, 51 classes, 21.9 M weights, fp32, AdamW)
-# from random weights with AUTOAUGMENT off (data/rand_augment.py is not
-# ported: ROADMAP.md queue A): served at its test crop 128^2 (1025 tokens:
+# from random weights, as shipped (its run list's loader applies
+# RandAugment; the steps' own batches are made on the card): served at
+# its test crop 128^2 (1025 tokens:
 # the position table resized from 7 x 7 to 8 x 8 a frame) at batch 8,
 # trained at its batch 64 at 112^2 (785 tokens); the epoch as HMDB51
 # split 1's 3,570 training clips at 64
 VIT = "configs/projects/hico++/ft_vit-s_hmdb.yaml"
 VIT_LFT = "configs/projects/hico++/ft-hmdb51/lft_hico++_uk400_vit-s_16x112.yaml"
-VIT_OPTS = ["AUGMENTATION.AUTOAUGMENT.ENABLE", "false",
-            "TRAIN.CHECKPOINT_FILE_PATH", ""]
+VIT_OPTS = ["TRAIN.CHECKPOINT_FILE_PATH", ""]
 VIT_SERVE_BATCH = 8
 VIT_STEPS_PER_EPOCH = 56
 # card against CPU, 3 weight seeds, fp32 with TF32 off: scores and
@@ -682,6 +725,57 @@ SSL_RUN_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.NUM_SAMPLES_LIMIT", "64",
                 "DATA_LOADER.NUM_WORKERS", "8", "LOG_MODEL_INFO", "false",
                 "LOG_CONFIG_INFO", "false"]
 SSL_PREEMPT_AFTER = 3
+# the augment phase: the HiCo++ ViT-S HMDB51 fine-tune (VIT) as shipped,
+# RandAugment (rand-m9-mstd0.5-inc1) on after the crop, through its run
+# list's train entry alone: AUGMENT_STEPS steps at its batch 64 of 16 x
+# 112^2 synthetic clips (one epoch, no eval, its checkpoint), its loader's 8
+# workers as processes and then as threads; then the first
+# AUGMENT_COMPARE_BATCHES batches of a process pool against a thread
+# pool's, bit for bit, with a control (RandAugment off) that must differ
+AUGMENT_STEPS = 6
+AUGMENT_COMPARE_BATCHES = 2
+AUGMENT_OPTS = ["DATA.SYNTHETIC", "true", "TRAIN.CHECKPOINT_FILE_PATH", "",
+                "TEST.ENABLE", "false", "TRAIN.NUM_SAMPLES_LIMIT",
+                str(64 * AUGMENT_STEPS), "TRAIN.NUM_FOLDS", "1",
+                "OPTIMIZER.MAX_EPOCH", "1", "TRAIN.EVAL_PERIOD", "0",
+                "TRAIN.CHECKPOINT_PERIOD", "1", "DATA_LOADER.NUM_WORKERS",
+                "8", "LOG_PERIOD", "1", "LOG_MODEL_INFO", "false",
+                "LOG_CONFIG_INFO", "false"]
+# the submission phase: (a) the flagship with SUBMISSION.ENABLE at full
+# width, K1 and K2 fused (TASK_TYPE submission: that entry alone), 2
+# synthetic videos in 10 x 3 views at batch 16; each video's 30-view sums
+# against the test task's on the same views (the same weights from
+# RANDOM_SEED, the same bf16 kernels: expected equal), set before the
+# card's first reading; (b) SlowFast's EPIC-100 dual head likewise
+# (EPIC_RUN_OPTS' jitter fix, its test batch 8): the top-100 actions of
+# the JSON against those of the eval step's preds summed over the views
+SUBMISSION_OPTS = ["DATA.SYNTHETIC", "true", "TPU.FUSED_TEMPORAL_NET", "true",
+                   "TASK_TYPE", "submission", "SUBMISSION.ENABLE", "true",
+                   "TEST.NUM_SAMPLES_LIMIT", "2", "TEST.BATCH_SIZE", "16",
+                   "LOG_MODEL_INFO", "false", "LOG_CONFIG_INFO", "false"]
+SUBMISSION_EPIC_OPTS = ["TASK_TYPE", "submission", "SUBMISSION.ENABLE",
+                        "true"]
+SUBMISSION_LIMITS = {"max_abs_score_diff": 1e-5}
+SUBMISSION_EPIC_LIMITS = {"max_action_rel_diff": 1e-6}
+# the tal phase: BMN on EPIC-100 (configs/projects/tal/bmn_epic100.yaml)
+# at full width: 100 snippets of 2304 TSN features (verb + noun), two
+# grouped 1-D convs to DIM1D 256, DSCALE 100 proposal lengths, verb and
+# noun maps [97, 300]; random weights and seeded features and labels (the
+# EPIC-100 features are not in the repository). Adam at the config's
+# batch 16; the LR schedule's epoch as TAL_STEPS_PER_EPOCH steps. Card
+# against CPU, fp32, TF32 off, on 2 samples: every output within
+# TAL_AGREEMENT_LIMITS (set before the card's first reading); one
+# float64 step within FP64_STEP_LIMITS; a control whose proposal windows
+# are one snippet longer must break both. Detection: the trained model's
+# preds on TAL_DETECTION_VIDEOS videos, each TAL_DURATION_S long
+TAL = "configs/projects/tal/bmn_epic100.yaml"
+TAL_STEPS_PER_EPOCH = 100
+TAL_WARMUP = 2
+TAL_TIMED = 5
+TAL_AGREEMENT_SAMPLES = 2
+TAL_AGREEMENT_LIMITS = {"max_abs_diff": 1e-5, "feature_rel_l2": 1e-5}
+TAL_DETECTION_VIDEOS = 4
+TAL_DURATION_S = 60.0
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -3995,8 +4089,9 @@ def _conv_agree(cfg, control, limits, problems, what):
             "control": control, "controls": controls, "limits": limits}
 
 
-def _conv_train_agree(cfg, steps_per_epoch, control, problems, what):
-    """For ``AGREEMENT_SEEDS`` weight seeds, one train step (dropout 0, so
+def _conv_train_agree(cfg, steps_per_epoch, control, problems, what,
+                      seeds=AGREEMENT_SEEDS):
+    """For ``seeds`` weight seeds, one train step (dropout 0, so
     that the two devices draw no masks) on ``CONV_AGREEMENT_CLIPS`` clips
     at the train geometry from the same weights, card against CPU, both in
     float64 (the module cast, the clips normalised on the CPU; for a dual
@@ -4016,7 +4111,7 @@ def _conv_train_agree(cfg, steps_per_epoch, control, problems, what):
     readings, controls = [], []
     nc = cfg.VIDEO.HEAD.NUM_CLASSES
     dual = isinstance(nc, (list, tuple))
-    for i in range(AGREEMENT_SEEDS):
+    for i in range(seeds):
         seed = int(cfg.RANDOM_SEED) + i
         clips = _conv_clips(cfg, CONV_AGREEMENT_CLIPS, 200 + seed,
                             crop=cfg.DATA.TRAIN_CROP_SIZE)
@@ -4361,7 +4456,8 @@ def epic(repo, card):
             (f"{k}_agreement", lambda p, cfg=cfg, k=k: _conv_agree(
                 cfg, EPIC_CONTROLS[k], EPIC_AGREEMENT_LIMITS[k], p, k)),
             (f"{k}_train_agreement", lambda p, k=k: _conv_train_agree(
-                flat[k], EPIC_STEPS_PER_EPOCH, EPIC_CONTROLS[k], p, k))]
+                flat[k], EPIC_STEPS_PER_EPOCH, EPIC_CONTROLS[k], p, k,
+                seeds=EPIC_TRAIN_AGREEMENT_SEEDS))]
     parts.append(("run_list", lambda p: _epic_run(repo, p)))
     return _conv_phase("epic", card, parts, agreements)
 
@@ -4996,6 +5092,719 @@ def ssl(repo, card):
                        configs=dict(SSL))
 
 
+# --------------------------------------------------------------------------
+# the augment, submission and tal phases
+
+
+def _augment_cfg(repo, *opts):
+    return _conv_cfg(repo, VIT, *AUGMENT_OPTS, *opts)
+
+
+def _augment_run(repo, worker_type, problems):
+    """The ViT-S fine-tune's run list as shipped (``AUGMENT_OPTS``: its
+    train entry alone, ``AUGMENT_STEPS`` steps at batch 64 on synthetic
+    clips through RandAugment) with the loader's workers as
+    ``worker_type``: the loop's step ms (the first step, which waits for
+    the pool's start, apart), clips/s, the loader-wait share, peak
+    memory, finite losses."""
+    import shutil
+    import tempfile
+
+    import torch
+    from dist_tpu_torch.tasks import train as train_task
+
+    meters = []
+    saved = train_task.TrainMeter
+    train_task.TrainMeter = _recorded_train_meter(meters)
+    tmp = tempfile.mkdtemp(prefix=f"augment_{worker_type}_")
+    argv = ["--cfg", os.path.join(repo, VIT), *AUGMENT_OPTS,
+            "DATA_LOADER.WORKER_TYPE", worker_type, "OUTPUT_DIR", tmp]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, results, launches = _run_list(argv)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        train_task.TrainMeter = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    aug = cfg.AUGMENTATION.AUTOAUGMENT
+    if not aug.ENABLE or str(cfg.DATA_LOADER.WORKER_TYPE) != worker_type:
+        problems.append(f"augment {worker_type}: AUTOAUGMENT {aug.ENABLE}, "
+                        f"workers {cfg.DATA_LOADER.WORKER_TYPE}")
+    (state,) = results
+    losses = [v for m in meters for v in m.losses]
+    if getattr(state, "step", None) != AUGMENT_STEPS or \
+            len(losses) != AUGMENT_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        problems.append(f"augment {worker_type}: steps "
+                        f"{getattr(state, 'step', state)}, losses {losses}")
+    timing = [t for m in meters for t in m.timing]
+    iters = [s * 1e3 for t in timing for s in t["iter_s"]]
+    timed = sorted(iters[1:])
+    batch = int(cfg.TRAIN.BATCH_SIZE)
+    return {"worker_type": worker_type, "workers":
+            int(cfg.DATA_LOADER.NUM_WORKERS), "policy": aug.TYPE,
+            "batch_size": batch, "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "crop": int(cfg.DATA.TRAIN_CROP_SIZE), "run_s": run_s,
+            "losses": losses, "step_ms": iters,
+            "step_ms_median": timed[len(timed) // 2],
+            "clips_per_s": batch * 1e3 / timed[len(timed) // 2],
+            "loader_wait_share": sum(t["loader_wait_s"] for t in timing)
+            / sum(t["loop_s"] for t in timing),
+            # after the first step, which waits for the pool's start
+            "loader_wait_share_after_first": sum(
+                w for t in timing for w in t["wait_s"][1:]) / sum(
+                s for t in timing for s in t["iter_s"][1:]),
+            "wait_ms": [w * 1e3 for t in timing for w in t["wait_s"]],
+            "peak_mem_gb": peak, "launches": launches}
+
+
+def _first_batches(cfg, n):
+    """The first ``n`` batches of ``cfg``'s train loader, its workers shut
+    down after."""
+    from dist_tpu_torch.data.builder import build_loader
+
+    loader = build_loader(cfg, "train")
+    out = []
+    try:
+        t0 = time.perf_counter()
+        for batch in loader:
+            out.append({k: (v.numpy() if hasattr(v, "numpy") else v)
+                        for k, v in batch.items()})
+            if len(out) == n:
+                break
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.close()
+    return out, seconds
+
+
+def _augment_pools(repo, problems):
+    """The first ``AUGMENT_COMPARE_BATCHES`` batches of the process pool
+    against the thread pool's, bit for bit; the control, the thread pool
+    with RandAugment off, must differ."""
+    import numpy as np
+
+    got, got_s = _first_batches(_augment_cfg(
+        repo, "DATA_LOADER.WORKER_TYPE", "process"), AUGMENT_COMPARE_BATCHES)
+    want, want_s = _first_batches(_augment_cfg(
+        repo, "DATA_LOADER.WORKER_TYPE", "thread"), AUGMENT_COMPARE_BATCHES)
+    plain, _ = _first_batches(_augment_cfg(
+        repo, "DATA_LOADER.WORKER_TYPE", "thread",
+        "AUGMENTATION.AUTOAUGMENT.ENABLE", "false"), AUGMENT_COMPARE_BATCHES)
+    equal = len(got) == len(want) == AUGMENT_COMPARE_BATCHES and all(
+        sorted(g) == sorted(w) and all(np.array_equal(g[k], w[k]) for k in w)
+        for g, w in zip(got, want))
+    control = [float(np.mean(g["video"] != p["video"]))
+               for g, p in zip(got, plain)]
+    if not equal:
+        problems.append("augment: the process pool's batches differ from "
+                        "the thread pool's")
+    if not control or min(control) == 0.0:
+        problems.append(f"augment: the control (RandAugment off) equals the "
+                        f"augmented batches: {control}")
+    return {"batches": len(got), "shape": list(got[0]["video"].shape),
+            "process_equals_thread": equal,
+            "control_changed_share": control,
+            "first_batches_s": {"process": got_s, "thread": want_s}}
+
+
+def augment(repo, card):
+    """The HiCo++ ViT-S HMDB51 fine-tune as shipped (RandAugment
+    ``rand-m9-mstd0.5-inc1`` on, after the crop) through the port's run
+    list at batch 64 on synthetic clips, the loader's workers as processes
+    and as threads, then the process pool's first batches against the
+    thread pool's with a control. Returns K1-K4's launches in the phase,
+    which must all be 0."""
+    parts = [("process", lambda p: _augment_run(repo, "process", p)),
+             ("thread", lambda p: _augment_run(repo, "thread", p)),
+             ("pools", lambda p: _augment_pools(repo, p))]
+    return _conv_phase("augment", card, parts, [], config=VIT,
+                       overrides=AUGMENT_OPTS)
+
+
+def _submission_inputs(cfg):
+    """(model, the submission split's host batches, the label-text
+    features), the model's weights as the task makes them:
+    from ``RANDOM_SEED``, then the test checkpoint where one is
+    configured."""
+    from dist_tpu_torch.data.builder import build_loader
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.tasks.state import compute_text_features
+    from dist_tpu_torch.utils.checkpoint import load_test_checkpoint
+
+    model = build_model(cfg)
+    load_test_checkpoint(cfg, model)
+    loader = build_loader(cfg, "submission")
+    try:
+        batches = list(loader)
+    finally:
+        loader.close()
+    text = compute_text_features(model, getattr(loader.dataset,
+                                                "text_tokens", None))
+    return model, batches, text
+
+
+def _submission_flagship(repo, problems):
+    """The flagship's submission run list at full width
+    (``SUBMISSION_OPTS``, 10 x 3 views of 2 synthetic videos, K1 and K2
+    fused): K1 and K2 launched per batch as the forward needs, the
+    generic JSON, and each video's score sums held to the test task's
+    multi-view sums on the same views (``SUBMISSION_LIMITS``); a control
+    that leaves the last batch's views out must break the limit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.tasks.submission import submission_forward
+    from dist_tpu_torch.tasks.test import test
+
+    tmp = tempfile.mkdtemp(prefix="submission_")
+    argv = ["--cfg", os.path.join(repo, FLAGSHIP), *SUBMISSION_OPTS,
+            "OUTPUT_DIR", tmp]
+    try:
+        t0 = time.perf_counter()
+        cfg, (path,), launches = _run_list(argv)
+        run_s = time.perf_counter() - t0
+        with open(path) as f:
+            results = json.load(f)
+        views = (int(cfg.TEST.NUM_ENSEMBLE_VIEWS)
+                 * int(cfg.TEST.NUM_SPATIAL_CROPS))
+        n = int(cfg.TEST.NUM_SAMPLES_LIMIT)
+        scores = np.asarray([results["results"][str(v)]["scores"]
+                             for v in range(n)])
+        counts = _zero_counts()
+        meter = test(cfg.deep_copy())
+        torch.cuda.synchronize()
+        test_launches = counts()
+        model, batches, text = _submission_inputs(cfg)
+        with torch.no_grad():
+            control = submission_forward(cfg, model, batches[:-1], n, views,
+                                         text, model.device)
+        arch = model.module.arch
+        ladder = len(model.module.dist.selected_layers)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = [{"attention_qkv": arch.vision_layers * len(batches)
+             + arch.transformer_layers, "attention_qkv_rows": 0,
+             "temporal_net_fwd": ladder * len(batches),
+             "temporal_net_bwd": 0}]
+    if launches != want:
+        problems.append(f"submission: launches {launches} != {want}")
+    header = {k: v for k, v in results.items() if k != "results"}
+    if header != {"version": "0.1", "challenge": "action_recognition"} or \
+            sorted(results["results"]) != [str(v) for v in range(n)] or \
+            views != 30 or not np.isfinite(scores).all():
+        problems.append(f"submission: {header}, videos "
+                        f"{sorted(results['results'])}, {views} views")
+    reading = {"max_abs_score_diff": float(np.abs(
+        scores - meter.video_preds).max())}
+    controlled = {"max_abs_score_diff": float(np.abs(
+        control - meter.video_preds).max())}
+    if _breaches(reading, SUBMISSION_LIMITS):
+        problems.append(f"submission: against the test task {reading}")
+    if not _breaches(controlled, SUBMISSION_LIMITS):
+        problems.append(f"submission: the control (the last batch's views "
+                        f"left out) is within the limits: {controlled}")
+    return {"config": FLAGSHIP, "overrides": SUBMISSION_OPTS,
+            "videos": n, "views": views, "batches": len(batches),
+            "batch_size": int(cfg.TEST.BATCH_SIZE), "run_s": run_s,
+            "clips_per_s": n * views / run_s, "launches": launches,
+            "expected_launches": want, "test_launches": test_launches,
+            "json_header": header, "score_sums": scores.sum(1).tolist(),
+            "test_agreement": reading, "control": controlled,
+            "limits": SUBMISSION_LIMITS}
+
+
+def _top_actions(verb, noun, k=100):
+    """{"v,n": score} of the ``k`` largest entries of verb x noun, in
+    descending order."""
+    import numpy as np
+
+    action = np.outer(verb, noun).ravel()
+    order = np.argsort(-action, kind="stable")[:k]
+    n = len(noun)
+    return {f"{a // n},{a % n}": float(action[a]) for a in order.tolist()}
+
+
+def _submission_epic(repo, problems):
+    """SlowFast R50's EPIC-100 dual-head submission run list at full
+    width (``EPIC_RUN_OPTS`` with ``SUBMISSION_EPIC_OPTS``), its weights
+    drawn away from their init and calibrated on 4 clips
+    (``_draw_conv_weights``, so that the softmax scores do not saturate)
+    and given as the test checkpoint: the EPIC JSON's shape (version
+    0.2, the supervision levels, 97 verb and 300 noun scores and 100
+    ranked actions a video) and its top-100 actions against those of the
+    eval step's preds summed over the same views, whose control leaves
+    the last batch's views out and must break the limit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.tasks.state import make_eval_step, to_device
+
+    tmp = tempfile.mkdtemp(prefix="submission_epic_")
+    path = os.path.join(repo, EPIC["slowfast"])
+    opts = [*EPIC_RUN_OPTS, *SUBMISSION_EPIC_OPTS]
+    cfg = _conv_cfg(repo, EPIC["slowfast"], *opts)
+    drawn = build_model(cfg)
+    seed = int(cfg.RANDOM_SEED)
+    _draw_conv_weights(drawn.module, seed, _prep(
+        cfg, _conv_clips(cfg, 4, seed), drawn.device))
+    ckpt = os.path.join(tmp, "drawn.pyth")
+    torch.save(drawn.module.state_dict(), ckpt)
+    del drawn
+    argv = ["--cfg", path, *opts, "TEST.CHECKPOINT_FILE_PATH", ckpt,
+            "OUTPUT_DIR", tmp]
+    try:
+        t0 = time.perf_counter()
+        cfg, (path,), launches = _run_list(argv)
+        run_s = time.perf_counter() - t0
+        with open(path) as f:
+            results = json.load(f)
+        model, batches, _ = _submission_inputs(cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    views = int(cfg.TEST.NUM_ENSEMBLE_VIEWS) * int(cfg.TEST.NUM_SPATIAL_CROPS)
+    nv, nn = (int(c) for c in cfg.VIDEO.HEAD.NUM_CLASSES)
+    names = list(results["results"])
+    step = make_eval_step(model, cfg)
+
+    def sums(host_batches):
+        out = {"verb": np.zeros((len(names), nv)),
+               "noun": np.zeros((len(names), nn))}
+        seen = set()
+        for batch in host_batches:
+            preds = step({"video": to_device(batch["video"], model.device)})[
+                "preds"]
+            preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            for i, idx in enumerate(batch["index"].tolist()):
+                if idx in seen:
+                    continue
+                seen.add(idx)
+                out["verb"][idx // views] += preds["verb_class"][i]
+                out["noun"][idx // views] += preds["noun_class"][i]
+        return out
+
+    def reading(s):
+        """The JSON's actions against the eval step's outer product: each
+        listed action's score against the product's at that action, and
+        the listed scores against the product's 100 largest (actions of
+        equal score may be listed in either order)."""
+        worst = 0.0
+        for v, name in enumerate(names):
+            got = results["results"][name]["action"]
+            action = np.outer(s["verb"][v], s["noun"][v])
+            at = [action[tuple(int(i) for i in a.split(","))] for a in got]
+            top = list(_top_actions(s["verb"][v], s["noun"][v]).values())
+            worst = max([worst] + [
+                abs(g - w) / max(abs(w), 1e-30) for g, w in
+                zip(list(got.values()) + list(got.values()), at + top)])
+        return {"max_action_rel_diff": worst}
+
+    with torch.no_grad():
+        full, control = reading(sums(batches)), reading(sums(batches[:-1]))
+    header = {k: v for k, v in results.items() if k != "results"}
+    shape_ok = header == {"version": "0.2", "challenge": "action_recognition",
+                          "sls_pt": 2, "sls_tl": 3, "sls_td": 3} \
+        and len(names) == int(cfg.TEST.NUM_SAMPLES_LIMIT) and all(
+            len(r["verb"]) == nv and len(r["noun"]) == nn
+            and len(r["action"]) == 100
+            and list(r["action"].values()) == sorted(r["action"].values(),
+                                                     reverse=True)
+            for r in results["results"].values())
+    if not shape_ok:
+        problems.append(f"submission epic: the JSON's shape ({header}, "
+                        f"{len(names)} videos)")
+    top = max(next(iter(r["action"].values()))
+              for r in results["results"].values())
+    if not top < 0.99 * views ** 2:
+        # one action near 1 in every view: the drawn weights not loaded
+        problems.append(f"submission epic: saturated scores, top {top}")
+    if any(sum(c.values()) for c in launches):
+        problems.append(f"submission epic: K1-K4 launched: {launches}")
+    if _breaches(full, SUBMISSION_EPIC_LIMITS):
+        problems.append(f"submission epic: against the eval step {full}")
+    if not _breaches(control, SUBMISSION_EPIC_LIMITS):
+        problems.append(f"submission epic: the control (the last batch's "
+                        f"views left out) is within the limits: {control}")
+    return {"config": EPIC["slowfast"],
+            "overrides": EPIC_RUN_OPTS + SUBMISSION_EPIC_OPTS,
+            "videos": len(names), "views": views, "batches": len(batches),
+            "run_s": run_s, "launches": launches,
+            "json_header": header, "json_shape_ok": shape_ok,
+            "eval_agreement": full, "control": control,
+            "limits": SUBMISSION_EPIC_LIMITS,
+            "top_actions": [list(r["action"].items())[:3]
+                            for r in results["results"].values()]}
+
+
+def submission(repo, card):
+    """The submission task at full width through the port's run list:
+    the flagship (K1 and K2 launched, its sums held to the test task's)
+    and SlowFast's EPIC dual head (its JSON against the eval step), each
+    with a control. Returns the phase's K1-K4 launches (the flagship's
+    submission entry's)."""
+    import logging
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    problems, rec = [], {"phase": "submission", "nvidia_smi": card}
+    try:
+        rec["flagship"] = _submission_flagship(repo, problems)
+        torch.cuda.empty_cache()
+        rec["epic"] = _submission_epic(repo, problems)
+    finally:
+        _restore_logging(handlers, level)
+        torch.cuda.empty_cache()
+    total = rec["flagship"]["launches"][0]
+    rec.update(kernel_launches=total, seconds=time.perf_counter() - t0)
+    rec["pass"] = not problems
+    emit(rec)
+    if problems:
+        raise AssertionError("submission: " + "; ".join(problems))
+    return total
+
+
+def _tal_batch(cfg, b, seed, device):
+    """``b`` seeded samples of snippet features (b, T, C) and the label
+    maps, on ``device``: start and end maps, IoUs in [0, 1) on the valid
+    windows (``mask``: the windows that end inside the T snippets) and
+    verb/noun labels per proposal."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    t, c = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.NUM_INPUT_CHANNELS)
+    d = int(cfg.LOCALIZATION.DSCALE)
+    nc = [int(n) for n in cfg.VIDEO.HEAD.NUM_CLASSES]
+    valid = ((torch.arange(t)[None, :] + torch.arange(1, d + 1)[:, None])
+             <= t).float().expand(b, d, t)
+    labels = {"start_map": (torch.rand(b, t, generator=gen) > 0.9).float(),
+              "end_map": (torch.rand(b, t, generator=gen) > 0.9).float(),
+              "iou_map": torch.rand(b, d, t, generator=gen) * valid,
+              "mask": valid.contiguous(),
+              "label_map": torch.stack([torch.randint(0, n, (b, d, t),
+                                                      generator=gen)
+                                        for n in nc], 1)}
+    return {"video": torch.randn(b, t, c, generator=gen).to(device),
+            "labels": {k: v.to(device) for k, v in labels.items()}}
+
+
+class _ShiftedWindows:
+    """The control of the tal agreements: ``proposal_window_means`` with
+    every window one snippet longer (the mean of ``x[t : t + d + 2]`` at
+    ``(d, t)``), restored on exit."""
+
+    def __enter__(self):
+        from dist_tpu_torch.models.heads import bmn
+
+        self._saved = bmn.proposal_window_means
+        bmn.proposal_window_means = lambda x, d: self._saved(x, d + 1)[
+            :, :, 1:]
+        return self
+
+    def __exit__(self, *exc):
+        from dist_tpu_torch.models.heads import bmn
+
+        bmn.proposal_window_means = self._saved
+
+
+def _tal_model_info(cfg):
+    """BMN's meta-arch, head, weight count and forward GFLOP a sample of
+    T snippets, counted on the meta device."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_backbone_on_meta
+    from dist_tpu_torch.utils.misc import flops_count
+
+    module = build_backbone_on_meta(cfg).eval()
+    shape = (1, int(cfg.DATA.NUM_INPUT_FRAMES),
+             int(cfg.DATA.NUM_INPUT_CHANNELS))
+    return {"meta_arch": cfg.VIDEO.BACKBONE.META_ARCH,
+            "head": cfg.VIDEO.HEAD.NAME,
+            "num_classes": list(cfg.VIDEO.HEAD.NUM_CLASSES),
+            "weights": sum(q.numel() for q in module.parameters()),
+            "gflop_forward_sample": flops_count(
+                module, torch.empty(shape, device="meta")) / 1e9}
+
+
+def _tal_train(cfg, problems):
+    """BMN's train step at the config's batch 16 (Adam, cosine LR):
+    ``TAL_WARMUP`` warm-up and ``TAL_TIMED`` timed steps on seeded
+    features and labels made on the CPU and moved to the card; every
+    parameter the loss reaches moves, the losses and their parts finite;
+    step ms, samples/s, peak memory. Returns the record and the model."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    b, seed = int(cfg.TRAIN.BATCH_SIZE), int(cfg.RANDOM_SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TAL_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    batches = [_tal_batch(cfg, b, seed + i, model.device)
+               for i in range(TAL_WARMUP + TAL_TIMED)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.module.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    unmoved = sorted(k for k, p in params.items()
+                     if torch.equal(p, before[k]))
+    # without BmnActionCls in the loss (the config's) the verb and noun
+    # maps get no gradient: their weights move by the decay alone, their
+    # biases (no decay) stay
+    still = [] if "BmnActionCls" in cfg.LOCALIZATION.LOSS else sorted(
+        k for k in params if "_map_fc.bias" in k)
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    if unmoved != still or not finite or not {"tem", "pem_reg",
+                                              "pem_cls"} <= set(metrics[-1]):
+        problems.append(f"tal train: unmoved {unmoved} (expected {still}), "
+                        f"metrics {metrics[-1]}")
+    timed = sorted(times[TAL_WARMUP:])
+    return {"batch_size": b, "snippets": int(cfg.DATA.NUM_INPUT_FRAMES),
+            "features": int(cfg.DATA.NUM_INPUT_CHANNELS),
+            "dim1d": int(cfg.VIDEO.DIM1D),
+            "dscale": int(cfg.LOCALIZATION.DSCALE),
+            "loss": cfg.LOCALIZATION.LOSS,
+            "optimizer": cfg.OPTIMIZER.OPTIM_METHOD,
+            "params": sum(p.numel() for p in params.values()),
+            "build_s": build_s, "step_ms": times,
+            "losses": [m["loss"] for m in metrics],
+            "last_metrics": metrics[-1], "unmoved": unmoved,
+            "step_ms_median": timed[len(timed) // 2],
+            "step_ms_min": timed[0],
+            "samples_per_s": b * 1e3 / timed[len(timed) // 2],
+            "peak_mem_gb": peak}, model
+
+
+def _tal_detect(cfg, model, problems):
+    """The trained model's eval preds on ``TAL_DETECTION_VIDEOS`` seeded
+    videos -> ``tal/tools.py`` proposals (boundary peaks, confidence,
+    top-5 verb/noun pairs) -> post-processing (soft-NMS) ->
+    ``tal/eval.py::EpicDetection`` against ground truth made from each
+    video's top detection: action, verb and noun mAP in (0, 1]; the
+    control moves every ground-truth segment past the video's end and
+    must break that."""
+    import shutil
+    import tempfile
+
+    import torch
+    from dist_tpu_torch.tal.eval import EpicDetection
+    from dist_tpu_torch.tal.tools import (
+        localization_post_processing,
+        parse_bmn_proposals,
+    )
+    from dist_tpu_torch.tasks.state import make_eval_step
+
+    step = make_eval_step(model, cfg)
+    batch = _tal_batch(cfg, TAL_DETECTION_VIDEOS, 7, model.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        preds = step({"video": batch["video"]})["preds"]
+    preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+    forward_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="tal_")
+    try:
+        t0 = time.perf_counter()
+        video_props = {}
+        for i in range(TAL_DETECTION_VIDEOS):
+            props = parse_bmn_proposals(
+                preds["start"][i], preds["end"][i],
+                preds["confidence_map"][i], verb_map=preds["verb_map"][i],
+                noun_map=preds["noun_map"][i], top_k=5)
+            video_props[f"video_{i}"] = (props, TAL_DURATION_S)
+        out = os.path.join(tmp, "detections.json")
+        output, _ = localization_post_processing(cfg, video_props,
+                                                 out_path=out)
+        post_s = time.perf_counter() - t0
+
+        def evaluate(shift):
+            gt = {"database": {}}
+            for name, dets in output["results"].items():
+                top = max(dets, key=lambda d: d["score"])
+                seg = [s + shift for s in top["segment"]]
+                gt["database"][name] = {"subset": "validation",
+                                        "annotations": [{"segment": seg,
+                                                         "label": top["label"]}]}
+            path = os.path.join(tmp, f"gt_{shift}.json")
+            with open(path, "w") as f:
+                json.dump(gt, f)
+            res = EpicDetection(path, out).evaluate()
+            return {g: float(res[g]["mAP"]) for g in ("action", "verb",
+                                                      "noun")}
+
+        maps = evaluate(0.0)
+        control = evaluate(2 * TAL_DURATION_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(0.0 < v <= 1.0 for v in maps.values()):
+        problems.append(f"tal detection: mAP {maps}")
+    if any(0.0 < v <= 1.0 for v in control.values()):
+        problems.append(f"tal detection: the control (ground truth past "
+                        f"the end) scores {control}")
+    return {"videos": TAL_DETECTION_VIDEOS, "duration_s": TAL_DURATION_S,
+            "forward_s": forward_s, "post_process_s": post_s,
+            "proposals": {k: int(len(p["score"])) for k, (p, _) in
+                          video_props.items()},
+            "detections": {k: len(v) for k, v in output["results"].items()},
+            "mAP": maps, "control_mAP": control}
+
+
+def _tal_agree(cfg, problems):
+    """For ``AGREEMENT_SEEDS`` weight seeds, ``TAL_AGREEMENT_SAMPLES``
+    samples on the card against the CPU, both fp32 with TF32 off: the
+    largest difference over every output (start, end, the confidence
+    map, the verb and noun maps) and the features' relative L2, held to
+    ``TAL_AGREEMENT_LIMITS``; the shifted-windows control on the card
+    must break them."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+
+    readings, controls = [], []
+
+    def diff(got, feat, want, wfeat):
+        return {"max_abs_diff": max(float((got[k].cpu() - w).abs().max())
+                                    for k, w in want.items()),
+                "feature_rel_l2": _rel_l2(feat, wfeat)}
+
+    for i in range(AGREEMENT_SEEDS):
+        seed = int(cfg.RANDOM_SEED) + i
+        batch = _tal_batch(cfg, TAL_AGREEMENT_SAMPLES, 300 + seed, "cpu")
+        cpu = build_model(cfg, device="cpu", seed=seed)
+        card = build_model(cfg, seed=seed)
+        card.module.load_state_dict(cpu.module.state_dict())
+        with torch.no_grad():
+            want, wfeat = cpu.apply({"video": batch["video"]})
+            video = batch["video"].to(card.device)
+            got, feat = card.apply({"video": video})
+            with _ShiftedWindows():
+                cgot, cfeat = card.apply({"video": video})
+        readings.append({"seed": seed, **diff(got, feat, want, wfeat)})
+        controls.append({"seed": seed, **diff(cgot, cfeat, want, wfeat)})
+        del cpu, card
+        torch.cuda.empty_cache()
+    for r in readings:
+        if _breaches(r, TAL_AGREEMENT_LIMITS):
+            problems.append(f"tal agreement: seed {r['seed']} "
+                            f"{_breaches(r, TAL_AGREEMENT_LIMITS)}")
+    for c in controls:
+        if not _breaches(c, TAL_AGREEMENT_LIMITS):
+            problems.append(f"tal agreement: the control of seed "
+                            f"{c['seed']} is within the limits")
+    return {"samples": TAL_AGREEMENT_SAMPLES, "readings": readings,
+            "control": "shifted_windows", "controls": controls,
+            "limits": TAL_AGREEMENT_LIMITS}
+
+
+def _tal_train_agree(cfg, problems):
+    """One Adam step of BMN in float64 on ``TAL_AGREEMENT_SAMPLES``
+    samples from the same weights, card against CPU (``Loss_PemReg``'s
+    draws come from the CPU generator on both): the loss's relative
+    difference and the worst gradient leaf's (``_grad_diff`` with
+    ``GRAD_FLOOR``), held to ``FP64_STEP_LIMITS``; the shifted-windows
+    control on the card must break the gradients' limit."""
+    import contextlib
+
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    seed = int(cfg.RANDOM_SEED)
+    batch = _tal_batch(cfg, TAL_AGREEMENT_SAMPLES, 400 + seed, "cpu")
+    batch = {"video": batch["video"].double(),
+             "labels": {k: v.double() if v.is_floating_point() else v
+                        for k, v in batch["labels"].items()}}
+    ref = build_model(cfg, device="cpu", seed=seed)
+    weights = {k: v.double() for k, v in ref.module.state_dict().items()}
+    del ref
+
+    def one_step(device, control=False):
+        model = build_model(cfg, device=device, seed=seed)
+        model.module.double().load_state_dict(weights)
+        optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                               TAL_STEPS_PER_EPOCH)
+        step = make_train_step(model, cfg, optimizer, lr_fn)
+        device_batch = {"video": batch["video"].to(model.device),
+                        "labels": {k: v.to(model.device)
+                                   for k, v in batch["labels"].items()}}
+        grads = {}
+        optimizer.register_step_pre_hook(lambda *_: grads.update(
+            {k: p.grad.detach().cpu().clone()
+             for k, p in model.module.named_parameters()}))
+        with _ShiftedWindows() if control else contextlib.nullcontext():
+            metrics = step(create_train_state(model, optimizer),
+                           device_batch)
+        return float(metrics["loss"]), grads
+
+    cpu = one_step("cpu")
+    rec = {}
+    for name, control in (("reading", False), ("control", True)):
+        card = one_step(None, control)
+        diff = _grad_diff(cpu, card, floor=GRAD_FLOOR)
+        rec[name] = {k: diff[k] for k in (
+            "loss_rel_diff", "max_grad_rel_err", "worst_rel_param",
+            "min_grad_cosine", "worst_tensors")}
+        rec[name]["float64"] = all(g.dtype == torch.float64
+                                   for g in card[1].values())
+    if _breaches(rec["reading"], FP64_STEP_LIMITS) or \
+            not rec["reading"]["float64"]:
+        problems.append(f"tal train agreement: "
+                        f"{_breaches(rec['reading'], FP64_STEP_LIMITS)}")
+    if "max_grad_rel_err" not in dict(_breaches(rec["control"],
+                                                FP64_STEP_LIMITS)):
+        problems.append("tal train agreement: the control leaves the "
+                        "gradients within their limit")
+    torch.cuda.empty_cache()
+    return {"samples": TAL_AGREEMENT_SAMPLES, "dtype": "float64",
+            "loss": cpu[0], **rec, "control_kind": "shifted_windows",
+            "limits": FP64_STEP_LIMITS, "grad_floor": GRAD_FLOOR}
+
+
+def tal(repo, card):
+    """Temporal action localization at full width (``TAL``: BMN over
+    2304-wide snippet features, ``DIM1D`` 256, ``DSCALE`` 100, verb/noun
+    maps [97, 300]): the model, Adam steps at batch 16 (TF32 as the port
+    runs it), the detection chain on the trained model's preds; then with
+    TF32 off the forward and a float64 step against the CPU, with their
+    controls. Returns K1-K4's launches in the phase, which must all be
+    0."""
+    cfg = _conv_cfg(repo, TAL)
+    trained = {}
+
+    def train(p):
+        rec, trained["model"] = _tal_train(cfg, p)
+        return rec
+
+    parts = [("model", lambda p: _tal_model_info(cfg)),
+             ("train", train),
+             ("detection", lambda p: _tal_detect(cfg, trained.pop("model"),
+                                                 p))]
+    agreements = [("agreement", lambda p: _tal_agree(cfg, p)),
+                  ("train_agreement", lambda p: _tal_train_agree(cfg, p))]
+    return _conv_phase("tal", card, parts, agreements, config=TAL)
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -5178,6 +5987,9 @@ def main():
         vit_launches = vit(repo, card)
         transformers_launches = transformers(repo, card)
         ssl_launches = ssl(repo, card)
+        augment_launches = augment(repo, card)
+        submission_launches = submission(repo, card)
+        tal_launches = tal(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -5256,6 +6068,9 @@ def main():
             entry["vit_launches"] = vit_launches[name]
             entry["transformers_launches"] = transformers_launches[name]
             entry["ssl_launches"] = ssl_launches[name]
+            entry["augment_launches"] = augment_launches[name]
+            entry["submission_launches"] = submission_launches[name]
+            entry["tal_launches"] = tal_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -5291,6 +6106,9 @@ def main():
             "transformers_launches":
                 transformers_launches["attention_qkv_rows"],
             "ssl_launches": ssl_launches["attention_qkv_rows"],
+            "augment_launches": augment_launches["attention_qkv_rows"],
+            "submission_launches": submission_launches["attention_qkv_rows"],
+            "tal_launches": tal_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),

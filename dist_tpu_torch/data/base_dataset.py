@@ -27,7 +27,7 @@ import zlib
 
 import numpy as np
 
-from dist_tpu_torch.data import sampling, transforms
+from dist_tpu_torch.data import rand_augment, sampling, transforms
 from dist_tpu_torch.data.tokenizer import tokenize
 from dist_tpu_torch.utils.logging import get_logger
 from dist_tpu_torch.utils.registry import Registry
@@ -39,9 +39,6 @@ DATASET_REGISTRY = Registry("Dataset")
 # SSV2 directional classes swapped under horizontal flip
 # (base_dataset.py:416-431)
 SSV2_FLIP_LABEL_MAP = {86: 87, 87: 86, 93: 94, 94: 93, 166: 167, 167: 166}
-
-_RAND_AUG_TODO = ("AUGMENTATION.{} (data/rand_augment.py) is not ported yet "
-                  "(ROADMAP.md queue A: data/rand_augment.py)")
 
 
 def load_label_texts(cfg, anno_dir):
@@ -117,10 +114,8 @@ class BaseVideoDataset(abc.ABC):
                                * cfg.TEST.NUM_SPATIAL_CROPS)
         else:
             raise NotImplementedError(f"Split {split} not supported")
-        for key in ("AUTOAUGMENT", "RANDOM_ERASING"):
-            aug = cfg.AUGMENTATION.get(key)
-            if split == "train" and aug and aug.ENABLE:
-                raise NotImplementedError(_RAND_AUG_TODO.format(key))
+        self._rand_augment = None
+        self._random_erasing = None
 
         self._num_frames = cfg.DATA.NUM_INPUT_FRAMES
         self._sampling_rate = cfg.DATA.SAMPLING_RATE
@@ -252,7 +247,15 @@ class BaseVideoDataset(abc.ABC):
         else:
             frames = transforms.kinetics_resized_crop_random(
                 frames, scales, cfg.DATA.TRAIN_CROP_SIZE, rng=rng)
-        if cfg.AUGMENTATION.COLOR_AUG and not on_device:
+        if cfg.AUGMENTATION.AUTOAUGMENT.ENABLE:
+            # RandAugment (or AutoAugment, AugMix) after the crop, in place
+            # of the colour jitter, as the JAX package applies it
+            if self._rand_augment is None:
+                self._rand_augment = rand_augment.create_auto_augmentation(
+                    cfg.AUGMENTATION.AUTOAUGMENT.TYPE,
+                    cfg.DATA.TRAIN_CROP_SIZE)
+            frames = self._rand_augment(frames, rng)
+        elif cfg.AUGMENTATION.COLOR_AUG and not on_device:
             frames = transforms.color_jitter_clip(
                 frames, rng,
                 brightness=cfg.AUGMENTATION.BRIGHTNESS,
@@ -264,6 +267,15 @@ class BaseVideoDataset(abc.ABC):
                 shuffle=bool(cfg.AUGMENTATION.get("SHUFFLE", True)),
                 gray_first=bool(cfg.AUGMENTATION.get("GRAY_FIRST", True)),
                 p=float(cfg.AUGMENTATION.get("COLOR_JITTER_P", 1.0) or 0.0))
+        if cfg.AUGMENTATION.RANDOM_ERASING.ENABLE:
+            if self._random_erasing is None:
+                re_cfg = cfg.AUGMENTATION.RANDOM_ERASING
+                self._random_erasing = rand_augment.RandomErasing(
+                    prob=float(re_cfg.PROB), mode=re_cfg.MODE,
+                    count=tuple(re_cfg.COUNT),
+                    area_range=tuple(re_cfg.AREA_RANGE),
+                    min_aspect=float(re_cfg.MIN_ASPECT))
+            frames = self._random_erasing(frames, rng)
         return frames
 
     def _rng(self, index, seed):

@@ -12,6 +12,13 @@
 - A thread pool decodes samples with a bounded window of per-sample
   futures across batch boundaries, so workers start batch k + 1 while
   batch k is stacked and consumed.
+- ``DATA_LOADER.WORKER_TYPE: process`` puts the samples in a persistent
+  pool of worker processes instead, for sample work the interpreter lock
+  serialises (RandAugment's numpy ops). The workers are spawned, never
+  forked (the parent may hold a CUDA context), each rebuilds the dataset
+  once from the config, hides the CUDA devices and so never touches the
+  card; the per-sample seeds are the thread pool's, so both pools yield
+  the same batches. Stacking and pinning stay in the parent.
 - For a CUDA run the stacked uint8 video goes into pinned host memory,
   so that the step's copy to the card can be asynchronous.
 
@@ -21,12 +28,17 @@ batches.
 """
 
 import collections
+import contextlib
+import multiprocessing
+import os
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from dist_tpu_torch.config.config import Config
 
 # the dataset modules register their classes
 from dist_tpu_torch.data import datasets, long_video  # noqa: F401
@@ -36,10 +48,6 @@ from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
 
 COLLATE_FN_REGISTRY = Registry("CollateFn")
-
-_PROCESS_POOL_TODO = ("DATA_LOADER.WORKER_TYPE: process (a process pool for "
-                      "GIL-bound augmentation) is not ported yet (ROADMAP.md "
-                      "queue A: data/rand_augment.py); use 'thread'")
 
 
 @COLLATE_FN_REGISTRY.register()
@@ -64,6 +72,29 @@ def build_dataset(cfg, split):
     return cls(cfg, split)
 
 
+# ---- process-pool workers (DATA_LOADER.WORKER_TYPE: process) ----
+# A worker builds the dataset once, from the config's dict, in its
+# initializer; samples are read through a module-level function, since a
+# bound method of the parent's dataset would pickle the dataset with it.
+
+_PROC_DATASET = None
+
+
+def _proc_worker_init(cfg_dict, split):
+    global _PROC_DATASET
+    # a worker never touches the card: CUDA sees no device here
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    _PROC_DATASET = build_dataset(Config(cfg_dict), split)
+
+
+def _proc_worker_getitem(index, seed, epoch_rate=None):
+    if epoch_rate is not None and hasattr(_PROC_DATASET, "set_epoch_rate"):
+        # a curriculum's progress travels with the request: the parent's
+        # set_epoch_rate changes only the parent's dataset
+        _PROC_DATASET.set_epoch_rate(epoch_rate)
+    return _PROC_DATASET.__getitem__(index, seed)
+
+
 def process_rank():
     """(process_index, process_count): torch.distributed's rank and world
     size when it is initialised, else (0, 1)."""
@@ -78,7 +109,14 @@ class Loader:
 
     def __init__(self, dataset, batch_size, shuffle, drop_last, num_workers,
                  seed=0, num_folds=1, process_index=0, process_count=1,
-                 prefetch=2, collate_fn=None, pin_memory=False):
+                 prefetch=2, collate_fn=None, pin_memory=False,
+                 worker_type="thread", worker_ctx=None):
+        if worker_type not in ("thread", "process"):
+            raise ValueError(f"unknown worker type {worker_type!r}")
+        if worker_type == "process" and worker_ctx is None:
+            raise ValueError("a process pool needs worker_ctx, the "
+                             "(config dict, split) its workers build the "
+                             "dataset from")
         self.collate_fn = collate_fn
         self.dataset = dataset
         self.batch_size = batch_size
@@ -94,12 +132,39 @@ class Loader:
         self.epoch = 0
         self.skip_batches = 0
         self._stops = set()     # one event per open iteration
+        self.worker_type = worker_type
+        self.worker_ctx = worker_ctx
+        self._proc_pool = None
 
     def close(self):
         """Stop the producer of every iteration still open (one abandoned
-        by its consumer); its thread pool shuts down with it."""
+        by its consumer), whose thread pool shuts down with it, and shut
+        the process pool down, so that its workers do not outlive this
+        entry of a run list."""
         for stop in list(self._stops):
             stop.set()
+        if self._proc_pool is not None:
+            self._proc_pool.shutdown(wait=True, cancel_futures=True)
+            self._proc_pool = None
+
+    def _pool(self):
+        """(pool, owned): a thread pool for this iteration, which the
+        iteration shuts down, or the persistent process pool (a worker's
+        start rebuilds the dataset: too slow to pay each epoch)."""
+        if self.worker_type == "thread":
+            return ThreadPoolExecutor(self.num_workers), True
+        if self._proc_pool is None:
+            self._proc_pool = ProcessPoolExecutor(
+                self.num_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_proc_worker_init, initargs=self.worker_ctx)
+        return self._proc_pool, False
+
+    def _submit(self, pool, index, seed):
+        if self.worker_type == "thread":
+            return pool.submit(self.dataset.__getitem__, int(index), seed)
+        return pool.submit(_proc_worker_getitem, int(index), seed,
+                           getattr(self.dataset, "epoch_rate", None))
 
     def set_epoch(self, epoch):
         self.epoch = epoch
@@ -220,7 +285,8 @@ class Loader:
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                pool, owned = self._pool()
+                with pool if owned else contextlib.nullcontext():
                     pending = collections.deque(batches)
                     in_flight = collections.deque()
                     count = 0
@@ -230,8 +296,7 @@ class Loader:
                         nonlocal count
                         while pending and count < bound:
                             chunk, seeds, mask = pending.popleft()
-                            futs = [pool.submit(self.dataset.__getitem__,
-                                                int(i), sd)
+                            futs = [self._submit(pool, i, sd)
                                     for i, sd in zip(chunk, seeds)]
                             count += len(futs)
                             in_flight.append((futs, mask))
@@ -278,8 +343,6 @@ def build_loader(cfg, split, device=None):
             f"({process_count}): every process feeds the same number of "
             "data shards")
     worker_type = str(cfg.DATA_LOADER.get("WORKER_TYPE", "thread") or "thread")
-    if worker_type != "thread":
-        raise NotImplementedError(_PROCESS_POOL_TODO)
     dataset = build_dataset(cfg, split)
     if split == "train":
         batch_size = int(cfg.TRAIN.BATCH_SIZE)
@@ -303,7 +366,10 @@ def build_loader(cfg, split, device=None):
         prefetch=int(cfg.DATA_LOADER.get("PREFETCH", 2)),
         collate_fn=collate_fn,
         pin_memory=device.type == "cuda"
-        and bool(cfg.DATA_LOADER.get("PIN_MEMORY", False)))
+        and bool(cfg.DATA_LOADER.get("PIN_MEMORY", False)),
+        worker_type=worker_type,
+        worker_ctx=(cfg.to_dict(), split) if worker_type == "process"
+        else None)
 
 
 def shuffle_dataset(loader, cur_epoch):

@@ -294,12 +294,21 @@ def color_jitter_clip(frames, rng, brightness=0, contrast=0, saturation=0,
     return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
 
+# OpenCV's fixed kernels for sigma <= 0 and n <= 7 (small_gaussian_tab,
+# in 8-bit fixed point: every entry is a multiple of 1/256)
+_SMALL_GAUSSIAN = {1: [256], 3: [64, 128, 64], 5: [16, 64, 96, 64, 16],
+                   7: [8, 28, 56, 72, 56, 28, 8]}
+
+
 def _gaussian_kernel(n, sigma):
     """OpenCV's bit-exact Gaussian kernel of odd size ``n`` in 8-bit fixed
     point (``getGaussianKernelBitExact``, then its error-diffusion
     rounding): int weights summing to 256, computed in float64 in
-    OpenCV's order."""
+    OpenCV's order; for ``sigma <= 0`` and ``n`` 1, 3, 5 or 7 OpenCV's
+    fixed table."""
     if sigma <= 0:
+        if n in _SMALL_GAUSSIAN:
+            return np.asarray(_SMALL_GAUSSIAN[n], np.int32)
         sigma = n * 0.15 + 0.35
     scale = -0.125 / (sigma * sigma)
     half = (n - 1) // 2

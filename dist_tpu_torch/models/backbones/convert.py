@@ -54,7 +54,7 @@ def _leaves(module):
                 "running_mean": ("mean", "as_is", True),
                 "running_var": ("var", "as_is", True),
                 "num_batches_tracked": None}
-    if isinstance(module, nn.Conv3d):
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
         return {"weight": ("kernel", "conv", False),
                 "bias": ("bias", "as_is", False)}
     if isinstance(module, nn.Linear):
@@ -123,9 +123,10 @@ def state_dict_from_jax(variables, module) -> Dict[str, np.ndarray]:
     """The port's state dict for ``module`` (a ``BaseVideoModel`` or one
     of its modules; on the meta device will do) from the JAX model's
     variables: conv kernels
-    ``(D, H, W, I, O)`` -> ``(O, I, D, H, W)`` (a grouped conv keeps ``I
-    = C / groups``), dense kernels ``(I, O)`` -> ``(O, I)``, flax BN
-    ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+    ``(D, H, W, I, O)`` -> ``(O, I, D, H, W)``, and likewise ``(H, W, I,
+    O)`` -> ``(O, I, H, W)`` and ``(K, I, O)`` -> ``(O, I, K)`` (a grouped
+    conv keeps ``I = C / groups``), dense kernels ``(I, O)`` -> ``(O,
+    I)``, flax BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
     ``running_mean``/``running_var``, ``num_batches_tracked`` 0, flax
     LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, the modules' own
     parameters (``_BARE``) as they are; fp32, or float64 where the JAX
@@ -137,7 +138,7 @@ def state_dict_from_jax(variables, module) -> Dict[str, np.ndarray]:
             continue
         x = _get(variables[leaf.collection], leaf.path)
         if leaf.layout == "conv":
-            x = np.transpose(x, (4, 3, 0, 1, 2))
+            x = np.transpose(x, (x.ndim - 1, x.ndim - 2, *range(x.ndim - 2)))
         elif leaf.layout == "dense":
             x = x.T
         wide = np.float64 if x.dtype == np.float64 else np.float32

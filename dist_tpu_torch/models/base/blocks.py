@@ -165,7 +165,7 @@ def init_weights(root, generator):
     of their own implement ``init_own(generator)``."""
     with torch.no_grad():
         for m in root.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:

@@ -32,10 +32,10 @@ STEM_REGISTRY = Registry("Stem")
 BRANCH_REGISTRY = Registry("Branch")
 
 _NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST, "
-               "ResNet3D, SlowFast, S3D-G, video-transformer and ConvNeXt "
-               "families and the contrastive heads (ROADMAP.md queue A: "
-               "TAL for the localization backbone and BMNHead, What no "
-               "shipped config reaches for ClipVideoHeadLinear)")
+               "ResNet3D, SlowFast, S3D-G, video-transformer, ConvNeXt and "
+               "localization families, the contrastive heads and BMNHead "
+               "(ROADMAP.md queue A: What no shipped config reaches for "
+               "ClipVideoHeadLinear)")
 
 
 def _eval_activation(out, activation):
@@ -198,8 +198,9 @@ class VideoModel:
 def build_head(cfg, dim_in=None):
     """The configured head: ``ClipVideoTextIdentity`` (no weights),
     ``BaseHead``, ``BaseHeadx2``, ``TransformerHead`` (``PRE_LOGITS``),
-    ``TransformerHeadx2`` or a contrastive head
-    (``models/heads/contrastive.py``, from ``PRETRAIN.CONTRASTIVE``) over
+    ``TransformerHeadx2``, a contrastive head
+    (``models/heads/contrastive.py``, from ``PRETRAIN.CONTRASTIVE``) or
+    ``BMNHead`` (``models/heads/bmn.py``) over
     ``dim_in`` features (default the backbone's last ``NUM_FILTERS``,
     else its ``NUM_FEATURES``), or a head built from ``cfg`` (the
     SlowFast heads)."""
@@ -224,18 +225,20 @@ def build_head(cfg, dim_in=None):
     if name == "TransformerHead":
         return cls(dim_in, int(head.NUM_CLASSES or 0), *common,
                    pre_logits=bool(head.get("PRE_LOGITS", False)))
-    if name.startswith("ContrastiveHead"):
+    if name.startswith("ContrastiveHead") or name == "BMNHead":
         return cls(cfg, dim_in)
     return cls(cfg)
 
 
 def _register_backbones():
+    import dist_tpu_torch.models.backbones.localization  # noqa: F401
     import dist_tpu_torch.models.backbones.resnet3d  # noqa: F401
     import dist_tpu_torch.models.backbones.s3dg  # noqa: F401
     import dist_tpu_torch.models.backbones.slowfast  # noqa: F401
     import dist_tpu_torch.models.backbones.video_transformer  # noqa: F401
     import dist_tpu_torch.models.backbones.vit_video  # noqa: F401
     import dist_tpu_torch.models.branches.tada_convnext  # noqa: F401
+    import dist_tpu_torch.models.heads.bmn  # noqa: F401
     import dist_tpu_torch.models.heads.contrastive  # noqa: F401
     import dist_tpu_torch.models.heads.transformer_head  # noqa: F401
 

@@ -2,16 +2,14 @@
 ``dist_tpu/optim/losses.py``): cross-entropy, soft-target CE (whenever
 mixup/cutmix is on), BCE, MSE and label smoothing; dict-valued labels
 (EPIC verb/noun) sum the per-key losses; under ``PRETRAIN.ENABLE`` the
-SSL losses of ``optim/contrastive.py``. Losses are fp32 0-d tensors
+SSL losses of ``optim/contrastive.py``, under ``LOCALIZATION.ENABLE``
+the BMN losses of ``optim/localization.py``. Losses are fp32 0-d tensors
 (float64 for float64 predictions)."""
 
 import torch
 import torch.nn.functional as F
 
 from dist_tpu_torch.models.precision import island_dtype
-
-_NOT_PORTED = ("is not ported yet: the PyTorch port trains the supervised "
-               "and SSL paths only (ROADMAP.md queue A: TAL)")
 
 
 def soft_target_cross_entropy(logits, target):
@@ -68,23 +66,40 @@ def label_smoothing(labels, num_classes, smoothing):
     return one_hot * (on - off) + off
 
 
-def ssl_loss(cfg, preds, logits, labels, cur_epoch=0.0):
-    """``PRETRAIN.LOSS`` split on ``+``, each part weighted by its
-    ``LOSS_WEIGHTS`` entry, on ``labels["self-supervised"]``; a part's
-    entries whose name holds "debug" are reported and not summed."""
-    from dist_tpu_torch.optim.contrastive import SSL_LOSSES
-
+def _weighted_parts(section, registry, preds, logits, labels, cur_epoch,
+                    cfg):
+    """``section.LOSS`` split on ``+``, each part weighted by its
+    ``section.LOSS_WEIGHTS`` entry; a part's entries whose name holds
+    "debug" are reported and not summed."""
     loss, loss_in_parts = 0.0, {}
-    weights = list(cfg.PRETRAIN.LOSS_WEIGHTS)
-    for idx, item in enumerate(cfg.PRETRAIN.LOSS.split("+")):
-        fn = SSL_LOSSES.get_strict("Loss_" + item)
-        parts, _ = fn(cfg, preds, logits, labels.get("self-supervised", {}),
-                      cur_epoch)
+    weights = list(section.LOSS_WEIGHTS)
+    for idx, item in enumerate(section.LOSS.split("+")):
+        fn = registry.get_strict("Loss_" + item)
+        parts, _ = fn(cfg, preds, logits, labels, cur_epoch)
         for k, v in parts.items():
             loss_in_parts[k] = v
             if "debug" not in k:
                 loss = loss + weights[idx] * v
     return loss, loss_in_parts
+
+
+def ssl_loss(cfg, preds, logits, labels, cur_epoch=0.0):
+    """The SSL losses of ``PRETRAIN.LOSS`` on
+    ``labels["self-supervised"]``."""
+    from dist_tpu_torch.optim.contrastive import SSL_LOSSES
+
+    return _weighted_parts(cfg.PRETRAIN, SSL_LOSSES, preds, logits,
+                           labels.get("self-supervised", {}), cur_epoch, cfg)
+
+
+def localization_loss(cfg, preds, logits, labels, cur_epoch=0):
+    """The BMN losses of ``LOCALIZATION.LOSS`` on ``labels`` (their maps
+    under ``"supervised"``); ``cur_epoch`` is the step, which seeds
+    ``Loss_PemReg``'s sampling."""
+    from dist_tpu_torch.optim.localization import LOCALIZATION_LOSSES
+
+    return _weighted_parts(cfg.LOCALIZATION, LOCALIZATION_LOSSES, preds,
+                           logits, labels, cur_epoch, cfg)
 
 
 def calculate_loss(cfg, preds, logits, labels, cur_epoch=0.0):
@@ -94,7 +109,7 @@ def calculate_loss(cfg, preds, logits, labels, cur_epoch=0.0):
     if cfg.PRETRAIN.ENABLE:
         return ssl_loss(cfg, preds, logits, labels, cur_epoch)
     if cfg.LOCALIZATION.ENABLE:
-        raise NotImplementedError(f"LOCALIZATION.ENABLE {_NOT_PORTED}")
+        return localization_loss(cfg, preds, logits, labels, cur_epoch)
     loss_in_parts = {}
     loss_fun = get_loss_func(cfg.TRAIN.get("LOSS_FUNC", "cross_entropy"))
 

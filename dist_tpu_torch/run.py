@@ -1,5 +1,5 @@
-"""CLI entry of the port: the train, test and automatic multi-view test
-run list (port of ``runs/run.py``).
+"""CLI entry of the port: the train, test, automatic multi-view test and
+submission run list (port of ``runs/run.py``).
 
     python -m dist_tpu_torch.run --cfg configs/projects/dist/ssv2/vit-b16-8+16f.yaml \
         [--device cpu] [--init_method URL] [KEY VALUE ...]
@@ -9,12 +9,14 @@ Builds the run list exactly as ``runs/run.py::_prepare_data`` does:
 training (``TRAIN.ENABLE``), the single-view test, then the automatic
 multi-view test with the per-dataset view policy (SSV2 3 x 1, Kinetics
 and EPIC 10 x 3, ...), overridable with ``TEST.OVERRIDE_MULTI_SCALE_TEST``.
-The test entries load the last checkpoint that training wrote. The list
-runs in every rank of the data axis (``parallel/launch.py``): in this
-process on one card (``--device``, default the CUDA card) when the axis
-is one rank, in N spawned processes when ``TPU.MESH.DATA`` is N (or -1
-with N local cards), or in the ranks ``torchrun`` started. The
-submission test is not ported yet and raises.
+The test entries load the last checkpoint that training wrote; with
+``SUBMISSION.ENABLE`` the submission test (10 x 3 views,
+``tasks/submission.py``) comes last, and ``TASK_TYPE: submission`` runs
+it alone. The list runs in every rank of the data axis
+(``parallel/launch.py``): in this process on one card (``--device``,
+default the CUDA card) when the axis is one rank, in N spawned processes
+when ``TPU.MESH.DATA`` is N (or -1 with N local cards), or in the ranks
+``torchrun`` started.
 """
 
 import os
@@ -23,13 +25,11 @@ import sys
 from dist_tpu_torch.config.config import load_from_args
 from dist_tpu_torch.parallel import collectives, launch
 
-_SUBMISSION_TODO = ("the submission test (tasks/submission.py) is not ported "
-                    "yet (ROADMAP.md queue A: tasks/submission.py)")
-
 
 def _prepare_data(cfg):
     """[(cfg, task)] in run order; each cfg a copy of ``cfg`` as it stood
     when its entry was added."""
+    from dist_tpu_torch.tasks.submission import submission_test
     from dist_tpu_torch.tasks.test import test
     from dist_tpu_torch.tasks.train import train
 
@@ -38,8 +38,6 @@ def _prepare_data(cfg):
         cfg.TEST.ENABLE = False
     elif cfg.TASK_TYPE != "classification":
         raise ValueError(f"unknown TASK_TYPE {cfg.TASK_TYPE}")
-    if cfg.SUBMISSION.ENABLE:
-        raise NotImplementedError(_SUBMISSION_TODO)
 
     run_list = []
     if cfg.TRAIN.ENABLE:
@@ -68,6 +66,13 @@ def _prepare_data(cfg):
             cfg.TEST.LOG_FILE = "val_{}clipsx{}crops.log".format(
                 cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS)
             run_list.append([cfg.deep_copy(), test])
+    if cfg.SUBMISSION.ENABLE:
+        cfg.LOG_MODEL_INFO = False
+        cfg.TEST.NUM_ENSEMBLE_VIEWS = 10
+        cfg.TEST.NUM_SPATIAL_CROPS = 3
+        cfg.TEST.LOG_FILE = "test_{}clipsx{}crops.log".format(
+            cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS)
+        run_list.append([cfg.deep_copy(), submission_test])
     return run_list
 
 

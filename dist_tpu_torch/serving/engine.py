@@ -34,7 +34,9 @@ logger = get_logger(__name__)
 _DUAL_HEAD = ("the serving engine serves single-label heads; a dual "
               "verb/noun head (VIDEO.HEAD.NUM_CLASSES a list) is evaluated "
               "through the eval step and the test task (python -m "
-              "dist_tpu_torch.run with TRAIN.ENABLE false)")
+              "dist_tpu_torch.run with TRAIN.ENABLE false), and scored "
+              "for a results file by the submission task "
+              "(SUBMISSION.ENABLE true: tasks/submission.py)")
 
 
 class InferenceEngine:

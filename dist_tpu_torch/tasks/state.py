@@ -208,11 +208,15 @@ def make_train_step(model, cfg, optimizer, lr_fn):
     ``step(state, batch) -> metrics``, with ``batch`` = {"video": (B, T,
     H, W, 3) uint8 or float, "labels": (B,) int, "text_features":
     optional}, and for EPIC's dual heads "label_verb" and "label_noun"
-    (B,) int, all on the model's device. Under ``PRETRAIN.ENABLE`` the
-    video is the views (B, n, T, H, W, 3), flattened to rows ``b * n +
-    v`` before anything else, the batch carries "contrastive" (B, n),
-    read by the SSL losses as ``labels["self-supervised"]``, and the
-    errors count 0; under ``AUGMENTATION.USE_GPU`` a uint8 video is
+    (B,) int, all on the model's device. Under ``LOCALIZATION.ENABLE``
+    the video is the snippet features (B, T, C) and "labels" the dict of
+    BMN's label maps ("start_map", "end_map" (B, T), "iou_map", "mask"
+    (B, D, T), "label_map" (B, 2, D, T)), and the losses take the step
+    as ``cur_epoch``, which seeds ``Loss_PemReg``'s draws. Under
+    ``PRETRAIN.ENABLE`` the video is the views (B, n, T, H, W, 3),
+    flattened to rows ``b * n + v`` before anything else, the batch
+    carries "contrastive" (B, n), read by the SSL losses as
+    ``labels["self-supervised"]``, and the errors count 0; under ``AUGMENTATION.USE_GPU`` a uint8 video is
     augmented on its device (``ops/augment_device.py``, the factors drawn
     from (``RANDOM_SEED + 3``, ``state.step``) by :func:`augment_draws`)
     before it is normalised. Otherwise it normalises the video, mixes

@@ -262,7 +262,8 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
     ``TrainMeter``), which logs them under the in-epoch iter
     ``iter_offset + k``: in a group, their mean over the ranks, each step
     counted as the global batch. Appends the loop's timing to
-    ``meter.timing``.
+    ``meter.timing``: its batches, seconds, seconds waiting on the loader,
+    and each step's seconds and wait (``iter_s``, ``wait_s``).
 
     Returns ``(state, preempt_iter)``: ``preempt_iter`` is None for a
     completed epoch, else the batches of this fold-epoch consumed so far
@@ -273,7 +274,7 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
     raw = cfg.TRAIN.get("PREEMPT_AFTER_ITERS", -1)
     preempt_after = -1 if raw is None else int(raw)
     device = state.model.device
-    timing = {"batches": 0, "loader_wait_s": 0.0, "iter_s": []}
+    timing = {"batches": 0, "loader_wait_s": 0.0, "iter_s": [], "wait_s": []}
     meter.timing.append(timing)
     meter.iter_tic()
 
@@ -297,9 +298,11 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
         while True:
             t0 = time.perf_counter()
             batch = next(it, None)
-            timing["loader_wait_s"] += time.perf_counter() - t0
+            wait = time.perf_counter() - t0
+            timing["loader_wait_s"] += wait
             if batch is None:
                 return
+            timing["wait_s"].append(wait)
             yield batch
 
     pending = None

@@ -1244,3 +1244,134 @@ def test_tiny_ssl_step_on_the_card_matches_the_cpu(name):
     assert _rel_l2(sg, sc) <= CONV_STATS_REL
     assert _worst_leaf(gg, gc)[0] <= CONV_GRAD_REL, _worst_leaf(gg, gc)
     assert all(fn.launches == 0 for fn in counts)
+
+
+# BMN (bmn_epic100.yaml) at a tiny geometry: 20 snippets of 48 features,
+# DIM1D 16, DSCALE 10, four groups, verb/noun maps [6, 9]
+BMN_TINY = ["DATA.NUM_INPUT_CHANNELS", "48", "DATA.NUM_INPUT_FRAMES", "20",
+            "VIDEO.DIM1D", "16", "LOCALIZATION.DSCALE", "10",
+            "VIDEO.HEAD.NUM_CLASSES", "[6, 9]",
+            "LOCALIZATION.LOSS", "Tem+PemReg+PemCls+BmnActionCls",
+            "LOCALIZATION.LOSS_WEIGHTS", "[1.0, 10.0, 1.0, 1.0]"]
+# fp32 card against CPU, TF32 off: every output of the tiny BMN
+BMN_FORWARD_ATOL = 1e-5
+
+
+def _bmn_batch(b, seed, t=20, c=48, d=10):
+    gen = torch.Generator().manual_seed(seed)
+    valid = ((torch.arange(t)[None, :] + torch.arange(1, d + 1)[:, None])
+             <= t).double().expand(b, d, t)
+    labels = {"start_map": (torch.rand(b, t, generator=gen) > 0.7).double(),
+              "end_map": (torch.rand(b, t, generator=gen) > 0.7).double(),
+              "iou_map": torch.rand(b, d, t, generator=gen).double() * valid,
+              "mask": valid.contiguous(),
+              "label_map": torch.stack(
+                  [torch.randint(0, n, (b, d, t), generator=gen)
+                   for n in (6, 9)], 1)}
+    return torch.randn(b, t, c, generator=gen), labels
+
+
+def test_tiny_bmn_on_the_card_matches_the_cpu():
+    """The tiny BMN's forward in fp32 and one float64 Adam step with all
+    four losses (``Loss_PemReg``'s draws from the CPU generator on both),
+    card against CPU from the same weights: outputs within
+    ``BMN_FORWARD_ATOL``, the loss and the worst gradient leaf within the
+    conv family's limits; K1-K4 launch no time."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    counts = (att.fused_attention_qkv, att.attention_qkv_rows,
+              tn.fused_temporal_net, tn.fused_temporal_net_bwd)
+    for fn in counts:
+        fn.launches = 0
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "configs/projects/tal/bmn_epic100.yaml"),
+                      BMN_TINY, make_output_dir=False)
+    feats, labels = _bmn_batch(2, 5)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    with torch.no_grad():
+        want, _ = cpu.apply({"video": feats})
+        got, _ = card.apply({"video": feats.cuda()})
+    for k in want:
+        _within(got[k].cpu(), want[k], BMN_FORWARD_ATOL, 0.0)
+    out = []
+    for model in (cpu, card):
+        model.module.double()
+        opt, lr_fn = construct_optimizer(cfg, model.module, 4)
+        grads = {}
+        opt.register_step_pre_hook(lambda *_, m=model: grads.update(
+            {k: p.grad.cpu().clone() for k, p in m.module.named_parameters()}))
+        batch = {"video": feats.double().to(model.device),
+                 "labels": {k: v.to(model.device) for k, v in labels.items()}}
+        metrics = make_train_step(model, cfg, opt, lr_fn)(
+            create_train_state(model, opt), batch)
+        out.append((float(metrics["loss"]), grads))
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) / abs(lc) <= CONV_LOSS_RTOL
+    assert _worst_leaf(gg, gc)[0] <= CONV_GRAD_REL, _worst_leaf(gg, gc)
+    assert all(fn.launches == 0 for fn in counts)
+
+
+def test_tiny_submission_on_the_card(tmp_path):
+    """The tiny DiST config's submission run list on the card (K1 and K2
+    fused): 10 x 3 views of 2 synthetic videos through both kernels, the
+    generic JSON with each video's 30 softmax views summed."""
+    import json
+    import os
+
+    from dist_tpu_torch import run
+
+    for fn in (att.fused_attention_qkv, tn.fused_temporal_net):
+        fn.launches = 0
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (path,) = run.main([
+        "--cfg", os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        "TASK_TYPE", "submission", "SUBMISSION.ENABLE", "true",
+        "TPU.FUSED_TEMPORAL_NET", "true", "TEST.NUM_SAMPLES_LIMIT", "2",
+        "TEST.BATCH_SIZE", "16", "OUTPUT_DIR", str(tmp_path)])
+    with open(path) as f:
+        results = json.load(f)
+    assert results["version"] == "0.1" and sorted(results["results"]) == ["0", "1"]
+    for entry in results["results"].values():
+        scores = np.asarray(entry["scores"])
+        assert np.isfinite(scores).all()
+        np.testing.assert_allclose(scores.sum(), 30.0, rtol=1e-3)
+    assert att.fused_attention_qkv.launches > 0
+    assert tn.fused_temporal_net.launches > 0
+
+
+def test_process_pool_loader_beside_the_card():
+    """With CUDA initialised in this process, a spawned process pool
+    (RandAugment and random erasing on, the twins of OpenCV's ops) yields
+    the thread pool's train batches bit for bit."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.data.builder import build_loader
+
+    torch.zeros(1, device="cuda")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opts = ["AUGMENTATION.AUTOAUGMENT.ENABLE", "true",
+            "AUGMENTATION.RANDOM_ERASING.ENABLE", "true",
+            "TRAIN.BATCH_SIZE", "4", "TRAIN.NUM_SAMPLES_LIMIT", "8"]
+    batches = {}
+    for worker_type in ("process", "thread"):
+        cfg = load_config(os.path.join(
+            repo, "configs/projects/dist/test/tiny_synth.yaml"),
+            opts + ["DATA_LOADER.WORKER_TYPE", worker_type],
+            make_output_dir=False)
+        loader = build_loader(cfg, "train", device="cuda")
+        try:
+            batches[worker_type] = list(loader)
+        finally:
+            loader.close()
+    assert len(batches["process"]) == len(batches["thread"]) == 2
+    for g, w in zip(batches["process"], batches["thread"]):
+        for k in w:
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))

@@ -205,15 +205,19 @@ def test_decode_retry_takes_the_neighbour(repo_root, tmp_path, monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_item(repo_root):
-    for opts, item in (
-            (["AUGMENTATION.AUTOAUGMENT.ENABLE", "true"],
-             "data/rand_augment.py"),
-            (["AUGMENTATION.RANDOM_ERASING.ENABLE", "true"],
-             "data/rand_augment.py")):
-        cfg, _ = _cfgs(repo_root, *opts)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue A: {item}"):
-            datasets.Synthetic(cfg, "train")
+    """RandAugment and random erasing are ported (``data/rand_augment.py``,
+    ROADMAP.md queue A, item 3): a train item with either on equals the
+    JAX package's bit for bit, for several per-sample seeds."""
+    for opts in (["AUGMENTATION.AUTOAUGMENT.ENABLE", "true"],
+                 ["AUGMENTATION.RANDOM_ERASING.ENABLE", "true",
+                  "AUGMENTATION.RANDOM_ERASING.PROB", "1.0",
+                  "AUGMENTATION.RANDOM_ERASING.MODE", "pixel"]):
+        cfg, jcfg = _cfgs(repo_root, *opts)
+        got = datasets.Synthetic(cfg, "train")
+        want = jax_datasets.Synthetic(jcfg, "train")
+        for index, seed in ((0, 11), (1, 12), (2, 13), (3, 14)):
+            _assert_items_equal(got.__getitem__(index, seed),
+                                want.__getitem__(index, seed))
     # SSL pretraining is ported: the dataset builds its views' generator
     # instead of refusing
     cfg, _ = _cfgs(repo_root, "PRETRAIN.ENABLE", "true")

@@ -256,7 +256,7 @@ def test_train_epoch_carries_the_verb_and_noun_labels(repo_root, caplog):
 def test_engine_refuses_a_dual_head_as_jax(repo_root):
     """The JAX engine asserts a single-label head at construction; the
     port raises ``NotImplementedError`` there and names where a dual
-    head is evaluated."""
+    head is evaluated and scored for a results file."""
     from dist_tpu.serving.engine import InferenceEngine as JaxEngine
     from dist_tpu_torch.serving.engine import InferenceEngine
 
@@ -264,7 +264,8 @@ def test_engine_refuses_a_dual_head_as_jax(repo_root):
     with pytest.raises(AssertionError, match="single-label heads"):
         JaxEngine(jcfg, batch_size=2)
     with pytest.raises(NotImplementedError,
-                       match="single-label heads.*eval step and the test task"):
+                       match="single-label heads.*eval step and the test task"
+                       ".*the submission task"):
         InferenceEngine(cfg, batch_size=2, device="cpu")
 
 

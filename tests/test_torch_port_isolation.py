@@ -68,6 +68,15 @@ def test_importing_the_port_loads_nothing_forbidden():
             "dist_tpu_torch.optim.contrastive",
             "dist_tpu_torch.ops.augment_device",
             "dist_tpu_torch.data.long_video"} <= set(modules), modules
+    # RandAugment and its OpenCV twins, the submission task, TAL
+    assert {"dist_tpu_torch.data.rand_augment",
+            "dist_tpu_torch.tasks.submission",
+            "dist_tpu_torch.models.backbones.localization",
+            "dist_tpu_torch.models.heads.bmn",
+            "dist_tpu_torch.optim.localization",
+            "dist_tpu_torch.tal.bboxes_1d",
+            "dist_tpu_torch.tal.eval",
+            "dist_tpu_torch.tal.tools"} <= set(modules), modules
     code = (
         "import importlib, importlib.util, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -98,8 +98,26 @@ def test_tiny_synth_batches_match_jax(repo_root, split):
 
 
 def test_process_pool_is_not_ported(repo_root):
+    """The process pool is ported (ROADMAP.md queue A, item 3): under
+    ``DATA_LOADER.WORKER_TYPE: process`` the test split's loader, its
+    workers spawned, yields the thread pool's batches bit for bit, and
+    ``close`` shuts its workers down."""
+    opts = ["TEST.NUM_SAMPLES_LIMIT", "3", "TEST.BATCH_SIZE", "2"]
+    thread = builder.build_loader(
+        load_config(os.path.join(repo_root, TINY), opts,
+                    make_output_dir=False), "test", device="cpu")
     cfg = load_config(os.path.join(repo_root, TINY),
-                      ["DATA_LOADER.WORKER_TYPE", "process"],
+                      opts + ["DATA_LOADER.WORKER_TYPE", "process"],
                       make_output_dir=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builder.build_loader(cfg, "test", device="cpu")
+    loader = builder.build_loader(cfg, "test", device="cpu")
+    try:
+        got, want = list(loader), list(thread)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+        assert loader._proc_pool is not None
+    finally:
+        loader.close()
+    assert loader._proc_pool is None

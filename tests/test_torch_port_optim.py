@@ -118,12 +118,23 @@ def test_label_smoothing_and_calculate_loss_match_jax(repo_root):
 
 
 def test_unported_losses_raise(repo_root):
-    """The TAL losses are not ported and raise naming their queue; the
-    SSL losses are: ``PRETRAIN.ENABLE`` dispatches to them."""
-    cfg, _ = _cfgs(repo_root, FLAGSHIP, ["LOCALIZATION.ENABLE", "true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.calculate_loss(cfg, torch.zeros(2, 3), None,
-                              {"supervised": torch.zeros(2).long()})
+    """Both the TAL losses and the SSL losses are ported:
+    ``LOCALIZATION.ENABLE`` dispatches to the BMN losses (``LOSS`` split
+    on ``+``, weighted by ``LOSS_WEIGHTS``; ROADMAP.md queue A, item 6),
+    ``PRETRAIN.ENABLE`` to the SSL losses."""
+    cfg, _ = _cfgs(repo_root, "configs/projects/tal/bmn_epic100.yaml")
+    preds = {"start": torch.full((2, 4), 0.5), "end": torch.full((2, 4), 0.5),
+             "confidence_map": torch.full((2, 2, 3, 4), 0.5)}
+    maps = {"start_map": torch.ones(2, 4), "end_map": torch.zeros(2, 4),
+            "iou_map": torch.full((2, 3, 4), 0.8),
+            "mask": torch.ones(2, 3, 4)}
+    loss, parts = losses.calculate_loss(cfg, preds, None,
+                                        {"supervised": maps}, cur_epoch=1)
+    assert sorted(parts) == ["pem_cls", "pem_reg", "tem"]
+    weights = dict(zip(("tem", "pem_reg", "pem_cls"),
+                       cfg.LOCALIZATION.LOSS_WEIGHTS))
+    torch.testing.assert_close(
+        loss, sum(weights[k] * v for k, v in parts.items()))
     cfg, _ = _cfgs(repo_root, "configs/projects/hico/simclr_k400_s3dg.yaml")
     emb = torch.nn.functional.normalize(torch.randn(4, 8), dim=-1)
     loss, parts = losses.calculate_loss(

@@ -150,14 +150,24 @@ def test_run_list_views_match_jax(repo_root, opts):
 
 
 def test_training_and_submission_are_refused(repo_root):
-    """The submission test is refused. Training no longer is: its run
-    list is ``test_run_list_views_match_jax``'s ``TRAIN.ENABLE`` cases."""
+    """Neither is refused any longer: training's run list is
+    ``test_run_list_views_match_jax``'s ``TRAIN.ENABLE`` cases, and with
+    ``SUBMISSION.ENABLE`` the submission test (ROADMAP.md queue A, item
+    5) comes last at 10 x 3 views, as in the JAX run list."""
+    from dist_tpu_torch.tasks.submission import submission_test
+
     path = os.path.join(repo_root, TINY)
-    cfg = config.load_config(path, ["TRAIN.ENABLE", "false",
-                                    "SUBMISSION.ENABLE", "true"],
-                             make_output_dir=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        run._prepare_data(cfg)
+    opts = ["TRAIN.ENABLE", "false", "SUBMISSION.ENABLE", "true"]
+    got = run._prepare_data(config.load_config(path, opts,
+                                               make_output_dir=False))
+    want = _jax_run_module(repo_root)._prepare_data(
+        jax_config.load_config(path, opts, make_output_dir=False))
+    assert [f.__name__ for _, f in got] == [f.__name__ for _, f in want]
+    assert got[-1][1] is submission_test
+    for (g, _), (w, _) in zip(got, want):
+        assert g.cfg_dict == w.cfg_dict
+    assert (got[-1][0].TEST.NUM_ENSEMBLE_VIEWS,
+            got[-1][0].TEST.NUM_SPATIAL_CROPS) == (10, 3)
 
 
 @pytest.mark.parametrize("opts", [["TPU.SHARD_FRAMES", "true"],

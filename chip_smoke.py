@@ -293,6 +293,25 @@
    (``FP64_STEP_LIMITS``), which a control whose proposal windows are
    one snippet longer must break. K1-K4 must launch no time in the
    phase.
+22. CLIP fine-tune: ``CLIP_FT`` (CLIP ViT-B/16 on SSV2) with
+   ``VIDEO.HEAD.NAME ClipVideoHeadLinear`` at full width (174 classes, 8
+   frames at 224^2, bf16, AdamW, mixup, cutmix and dropout as shipped,
+   random weights from RANDOM_SEED, synthetic clips; the whole vision
+   tower trains). First K1b, the attention backward, against its plain
+   version at the train step's shape (256, 197, 2304) in bf16 and fp32,
+   ViT-L/14's (1024, 257, 3072), the causal text tower's (174, 77, 1536)
+   and (8, 577, 3072) (``tools/attn_bwd.py``: two launches bit for bit,
+   each third within ``BWD_LIMITS``, which the control, dS without its
+   rowsum term, must break), timed beside its plain version and SDPA's
+   backward; then 2 warm-up and 5 timed train steps at batch 32 (step
+   ms, clips/s, peak memory, finite losses, every vision weight and the
+   head moved, no gradient in the text tower, K1 12 and K1b 12 launches
+   a step), 3 steps with ``TPU.REMAT`` (K1 24, K1b 12 a step), 3 request
+   batches of 8 through ``InferenceEngine`` (K1 12 a batch, softmax
+   rows), and one clip's fp32 step on the card against the CPU
+   (``CLIP_FT_AGREEMENT_LIMITS``, which the CPU's control must break).
+   No phase before it launches K1b (its count is read across all of
+   them).
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -323,14 +342,16 @@ under ``zoo`` each zoo shape's numbers; ``tada_launches``,
 ``epic_launches``, ``s3dg_launches``, ``vit_launches``,
 ``transformers_launches``, ``ssl_launches``, ``augment_launches`` and
 ``tal_launches`` those phases' (0), ``submission_launches`` the
-flagship's submission entry's;
+flagship's submission entry's, ``clip_ft_launches`` the clip_ft phase's
+by part;
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
 main path launches; K2 and K3 with their route, ``fwd_route`` and
 ``bwd_route``, the occupancy and ptxas usage of their bf16 instances, and
-their fp32 route's numbers beside them; K2 with ``unfused_ms``), the card
-line, and last
+their fp32 route's numbers beside them; K2 with ``unfused_ms``; K1b's
+launches from the clip_ft phase's train steps, its numbers at the train
+shape in bf16, each other check's beside them), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
 non-zero without the last line.
 """
@@ -776,6 +797,28 @@ TAL_AGREEMENT_SAMPLES = 2
 TAL_AGREEMENT_LIMITS = {"max_abs_diff": 1e-5, "feature_rel_l2": 1e-5}
 TAL_DETECTION_VIDEOS = 4
 TAL_DURATION_S = 60.0
+# the clip_ft phase: the CLIP ViT-B/16 SSV2 fine-tune with the linear
+# head over the video embedding (the whole vision tower trains, bf16,
+# AdamW, mixup and cutmix, dropout 0.5, as shipped), SSV2's steps an
+# epoch at batch 32 as the flagship's
+CLIP_FT = "configs/projects/dist/vit_base_16_ssv2.yaml"
+CLIP_FT_OPTS = ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear"]
+CLIP_FT_WARMUP = 2
+CLIP_FT_TIMED = 5
+CLIP_FT_REMAT_STEPS = 3
+CLIP_FT_SERVE_BATCH = 8
+CLIP_FT_REQUESTS = 3
+# the card against the CPU, one step's gradients of one clip in fp32
+# (mixup, cutmix and dropout off) over the 154 trainable tensors with a
+# gradient (the vision tower and the head; the text tower's 149 and
+# logit_scale have none): the worst relative L2 error, the least cosine
+# and the loss's relative difference, 3 times the H100 reading (9.06e-7,
+# 1 - 5.4e-13, 2.43e-7) rounded up. The control (the CPU's backward with
+# the rowsum term of dS dropped) reads 1.43, 1 - 0.42: it breaks the
+# gradient limits 4.7e5 times over; its loss is the same forward's
+CLIP_FT_AGREEMENT_LIMITS = {"max_grad_rel_err": 3e-6,
+                            "min_grad_cosine": 1 - 2e-12,
+                            "loss_rel_diff": 1e-6}
 # K1's bf16 route sweep: the lengths at the edges of the routes (the
 # whole-row instances pad L to 80, 208 and 272; longer rows stream), 77
 # causal as in the text tower, at hd 64, and one length at hd 32
@@ -1669,8 +1712,13 @@ def _train_batches(cfg, n, seed, clips=None):
                                      device="cuda")} for _ in range(n)]
 
 
-def _zero_counts():
+def _zero_counts(bwd=False):
+    """Every kernel's launch count set to 0; returns a reader of the
+    counts. K1b's (``attention_qkv_bwd``) is among them with ``bwd``: the
+    phases before ``clip_ft`` train no CLIP tower, and ``main`` reads its
+    count over all of them at once."""
     from dist_tpu_torch.ops.attention import (
+        attention_qkv_bwd,
         attention_qkv_rows,
         fused_attention_qkv,
     )
@@ -1683,6 +1731,8 @@ def _zero_counts():
            "attention_qkv_rows": attention_qkv_rows,
            "temporal_net_fwd": fused_temporal_net,
            "temporal_net_bwd": fused_temporal_net_bwd}
+    if bwd:
+        fns["attention_qkv_bwd"] = attention_qkv_bwd
     for fn in fns.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in fns.items()}
@@ -5805,6 +5855,279 @@ def tal(repo, card):
     return _conv_phase("tal", card, parts, agreements, config=TAL)
 
 
+def check_attention_bwd(name, b, l, heads, hd, causal, dtype, seed):
+    """K1b against its plain version (``tools/attn_bwd.py::reading``: two
+    launches bit for bit, the worst third within ``BWD_LIMITS``, the
+    control outside them), timed beside the plain version and the
+    backward of ``F.scaled_dot_product_attention`` on the same Q, K, V
+    (fwd + bwd minus fwd)."""
+    import torch
+    import torch.nn.functional as F
+    from dist_tpu_torch.ops import attention as att
+    from dist_tpu_torch.tools import attn_bwd
+
+    d = heads * hd
+    qkv, dout = attn_bwd.inputs(b, l, heads, hd, dtype, seed)
+    rec = attn_bwd.reading(qkv, dout, heads, causal)
+    torch.cuda.synchronize()
+    q, k, v = (qkv.view(b, l, 3, heads, hd)[:, :, i].transpose(1, 2)
+               .contiguous().requires_grad_() for i in range(3))
+    do4 = dout.view(b, l, heads, hd).transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        torch.autograd.grad(out, (q, k, v), do4)
+
+    dtname = str(dtype).split(".")[-1]
+    pairs = l * (l + 1) // 2 if causal else l * l      # (query, key) pairs
+    nbytes = 2 * qkv.numel() * qkv.element_size() + dout.numel() \
+        * dout.element_size()
+    b_ms, b_by = bound(nbytes, 10 * b * heads * hd * pairs, dtname)
+    ms = time_ms(lambda: att.attention_qkv_bwd(qkv, dout, heads, causal), 20)
+    rec = {
+        "check": name, "kernel": "attention_qkv_bwd", "shape": [b, l, 3 * d],
+        "heads": heads, "causal": causal, "dtype": dtname, **rec,
+        "blocks_per_sm": att.bwd_blocks_per_sm(hd, dtype),
+        "smem_bytes_per_block": att.bwd_smem_bytes(hd, dtype),
+        "ptxas": _bwd_usage(hd, dtype), "ms": ms,
+        "plain_ms": time_ms(lambda: att.attention_qkv_bwd_plain(
+            qkv, dout, heads, causal), 5),
+        "library_ms": time_ms(sdpa_fwd_bwd, 20) - time_ms(sdpa_fwd, 20),
+        "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+        "tolerance": "max |err| over the largest |plain| of each third "
+                     "(tools/attn_bwd.py::BWD_LIMITS)"}
+    emit(rec)
+    del q, k, v, do4, qkv, dout
+    torch.cuda.empty_cache()
+    if not rec["pass"]:
+        raise AssertionError(f"{name}: kernel {rec['kernel_err']}, control "
+                             f"{rec['control_err']}, limit {rec['limit']}, "
+                             f"repeatable {rec['again_equal']}")
+    return rec
+
+
+def _bwd_usage(hd, dtype):
+    """{"dq", "dkv"}: the ptxas registers and spill bytes of K1b's two
+    instances at head dim ``hd`` and ``dtype``."""
+    import re
+
+    import torch
+    from dist_tpu_torch.ops import _build
+
+    want = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    out = {}
+    for mangled, v in _build.ptxas_usage("attention_bwd").items():
+        m = re.search(r"attention_bwd_(dq|dkv)_kernelI(13__nv_bfloat16|f)"
+                      r"Li(\d+)E", mangled)
+        if m and m[2] == want and int(m[3]) == hd:
+            out[m[1]] = {"registers": v.get("registers"),
+                         "spill_bytes": v.get("spill_stores", 0)
+                         + v.get("spill_loads", 0)}
+    if set(out) != {"dq", "dkv"}:
+        raise AssertionError(f"no ptxas usage of K1b at hd {hd} {dtype}")
+    return out
+
+
+def clip_ft_kernel_checks():
+    """K1b at the shapes of the CLIP fine-tune's train step in bf16 and
+    fp32, ViT-L/14's step, the causal text tower and a length past the
+    whole-row lengths (``tools/attn_bwd.py::SHAPES``)."""
+    import torch
+    from dist_tpu_torch.tools.attn_bwd import SHAPES
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("train", "l14_train", "text_causal", "l577")
+    out = {n: check_attention_bwd(f"attention_bwd {n} bf16", b, l, h, hd, c,
+                                  bf16, 60 + i)
+           for i, (n, (b, l, h, hd, c)) in enumerate(zip(names, SHAPES))}
+    b, l, h, hd, c = SHAPES[0]
+    out["train_fp32"] = check_attention_bwd("attention_bwd train fp32", b, l,
+                                            h, hd, c, f32, 65)
+    return out
+
+
+def _clip_ft_agree(repo, problems):
+    """One step's gradients of one clip, fp32, mixup, cutmix and dropout
+    off: the card (K1 and K1b's fp32 routes) against the CPU (their plain
+    versions), and against the CPU's control (dS without its rowsum
+    term), held to ``CLIP_FT_AGREEMENT_LIMITS``."""
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.ops import attention as att
+    from dist_tpu_torch.tools.attn_bwd import bwd_without_rowsum
+
+    cfg = load_config(os.path.join(repo, CLIP_FT), CLIP_FT_OPTS + [
+        "TRAIN.MIXED_PRECISION", "false", "AUGMENTATION.MIXUP.ENABLE",
+        "false", "AUGMENTATION.CUTMIX.ENABLE", "false",
+        "VIDEO.HEAD.DROPOUT_RATE", "0"], make_output_dir=False)
+    batch = _train_batches(cfg, 1, int(cfg.RANDOM_SEED) + 1, clips=1)[0]
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    card = _step_grads(build_model(cfg), cfg, batch, None)
+    torch.cuda.empty_cache()
+    cpu = _step_grads(build_model(cfg, device="cpu"), cfg, cpu_batch, None)
+    plain = att.attention_qkv_bwd_plain
+    att.attention_qkv_bwd_plain = bwd_without_rowsum
+    try:
+        control = _step_grads(build_model(cfg, device="cpu"), cfg, cpu_batch,
+                              None)
+    finally:
+        att.attention_qkv_bwd_plain = plain
+    rec = {"cpu_fp32": _grad_diff(card, cpu),
+           "control_fp32": _grad_diff(card, control),
+           "limits": CLIP_FT_AGREEMENT_LIMITS,
+           "seconds": time.perf_counter() - t0}
+    for metric, worst in _breaches(rec["cpu_fp32"], CLIP_FT_AGREEMENT_LIMITS):
+        problems.append(f"agreement: {metric} {worst}")
+    if not _breaches(rec["control_fp32"], CLIP_FT_AGREEMENT_LIMITS):
+        problems.append("agreement: the control passes the limits")
+    return rec
+
+
+def clip_ft(repo, card):
+    """The CLIP ViT-B/16 SSV2 fine-tune at full width (``CLIP_FT`` with
+    ``CLIP_FT_OPTS``): K1b's checks; 7 train steps at batch 32 (bf16,
+    AdamW, mixup, cutmix, dropout, as shipped; random weights from
+    RANDOM_SEED, synthetic clips): step ms, clips/s, peak memory, finite
+    losses, every vision weight and the head moved, the text tower's
+    gradient zero, K1 and K1b 12 launches a step; 3 steps with
+    ``TPU.REMAT`` (K1 24, K1b 12 a step); 3 request batches of 8 served
+    by ``InferenceEngine`` (K1 12 a batch); one clip's fp32 step on the
+    card against the CPU. Returns (launches by part, K1b's checks)."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.tasks.state import (
+        create_train_state,
+        ema_decay,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    problems = []
+    checks = clip_ft_kernel_checks()
+    cfg = load_config(os.path.join(repo, CLIP_FT), CLIP_FT_OPTS,
+                      make_output_dir=False)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    build_s = time.perf_counter() - t0
+    params = dict(model.module.named_parameters())
+    before = {k: p.detach().clone() for k, p in params.items()}
+    batches = _train_batches(cfg, CLIP_FT_WARMUP + CLIP_FT_TIMED,
+                             int(cfg.RANDOM_SEED))
+    layers = model.module.arch.vision_layers
+
+    def run_steps(part):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _zero_counts(bwd=True)
+        times, losses = [], []
+        for batch in part:
+            t1 = time.perf_counter()
+            losses.append(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        launches = counts()
+        want = {k: 0 for k in launches}
+        want["attention_qkv"] = layers * len(part) * (
+            2 if model.module.visual.transformer.remat else 1)
+        want["attention_qkv_bwd"] = layers * len(part)
+        if launches != want:
+            problems.append(f"launches {launches} != expected {want}")
+        losses = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in losses):
+            problems.append(f"losses {losses}")
+        timed = sorted(times[min(CLIP_FT_WARMUP, len(times) - 1):])
+        return {"step_ms": times, "losses": losses,
+                "step_ms_median": timed[len(timed) // 2],
+                "clips_per_s": len(part[0]["labels"]) * 1e3
+                / timed[len(timed) // 2],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": launches, "expected_launches": want}
+
+    train = run_steps(batches)
+    unmoved = [k for k, p in params.items()
+               if k.startswith(("visual.", "head.")) and torch.equal(
+                   p, before[k])]
+    text_grads = [k for k, p in params.items()
+                  if model.module.is_text_param(k) and p.grad is not None
+                  and bool(p.grad.abs().max() > 0)]
+    if unmoved:
+        problems.append(f"vision or head weights that did not move: "
+                        f"{unmoved}")
+    if text_grads:
+        problems.append(f"text tower weights with a gradient: {text_grads}")
+    model.module.visual.transformer.remat = True
+    remat = run_steps(batches[:CLIP_FT_REMAT_STEPS])
+    groups = {g["group"]: len(g["params"]) for g in optimizer.param_groups}
+    trainable = sum(p.numel() for p in params.values() if p.requires_grad)
+    del model, state, step, optimizer, params, before, batches
+    torch.cuda.empty_cache()
+
+    engine = InferenceEngine(cfg, batch_size=CLIP_FT_SERVE_BATCH)
+    engine.warmup()
+    rng = np.random.default_rng(int(cfg.RANDOM_SEED))
+    t, crop = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TEST_CROP_SIZE)
+    requests = [rng.integers(0, 256, (CLIP_FT_SERVE_BATCH, t, crop, crop, 3),
+                             dtype=np.uint8) for _ in range(CLIP_FT_REQUESTS)]
+    counts = _zero_counts(bwd=True)
+    serve_ms, scores = [], []
+    for clips in requests:
+        t1 = time.perf_counter()
+        scores.append(engine.predict(clips))
+        serve_ms.append((time.perf_counter() - t1) * 1e3)
+    serve_launches = counts()
+    want = {k: 0 for k in serve_launches}
+    want["attention_qkv"] = layers * CLIP_FT_REQUESTS
+    if serve_launches != want:
+        problems.append(f"serving launches {serve_launches} != {want}")
+    sums = np.concatenate([s.sum(axis=1) for s in scores])
+    if not all(np.isfinite(s).all() and s.shape == (
+            CLIP_FT_SERVE_BATCH, int(cfg.VIDEO.HEAD.NUM_CLASSES))
+            for s in scores) or np.abs(sums - 1).max() > 1e-3:
+        problems.append("served scores not finite softmax rows")
+    del engine
+    torch.cuda.empty_cache()
+    agreement = _clip_ft_agree(repo, problems)
+
+    rec = {"phase": "clip_ft", "config": CLIP_FT, "overrides": CLIP_FT_OPTS,
+           "arch": cfg.VIDEO.BACKBONE.META_ARCH_NAME,
+           "classes": int(cfg.VIDEO.HEAD.NUM_CLASSES),
+           "frames": int(cfg.DATA.NUM_INPUT_FRAMES),
+           "batch_size": int(cfg.TRAIN.BATCH_SIZE), "dtype": "bfloat16",
+           "optimizer": cfg.OPTIMIZER.OPTIM_METHOD, "param_groups": groups,
+           "trainable_params": trainable, "build_s": build_s,
+           "train": train, "remat": remat,
+           "serving": {"batch_size": CLIP_FT_SERVE_BATCH, "ms": serve_ms,
+                       "clips_per_s": CLIP_FT_SERVE_BATCH * 1e3
+                       / sorted(serve_ms)[len(serve_ms) // 2],
+                       "launches": serve_launches},
+           "agreement": agreement,
+           "kernel_checks": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                                 "library_ms": v["library_ms"],
+                                 "kernel_err": v["kernel_err"]}
+                             for k, v in checks.items()},
+           "seconds": time.perf_counter() - t_phase, "card": card,
+           "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("clip_ft: " + "; ".join(problems))
+    return {"train": train["launches"], "remat": remat["launches"],
+            "serving": serve_launches}, checks
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name."""
@@ -5940,7 +6263,8 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
 
         from dist_tpu_torch.ops import _build
-        names = ["attention", "temporal_net"]
+        from dist_tpu_torch.ops import attention as att_ops
+        names = ["attention", "temporal_net", "attention_bwd"]
         t0 = time.perf_counter()
         _build.build(names)
         whole_row = {_instance(k): v
@@ -5964,6 +6288,9 @@ def main():
                                  f"K2 and K3 bf16 instances {len(k3)}, "
                                  f"spilling: {spills}")
 
+        # K1b's launches over every phase before clip_ft, which train no
+        # CLIP tower: read once before clip_ft
+        _zero_counts(bwd=True)
         serve_path, train_path, rows = kernel_checks()
         l14_path = l14_kernel_checks()
         zoo_path = zoo_kernel_checks()
@@ -5990,6 +6317,11 @@ def main():
         augment_launches = augment(repo, card)
         submission_launches = submission(repo, card)
         tal_launches = tal(repo, card)
+        earlier_bwd = att_ops.attention_qkv_bwd.launches
+        if earlier_bwd:
+            raise AssertionError(f"K1b launched {earlier_bwd} times before "
+                                 "clip_ft")
+        clip_ft_launches, bwd_checks = clip_ft(repo, card)
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -6071,6 +6403,8 @@ def main():
             entry["augment_launches"] = augment_launches[name]
             entry["submission_launches"] = submission_launches[name]
             entry["tal_launches"] = tal_launches[name]
+            entry["clip_ft_launches"] = {part: c[name] for part, c in
+                                         clip_ft_launches.items()}
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -6109,6 +6443,8 @@ def main():
             "augment_launches": augment_launches["attention_qkv_rows"],
             "submission_launches": submission_launches["attention_qkv_rows"],
             "tal_launches": tal_launches["attention_qkv_rows"],
+            "clip_ft_launches": {part: c["attention_qkv_rows"]
+                                 for part, c in clip_ft_launches.items()},
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),
@@ -6116,6 +6452,27 @@ def main():
                 *keys, "k1_ms", "blocks", "blocks_per_sm",
                 "smem_bytes_per_block", "equal_to_k1")}
                 for nb, rec in rows.items()}})
+        # K1b runs only on the clip_ft path: its launches are that phase's
+        # train steps, its numbers the train shape's in bf16, each other
+        # check's beside them
+        train_bwd = bwd_checks["train"]
+        kernels.append({
+            "name": "attention_qkv_bwd", "route": "cuda",
+            "source": "dist_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": "dist_tpu/ops/attention.py:124",
+            "launches": clip_ft_launches["train"]["attention_qkv_bwd"],
+            "clip_ft_launches": {part: c["attention_qkv_bwd"]
+                                 for part, c in clip_ft_launches.items()},
+            "earlier_phases_launches": earlier_bwd,
+            **{k: train_bwd[k] for k in keys},
+            "shape": train_bwd["shape"], "dtype": train_bwd["dtype"],
+            "blocks_per_sm": train_bwd["blocks_per_sm"],
+            "smem_bytes_per_block": train_bwd["smem_bytes_per_block"],
+            "ptxas": train_bwd["ptxas"],
+            "checks": {where: {k: r[k] for k in (
+                *keys, "shape", "dtype", "causal", "kernel_err",
+                "control_err", "blocks_per_sm", "ptxas")}
+                for where, r in bwd_checks.items()}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -6,10 +6,12 @@ logits = model.apply(inputs)`` contract of the task loops. Its
 ``module`` is what the optimizer, DDP, the EMA copy and the checkpoints
 see, with the reference's key names: the CLIP(+DiST) model, whose head
 (:class:`ClipVideoTextIdentity`) has no weights and stays beside it, or
-a :class:`BaseVideoModel` whose children are the ``backbone`` and the
-``head``. Weights are made from a seeded CPU ``torch.Generator`` and then
-moved to the device, so the same seed gives the same weights on the CPU
-and on the card.
+whose head with weights (:class:`ClipVideoHeadLinear`) is its child
+``head``, so that the CLIP names (``visual.*``, the text tower at the
+root, ``logit_scale``) stay as they are; or a :class:`BaseVideoModel`
+whose children are the ``backbone`` and the ``head``. Weights are made
+from a seeded CPU ``torch.Generator`` and then moved to the device, so
+the same seed gives the same weights on the CPU and on the card.
 """
 
 import dataclasses
@@ -31,11 +33,10 @@ HEAD_REGISTRY = Registry("Head")
 STEM_REGISTRY = Registry("Stem")
 BRANCH_REGISTRY = Registry("Branch")
 
-_NOT_PORTED = ("is not ported yet: the PyTorch port builds the CLIP+DiST, "
-               "ResNet3D, SlowFast, S3D-G, video-transformer, ConvNeXt and "
-               "localization families, the contrastive heads and BMNHead "
-               "(ROADMAP.md queue A: What no shipped config reaches for "
-               "ClipVideoHeadLinear)")
+_NOT_PORTED = ("is not registered in the PyTorch port, which builds the "
+               "CLIP+DiST, ResNet3D, SlowFast, S3D-G, video-transformer, "
+               "ConvNeXt and localization families with their heads (the "
+               "JAX package's registries)")
 
 
 def _eval_activation(out, activation):
@@ -143,6 +144,41 @@ class ClipVideoTextIdentity(nn.Module):
         return out, x
 
 
+@HEAD_REGISTRY.register()
+class ClipVideoHeadLinear(nn.Module):
+    """The no-text CLIP head: a linear classifier over the video
+    embedding. The mean of ``vid_logits`` over the view axis, dropout,
+    the linear layer ``out`` (in fp32, or float64 for a float64 input, as
+    flax promotes a bf16 input against fp32 weights), and a softmax in
+    fp32 in eval mode. Returns ``(preds, the dropped-out feature)``, as
+    the JAX head does."""
+
+    def __init__(self, dim_in, num_classes, dropout_rate=0.0,
+                 activation="softmax"):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.out = nn.Linear(dim_in, num_classes)
+
+    def forward(self, x):
+        feat = x["vid_logits"] if isinstance(x, dict) else x
+        feat = feat.mean(dim=1)
+        if self.dropout_rate > 0:
+            feat = F.dropout(feat, self.dropout_rate, self.training)
+        out = self.out(feat.to(island_dtype(feat)))
+        if not self.training and self.activation == "softmax":
+            out = torch.softmax(out, dim=-1)
+        return out, feat
+
+
+def _head_inside(module):
+    """Whether ``module``'s forward returns the head's ``(preds,
+    logits)``: a :class:`BaseVideoModel`, or a CLIP model with a head
+    attached."""
+    return (isinstance(module, BaseVideoModel)
+            or isinstance(getattr(module, "head", None), nn.Module))
+
+
 @dataclasses.dataclass
 class VideoModel:
     """A built model: the module, the weightless head beside it (None
@@ -185,7 +221,7 @@ class VideoModel:
                    else self.module)(*args)
         else:
             out = torch.func.functional_call(self.module, state_dict, args)
-        if isinstance(self.module, BaseVideoModel):
+        if _head_inside(self.module):
             return out
         if self.head is None:
             return out, out
@@ -197,8 +233,9 @@ class VideoModel:
 
 def build_head(cfg, dim_in=None):
     """The configured head: ``ClipVideoTextIdentity`` (no weights),
-    ``BaseHead``, ``BaseHeadx2``, ``TransformerHead`` (``PRE_LOGITS``),
-    ``TransformerHeadx2``, a contrastive head
+    ``ClipVideoHeadLinear``, ``BaseHead``, ``BaseHeadx2``,
+    ``TransformerHead`` (``PRE_LOGITS``), ``TransformerHeadx2``, a
+    contrastive head
     (``models/heads/contrastive.py``, from ``PRETRAIN.CONTRASTIVE``) or
     ``BMNHead`` (``models/heads/bmn.py``) over
     ``dim_in`` features (default the backbone's last ``NUM_FILTERS``,
@@ -220,7 +257,7 @@ def build_head(cfg, dim_in=None):
                             else bb.NUM_FEATURES))
     if name in ("BaseHeadx2", "TransformerHeadx2"):
         return cls(dim_in, tuple(int(n) for n in head.NUM_CLASSES), *common)
-    if cls is BaseHead:
+    if cls in (BaseHead, ClipVideoHeadLinear):
         return cls(dim_in, int(head.NUM_CLASSES or 0), *common)
     if name == "TransformerHead":
         return cls(dim_in, int(head.NUM_CLASSES or 0), *common,
@@ -246,7 +283,9 @@ def _register_backbones():
 def build_backbone_on_meta(cfg) -> nn.Module:
     """The configured module on the meta device: its parameter names and
     shapes, with no storage behind them. For a head with weights it is
-    the :class:`BaseVideoModel` of backbone and head."""
+    the :class:`BaseVideoModel` of backbone and head, or, for a CLIP
+    backbone (which has ``attach_head``), the backbone with the head as
+    its child ``head`` over its embedding (``out_dim``)."""
     _register_backbones()
     meta_arch = cfg.VIDEO.BACKBONE.META_ARCH
     builder = BACKBONE_REGISTRY.get(meta_arch)
@@ -256,6 +295,9 @@ def build_backbone_on_meta(cfg) -> nn.Module:
         backbone = builder(cfg)
         head = build_head(cfg, getattr(backbone, "out_dim", None))
         if head is not None and next(head.parameters(), None) is not None:
+            if hasattr(backbone, "attach_head"):
+                backbone.attach_head(head)
+                return backbone
             return BaseVideoModel(backbone, head)
     return backbone
 
@@ -270,7 +312,7 @@ def build_model(cfg, device=None, seed=None) -> VideoModel:
         int(cfg.RANDOM_SEED if seed is None else seed))
     init_weights(module, gen)
     module = module.to(device).eval()
-    head = None if isinstance(module, BaseVideoModel) else build_head(cfg)
+    head = None if _head_inside(module) else build_head(cfg)
     return VideoModel(module=module, head=head, cfg=cfg)
 
 

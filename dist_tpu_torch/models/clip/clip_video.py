@@ -3,9 +3,15 @@
 Label-text features are computed once by :meth:`CLIPDiSTModel.encode_text`
 and passed into every forward, as in the JAX package. A frozen tower runs
 under ``torch.no_grad()`` (the JAX package's ``stop_gradient``): nothing of
-it enters the autograd graph, so the attention kernel, which has no
-backward, serves it in a train step too. Video is (B, T, H, W, 3)
-channels-last throughout.
+it enters the autograd graph and its attention launches the forward kernel
+alone. An unfrozen tower (``FREEZE_VISUAL`` false, as the CLIP fine-tunes
+ship) runs under autograd and trains through the attention kernel and its
+backward kernel. Video is (B, T, H, W, 3) channels-last throughout.
+
+The no-text CLIP fine-tune classifies the video embedding with
+``ClipVideoHeadLinear``; that head, which has weights, is this module's
+child ``head`` (``head.out.*``), so the reference's CLIP state dict still
+loads with its own key names beside it.
 """
 
 from typing import Optional
@@ -37,14 +43,19 @@ class CLIPDiSTModel(TextTransformer):
       logits_per_image (B, 1, num_classes): cosine classifier over the
         label-text features, scaled by exp(logit_scale), with the view axis
         the head means over;
-      vid_logits (B, 1, embed_dim); img_logits (B*t, embed_dim).
+      vid_logits (B, 1, embed_dim); img_logits (B*t, embed_dim);
+    or, with a head attached (:meth:`attach_head`), the head's ``(preds,
+    logits)`` of that dict, in the module's train or eval mode.
+
+    ``remat`` (``TPU.REMAT``) recomputes in the backward each block of a
+    tower that trains and each ladder step.
     """
 
     def __init__(self, arch: CLIPArchitecture, dist: Optional[DiSTConfig] = None,
                  num_frames=16, sparse_alpha=1, freeze_visual=True,
                  freeze_text=True, prediction_fusion=False, fusion_weight=0.5,
                  dtype=torch.float32, fused_temporal=False, remat=False):
-        super().__init__(arch)
+        super().__init__(arch, remat=remat)
         self.dist = dist
         self.num_frames = num_frames
         self.sparse_alpha = sparse_alpha
@@ -53,13 +64,27 @@ class CLIPDiSTModel(TextTransformer):
         self.prediction_fusion = prediction_fusion
         self.fusion_weight = fusion_weight
         self.dtype = dtype
-        self.visual = VisionTransformer(arch, sparse_alpha=sparse_alpha)
+        self.visual = VisionTransformer(arch, sparse_alpha=sparse_alpha,
+                                        remat=remat)
         if dist is not None:
             self.dist_net = DiSTNetwork(dist, d_model=arch.vision_width,
                                         output_dim=arch.embed_dim,
                                         fused_temporal=fused_temporal,
                                         remat=remat)
         self.logit_scale = nn.Parameter(torch.empty(()))
+        self.head = None
+
+    @property
+    def out_dim(self):
+        """The width a head over ``vid_logits`` takes: the embedding's."""
+        return self.arch.embed_dim
+
+    def attach_head(self, head):
+        """Make ``head`` (a head with weights over this module's output
+        dict) the child ``head``: the forward then returns its ``(preds,
+        logits)``, and the optimizer, the EMA copy and the checkpoints
+        see its weights as ``head.*``."""
+        self.head = head
 
     def init_own(self, generator):
         super().init_own(generator)
@@ -68,9 +93,9 @@ class CLIPDiSTModel(TextTransformer):
     @staticmethod
     def is_text_param(name):
         """Whether ``name`` (of ``named_parameters``) is the text tower's:
-        those sit at the root, beside ``visual``, ``dist_net`` and
-        ``logit_scale``."""
-        return (not name.startswith(("visual.", "dist_net."))
+        those sit at the root, beside ``visual``, ``dist_net``, ``head``
+        and ``logit_scale``."""
+        return (not name.startswith(("visual.", "dist_net.", "head."))
                 and name != "logit_scale")
 
     def encode_text(self, tokens):
@@ -101,6 +126,10 @@ class CLIPDiSTModel(TextTransformer):
         return self.dist_net(video, taps), cls_x
 
     def forward(self, video, text_features=None):
+        out = self._features(video, text_features)
+        return out if self.head is None else self.head(out)
+
+    def _features(self, video, text_features):
         video_emb, frame_cls = self.encode_video(video)
         if text_features is None:
             return {"vid_logits": video_emb[:, None, :],
@@ -132,12 +161,12 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     data parallelism each rank runs the fused kernels on its own batch, so
     ``NUM_GPUS`` and ``NUM_SHARDS`` do not matter here, as in the JAX
     package.
-    ``REMAT`` recomputes the ladder's steps in the backward
-    (``DiSTNetwork``). The JAX package also remats the CLIP towers' scan
-    body; here a frozen tower runs under ``no_grad`` and keeps nothing for
-    a backward, and an unfrozen one cannot train on the card until the
-    attention kernel has a backward (ROADMAP.md queue A: An attention
-    backward)."""
+    ``REMAT`` recomputes in the backward each ladder step
+    (``DiSTNetwork``) and each block of a tower that trains (the JAX
+    package's ``nn.remat`` of the towers' scan body); a frozen tower runs
+    under ``no_grad``, keeps nothing for a backward, and runs as without
+    it. A head with weights (``ClipVideoHeadLinear``) is attached by the
+    model builder (``models/base/models.py``)."""
     if arch is None:
         name = cfg.VIDEO.BACKBONE.META_ARCH_NAME
         if name not in ARCHITECTURES:

@@ -180,8 +180,14 @@ def _dist_net(sd, p):
 
 def state_dict_from_jax(flax_params) -> Dict[str, np.ndarray]:
     """The JAX package's CLIP(+DiST) params -> this package's state dict
-    (numpy arrays under the reference's torch key names)."""
+    (numpy arrays under the reference's torch key names). Given the whole
+    variables (``{"params": ..., "head": ...}``), a head with weights
+    (``ClipVideoHeadLinear``'s ``out`` Dense) comes across too, as
+    ``head.out.weight`` (the kernel transposed) and ``head.out.bias``."""
     p = flax_params
+    head = None
+    if "params" in p:
+        head, p = p.get("head"), p["params"]
     v, t = p["visual"], p["text"]
     sd = {"logit_scale": _np(p["logit_scale"]).reshape(())}
     _put(sd, "visual", {
@@ -200,6 +206,9 @@ def state_dict_from_jax(flax_params) -> Dict[str, np.ndarray]:
     _unstack(sd, "transformer.resblocks", _resblocks(t["resblocks"]))
     if "dist_net" in p:
         _dist_net(sd, p["dist_net"])
+    if head:
+        sd["head.out.weight"] = _t(head["out"]["kernel"])
+        sd["head.out.bias"] = _np(head["out"]["bias"])
     return sd
 
 

@@ -6,13 +6,16 @@ released state dict loads as it is: ``visual.conv1.weight`` (O, 3, p, p),
 the root (``token_embedding``, ``positional_embedding``,
 ``transformer.resblocks.<i>.*``, ``ln_final``, ``text_projection``). The
 JAX package's ``nn.scan`` over stacked layers (and its pipeline path)
-becomes a plain loop over an ``nn.ModuleList``.
+becomes a plain loop over an ``nn.ModuleList``; its ``nn.remat`` of the
+scan body (``TPU.REMAT``) becomes ``torch.utils.checkpoint`` of each
+block of a tower that keeps a graph for a backward.
 """
 
 import dataclasses
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from dist_tpu_torch.models.base.blocks import (
     Conv2d,
@@ -85,10 +88,14 @@ ARCHITECTURES = {
 
 
 class Transformer(nn.Module):
-    """A stack of residual attention blocks."""
+    """A stack of residual attention blocks. With ``remat``, each block
+    that runs with a gradient is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), which keeps only the
+    blocks' inputs alive for it; under ``no_grad`` it changes nothing."""
 
-    def __init__(self, width, layers, heads, causal=False):
+    def __init__(self, width, layers, heads, causal=False, remat=False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal)
             for _ in range(layers))
@@ -97,10 +104,14 @@ class Transformer(nn.Module):
         """-> (final x, per-layer outputs (layers, B, L, D) or None). Each
         layer's output is written into one buffer as it comes, as the JAX
         scan's ``ys`` is, so the taps are held once (ViT-L/14 at 1,024
-        frames: 12.9 GB in bf16), not in a list and again in its stack."""
+        frames: 12.9 GB in bf16), not in a list and again in its stack.
+        Under autograd the writes are recorded (``CopySlices``), so a
+        gradient through the taps reaches each block."""
         taps = None
+        remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.resblocks):
-            x = block(x)
+            x = (checkpoint(block, x, use_reentrant=False) if remat
+                 else block(x))
             if collect_taps:
                 if taps is None:
                     taps = x.new_empty((len(self.resblocks),) + x.shape)
@@ -121,7 +132,7 @@ class VisionTransformer(nn.Module):
     taps (layers, B*t, L, width) or None).
     """
 
-    def __init__(self, arch, sparse_alpha=1):
+    def __init__(self, arch, sparse_alpha=1, remat=False):
         super().__init__()
         w, p = arch.vision_width, arch.vision_patch_size
         self.arch = arch
@@ -131,7 +142,8 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(arch.grid_size ** 2 + 1, w))
         self.ln_pre = LayerNorm(w)
-        self.transformer = Transformer(w, arch.vision_layers, arch.vision_heads)
+        self.transformer = Transformer(w, arch.vision_layers,
+                                       arch.vision_heads, remat=remat)
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, arch.embed_dim))
 
@@ -162,7 +174,7 @@ class TextTransformer(nn.Module):
     holding it as a child.
     """
 
-    def __init__(self, arch):
+    def __init__(self, arch, remat=False):
         super().__init__()
         self.arch = arch
         self.token_embedding = nn.Embedding(arch.vocab_size,
@@ -171,7 +183,8 @@ class TextTransformer(nn.Module):
             torch.empty(arch.context_length, arch.transformer_width))
         self.transformer = Transformer(arch.transformer_width,
                                        arch.transformer_layers,
-                                       arch.transformer_heads, causal=True)
+                                       arch.transformer_heads, causal=True,
+                                       remat=remat)
         self.ln_final = LayerNorm(arch.transformer_width)
         self.text_projection = nn.Parameter(
             torch.empty(arch.transformer_width, arch.embed_dim))

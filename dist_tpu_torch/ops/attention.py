@@ -1,4 +1,5 @@
-"""Fused multi-head attention from the fused (B, L, 3D) qkv projection.
+"""Fused multi-head attention from the fused (B, L, 3D) qkv projection,
+and its backward.
 
 Port of ``dist_tpu/ops/attention.py``. Every self-attention in both CLIP
 towers calls :func:`fused_attention_qkv` on the output of the fused qkv
@@ -12,21 +13,30 @@ projection, in its native layout, so no head transposes happen around it:
                  O_h = P V_h               (fp32 accumulation)
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/attention.cu``, or raises. On a CPU tensor it runs
+``csrc/attention.cu`` (K1), or raises. On a CPU tensor it runs
 :func:`attention_qkv_plain`, the plain PyTorch version that mirrors the
-JAX package's ``_reference_attention_qkv``. There is no backward kernel
-yet, so the CUDA path refuses inputs that need a gradient.
+JAX package's ``_reference_attention_qkv``.
+
+The function is differentiable, as the JAX package's ``custom_vjp`` is:
+its backward recomputes the attention from ``qkv`` and gives dQ, dK, dV
+in the fused layout. On a CUDA tensor that is the hand-written kernel of
+``csrc/attention_bwd.cu`` (K1b, :func:`attention_qkv_bwd`), or a raise;
+on a CPU tensor :func:`attention_qkv_bwd_plain`, the vjp of
+:func:`attention_qkv_plain` spelled out. So an unfrozen CLIP tower trains
+through both kernels; a frozen one runs under ``no_grad`` and launches K1
+alone.
 
 :func:`attention_qkv_rows` is the port of the microbenchmark's
 multi-row variant (``tools/microbench.py::kernel_nb``): the same function
 without the causal mask, with ``nb`` batch rows per block of the kernel;
 its plain version is :func:`attention_qkv_rows_plain`.
 
-On the card both take one of three routes, fixed by (L, head dim, dtype)
-and named by :func:`attention_route`: ``whole_row`` (bf16, head dim 16,
-32 or 64, L <= 272: a warp keeps its whole row of scores in registers),
-``streaming`` (every other bf16 case: keys in chunks of 64, two passes)
-and ``fp32`` (CUDA cores).
+On the card K1 and K4 take one of three routes, fixed by (L, head dim,
+dtype) and named by :func:`attention_route`: ``whole_row`` (bf16, head
+dim 16, 32 or 64, L <= 272: a warp keeps its whole row of scores in
+registers), ``streaming`` (every other bf16 case: keys in chunks of 64,
+two passes) and ``fp32`` (CUDA cores). K1b has one design for every
+length, bf16 on the tensor cores and fp32 on the CUDA cores.
 """
 
 import ctypes
@@ -53,6 +63,13 @@ _SIGNATURES = {
     "dtt_attention_blocks_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int],
     "dtt_attention_error_string": [ctypes.c_int],
+}
+_BWD_SIGNATURES = {
+    "dtt_attention_qkv_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "dtt_attention_bwd_blocks_per_sm": [ctypes.c_int] * 3,
+    "dtt_attention_bwd_smem_bytes": [ctypes.c_int] * 2,
+    "dtt_attention_bwd_error_string": [ctypes.c_int],
 }
 _HEAD_DIMS = (16, 32, 64, 128)
 # the kernels' routes, numbered as in csrc/attention.cu
@@ -114,9 +131,6 @@ def _check_cuda(qkv, num_heads):
         raise ValueError("qkv must be contiguous")
     if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
         raise ValueError("bf16 qkv must start on a 16-byte boundary")
-    if qkv.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("the attention kernel has no backward yet; run "
-                           "the frozen towers under torch.no_grad()")
     b, l, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
@@ -142,21 +156,13 @@ def _launch(fn, qkv, route, *args):
     return out
 
 
-def fused_attention_qkv(qkv, num_heads, causal=False, _route=None):
-    """O (B, L, D) = multi-head softmax attention of the fused projection
-    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel on the route
-    :func:`attention_route` names; CPU tensor: :func:`attention_qkv_plain`.
-
-    ``_route="streaming"`` times the streaming kernel where the rule says
-    ``whole_row``; no caller on a main path passes it, and the kernel
-    refuses any other route against the rule."""
-    _check(qkv, num_heads)
+def _forward(qkv, num_heads, causal, route):
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, causal)
     b, l, _, hd = _check_cuda(qkv, num_heads)
     if b > 65535:
         raise ValueError(f"grid too large: B={b}")
-    route = _route or attention_route(l, hd, qkv.dtype)
+    route = route or attention_route(l, hd, qkv.dtype)
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r}")
     out = _launch("dtt_attention_qkv", qkv, route, num_heads, int(causal),
@@ -165,7 +171,146 @@ def fused_attention_qkv(qkv, num_heads, causal=False, _route=None):
     return out
 
 
+class _AttentionQKV(torch.autograd.Function):
+    """K1 forward, K1b backward (their plain versions on the CPU); the
+    backward recomputes from ``qkv``, as the JAX package's vjp does."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, causal, route):
+        ctx.num_heads, ctx.causal = num_heads, causal
+        ctx.save_for_backward(qkv)
+        return _forward(qkv, num_heads, causal, route)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return (attention_qkv_bwd(qkv, dout.contiguous(), ctx.num_heads,
+                                  ctx.causal), None, None, None)
+
+
+def fused_attention_qkv(qkv, num_heads, causal=False, _route=None):
+    """O (B, L, D) = multi-head softmax attention of the fused projection
+    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel on the route
+    :func:`attention_route` names; CPU tensor: :func:`attention_qkv_plain`.
+    Differentiable: where ``qkv`` needs a gradient, the backward is
+    :func:`attention_qkv_bwd`. ``launches`` counts the forward kernel's
+    launches (a recomputation under ``torch.utils.checkpoint`` too).
+
+    ``_route="streaming"`` times the streaming kernel where the rule says
+    ``whole_row``; no caller on a main path passes it, and the kernel
+    refuses any other route against the rule."""
+    _check(qkv, num_heads)
+    if qkv.requires_grad and torch.is_grad_enabled():
+        return _AttentionQKV.apply(qkv, num_heads, causal, _route)
+    return _forward(qkv, num_heads, causal, _route)
+
+
 fused_attention_qkv.launches = 0
+
+
+def attention_qkv_bwd_plain(qkv, dout, num_heads, causal=False):
+    """dqkv (B, L, 3D): the vjp of :func:`attention_qkv_plain` at ``qkv``
+    for the cotangent ``dout`` (B, L, D), spelled out with the roundings
+    autograd gives it: P in fp32 and, rounded to the input type, as P V
+    reads it; dP = dO V^T rounded to the input type; dS = P (dP -
+    rowsum(P dP)) in fp32; dQ = s dS K, dK = dS^T (s Q), dV = P^T dO, each
+    rounded to the input type. The CPU path of the backward and K1b's
+    yardstick."""
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    s = hd ** -0.5
+    q, k, v = (t.reshape(b, l, num_heads, hd).float()
+               for t in qkv.split(d, dim=-1))
+    logits = torch.einsum("blhd,bmhd->bhlm", q * s, k)
+    if causal:
+        mask = torch.full((l, l), float("-inf"), device=qkv.device).triu(1)
+        logits = logits + mask
+    p = torch.softmax(logits, dim=-1)
+    do = dout.reshape(b, l, num_heads, hd).float()
+    dv = torch.einsum("bhlm,blhd->bmhd", p.to(qkv.dtype).float(), do)
+    dp = torch.einsum("blhd,bmhd->bhlm", do, v).to(qkv.dtype).float()
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, k) * s
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, q * s)
+    return torch.cat([t.reshape(b, l, d).to(qkv.dtype) for t in (dq, dk, dv)],
+                     dim=-1)
+
+
+def _check_bwd(qkv, dout, num_heads):
+    """K1b's refusals beyond K1's: every tensor fp32 or bf16 alike,
+    contiguous and 16-byte aligned, L at most :data:`MAX_FUSED_LEN`."""
+    b, l, d, hd = _check_cuda(qkv, num_heads)
+    if dout.device != qkv.device or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout must be a {qkv.dtype} tensor on {qkv.device}, "
+                         f"got {dout.dtype} on {dout.device}")
+    if not dout.is_contiguous():
+        raise ValueError("dout must be contiguous")
+    if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("qkv and dout must start on a 16-byte boundary")
+    if l > MAX_FUSED_LEN:
+        raise ValueError(f"the attention backward kernel takes L <= "
+                         f"{MAX_FUSED_LEN}, got qkv {tuple(qkv.shape)}")
+    if b > 65535:
+        raise ValueError(f"grid too large: B={b}")
+    return b, l, d, hd
+
+
+def attention_qkv_bwd(qkv, dout, num_heads, causal=False):
+    """dqkv (B, L, 3D) = the backward of :func:`fused_attention_qkv` at
+    ``qkv`` for the cotangent ``dout`` (B, L, D). CUDA tensors: the
+    hand-written kernel of ``csrc/attention_bwd.cu`` (K1b, two passes,
+    one launch of the wrapper), or a raise naming what it cannot take;
+    CPU tensors: :func:`attention_qkv_bwd_plain`. ``launches`` counts
+    the kernel's launches."""
+    _check(qkv, num_heads)
+    if tuple(dout.shape) != tuple(qkv.shape[:2]) + (qkv.shape[-1] // 3,):
+        raise ValueError(f"dout must be (B, L, D) = "
+                         f"{tuple(qkv.shape[:2]) + (qkv.shape[-1] // 3,)}, "
+                         f"got {tuple(dout.shape)}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, dout, num_heads, causal)
+    b, l, d, hd = _check_bwd(qkv, dout, num_heads)
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, b, num_heads, l), dtype=torch.float32,
+                        device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dtt_attention_qkv_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, l, d, num_heads, int(causal), hd ** -0.5,
+            int(qkv.dtype == torch.bfloat16), stream)
+    _build.check(lib, "dtt_attention_bwd_error_string", err,
+                 "attention backward kernel")
+    attention_qkv_bwd.launches += 1
+    return dqkv
+
+
+attention_qkv_bwd.launches = 0
+
+
+def bwd_blocks_per_sm(head_dim, dtype):
+    """{"dq": blocks, "dkv": blocks}: the blocks of K1b's two passes that
+    fit on one SM, from CUDA's occupancy calculator."""
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    out = {}
+    for i, name in enumerate(("dq", "dkv")):
+        n = lib.dtt_attention_bwd_blocks_per_sm(
+            head_dim, int(dtype == torch.bfloat16), i)
+        if n < 0:
+            raise RuntimeError(f"no attention backward kernel at head dim "
+                               f"{head_dim}, {dtype}")
+        out[name] = n
+    return out
+
+
+def bwd_smem_bytes(head_dim, dtype):
+    """Dynamic shared memory of a block of either pass of K1b."""
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    return lib.dtt_attention_bwd_smem_bytes(head_dim,
+                                            int(dtype == torch.bfloat16))
 
 
 def _check_rows(qkv, num_heads, nb):

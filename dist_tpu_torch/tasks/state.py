@@ -29,13 +29,18 @@ logger = get_logger(__name__)
 
 def load_pretrained(cfg, model):
     """Load the configured CLIP weights (``LOCAL_PRETRAIN_WEIGHT_PATH`` or
-    ``PRETRAIN_WEIGHT_PATH``) when the file exists; otherwise keep the
+    ``PRETRAIN_WEIGHT_PATH``) where names and shapes match (a head with
+    weights, ``head.*``, is not in the released CLIP file and keeps its
+    drawn weights) when the file exists; otherwise log it and keep the
     random weights."""
     w = (cfg.VIDEO.BACKBONE.get("LOCAL_PRETRAIN_WEIGHT_PATH")
          or cfg.VIDEO.BACKBONE.get("PRETRAIN_WEIGHT_PATH"))
     if w and os.path.exists(w):
         from dist_tpu_torch.utils.checkpoint import load_torch_weights
         load_torch_weights(model, w)
+    elif w:
+        logger.info("Pretrained weights %s not found; keeping the random "
+                    "weights.", w)
     return model
 
 

@@ -1375,3 +1375,161 @@ def test_process_pool_loader_beside_the_card():
     for g, w in zip(batches["process"], batches["thread"]):
         for k in w:
             np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
+
+
+# K1b, the attention backward: (B, L, heads, head dim) over the lengths
+# of the vision towers and the text tower, L = 1 and 17 (pad rows in the
+# last 64-row tile), a length past the whole-row lengths, and every head
+# dim the kernel takes
+BWD_SHAPES = [(4, 197, 12, 64), (6, 77, 8, 64), (2, 257, 16, 64),
+              (3, 1, 2, 64), (3, 17, 4, 16), (2, 130, 2, 32),
+              (2, 65, 2, 128), (2, 577, 4, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_attention_bwd_kernel_matches_plain(shape, causal, dtype):
+    """K1b against ``attention_qkv_bwd_plain`` within
+    ``tools/attn_bwd.py::BWD_LIMITS``, which the control (the rowsum term
+    of dS dropped) must break; two launches bit for bit; one count a
+    call."""
+    from dist_tpu_torch.tools import attn_bwd
+
+    b, l, h, hd = shape
+    qkv, dout = attn_bwd.inputs(b, l, h, hd, getattr(torch, dtype),
+                                seed=l * h + causal)
+    before = att.attention_qkv_bwd.launches
+    rec = attn_bwd.reading(qkv, dout, h, causal)
+    torch.cuda.synchronize()
+    assert att.attention_qkv_bwd.launches == before + 2
+    assert rec["again_equal"]
+    assert max(rec["kernel_err"]) <= rec["limit"], rec
+    if l > 1:       # at L = 1 dS is 0 with or without the rowsum term
+        assert max(rec["control_err"]) > rec["limit"], rec
+
+
+def test_attention_bwd_pad_rows_are_zero_filled():
+    """A launch on NaN inputs first leaves NaN in the SMs' shared memory;
+    the short rows after it must still come out finite and right."""
+    from dist_tpu_torch.tools import attn_bwd
+
+    nan = torch.full((16, 197, 3 * 4 * 64), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    att.attention_qkv_bwd(nan, nan[..., :4 * 64].contiguous(), 4)
+    qkv, dout = attn_bwd.inputs(16, 17, 4, 64, torch.bfloat16, seed=17)
+    for causal in (False, True):
+        rec = attn_bwd.reading(qkv, dout, 4, causal)
+        assert max(rec["kernel_err"]) <= rec["limit"], rec
+
+
+def test_attention_bwd_through_autograd_on_the_card():
+    """``torch.autograd.grad`` of ``fused_attention_qkv`` on a CUDA tensor
+    launches K1 once and K1b once, and gives K1b's gradients."""
+    from dist_tpu_torch.tools import attn_bwd
+
+    qkv, dout = attn_bwd.inputs(4, 197, 12, 64, torch.bfloat16, seed=9)
+    x = qkv.clone().requires_grad_()
+    f0, b0 = att.fused_attention_qkv.launches, att.attention_qkv_bwd.launches
+    (g,) = torch.autograd.grad(att.fused_attention_qkv(x, 12), x, dout)
+    assert (att.fused_attention_qkv.launches - f0,
+            att.attention_qkv_bwd.launches - b0) == (1, 1)
+    assert torch.equal(g, att.attention_qkv_bwd(qkv, dout, 12))
+
+
+def test_attention_bwd_kernel_refuses_what_it_cannot_take():
+    x = torch.zeros((2, 5, 3 * 2 * 64), device="cuda", dtype=torch.bfloat16)
+    do = torch.zeros((2, 5, 2 * 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # head dim 48
+        att.attention_qkv_bwd(torch.zeros((2, 5, 3 * 2 * 48), device="cuda"),
+                              torch.zeros((2, 5, 2 * 48), device="cuda"), 2)
+    with pytest.raises(ValueError):                     # dout fp32
+        att.attention_qkv_bwd(x, do.float(), 2)
+    with pytest.raises(ValueError):                     # dout on the CPU
+        att.attention_qkv_bwd(x, do.cpu(), 2)
+    with pytest.raises(ValueError):                     # not contiguous
+        att.attention_qkv_bwd(
+            x, torch.zeros((5, 2, 128), device="cuda",
+                           dtype=torch.bfloat16).transpose(0, 1), 2)
+    flat = torch.zeros(1 + 2 * 5 * 128, device="cuda")
+    with pytest.raises(ValueError):                     # not 16-byte aligned
+        att.attention_qkv_bwd(x.float(), flat[1:].view(2, 5, 128), 2)
+    with pytest.raises(ValueError, match=r"\(1, 1025, 192\)"):  # L > 1024
+        att.attention_qkv_bwd(
+            torch.zeros((1, 1025, 192), device="cuda"),
+            torch.zeros((1, 1025, 64), device="cuda"), 1)
+    for hd in (16, 32, 64, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            assert min(att.bwd_blocks_per_sm(hd, dt).values()) >= 1
+
+
+def _clip_ft_cfg(*opts):
+    import os
+
+    from dist_tpu_torch.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(
+        os.path.join(repo, "configs/projects/dist/vit_base_16_ssv2.yaml"),
+        ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear",
+         "VIDEO.BACKBONE.META_ARCH_NAME", "ViT-Test",
+         "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE", "64",
+         "TRAIN.MIXED_PRECISION", "false", "AUGMENTATION.MIXUP.ENABLE",
+         "false", "AUGMENTATION.CUTMIX.ENABLE", "false",
+         "VIDEO.HEAD.DROPOUT_RATE", "0", *opts], make_output_dir=False)
+
+
+def _clip_ft_step(cfg, device, batch):
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, make_train_step
+
+    model = build_model(cfg, device=device)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    loss = float(step(create_train_state(model, optimizer), batch)["loss"])
+    return loss, {k: p.grad.detach().cpu() for k, p in
+                  model.module.named_parameters() if p.requires_grad}, model
+
+
+def _clip_ft_batch():
+    rng = np.random.default_rng(4)
+    return {"video": torch.from_numpy(rng.integers(
+                0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)),
+            "labels": torch.tensor([3, 170])}
+
+
+@pytest.mark.parametrize("remat", ["false", "true"])
+def test_tiny_clip_ft_step_on_the_card_matches_the_cpu(remat):
+    """One fp32 step of the tiny CLIP fine-tune (the whole vision tower
+    and the linear head train) on the card against the CPU: K1 2 a step
+    (4 with remat) and K1b 2; the loss within 1e-5 relative and every
+    gradient within 1e-4 of its tensor's largest (fp32, K1 and K1b's fp32
+    routes against their plain versions, sums in another order); the
+    text tower's gradient 0 on both."""
+    cfg = _clip_ft_cfg("TPU.REMAT", remat)
+    f0, b0 = att.fused_attention_qkv.launches, att.attention_qkv_bwd.launches
+    loss, grads, _ = _clip_ft_step(cfg, "cuda", _clip_ft_batch())
+    assert (att.fused_attention_qkv.launches - f0,
+            att.attention_qkv_bwd.launches - b0) == (
+                4 if remat == "true" else 2, 2)
+    want_loss, want, module = _clip_ft_step(cfg, "cpu", _clip_ft_batch())
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for k, g in want.items():
+        top = float(g.abs().max())
+        if module.module.is_text_param(k) or k == "logit_scale":
+            assert top == 0 and float(grads[k].abs().max()) == 0, k
+            continue
+        assert top > 0, k
+        assert float((grads[k] - g).abs().max()) <= 1e-4 * top, k
+
+
+def test_tiny_clip_ft_step_with_remat_equals_without_on_the_card():
+    """The same step with ``TPU.REMAT`` and without, on the card: the loss
+    and every gradient bit for bit."""
+    out = [_clip_ft_step(_clip_ft_cfg("TPU.REMAT", r), "cuda",
+                         _clip_ft_batch())[:2] for r in ("true", "false")]
+    assert out[0][0] == out[1][0]
+    for k, g in out[1][1].items():
+        assert torch.equal(out[0][1][k], g), k

@@ -6,7 +6,8 @@
 1. Card: prints the card's name and power limit, builds the hand-written
    CUDA kernels from ``dist_tpu_torch/csrc`` with nvcc (in parallel) and
    fails if ptxas reports spill bytes for any whole-row attention
-   instance or any instance of the bf16 routes of K2 and K3.
+   instance (K1's, K4's and K1b's passes) or any instance of the bf16
+   routes of K2 and K3.
 2. Kernels: calls each kernel on the card at the shapes the serving path
    and the train step give it (K2 and K3, the TemporalNet forward and
    backward, in fp32 on the CUDA cores and in bf16 on the tensor cores,
@@ -302,8 +303,18 @@
    ViT-L/14's (1024, 257, 3072), the causal text tower's (174, 77, 1536)
    and (8, 577, 3072) (``tools/attn_bwd.py``: two launches bit for bit,
    each third within ``BWD_LIMITS``, which the control, dS without its
-   rowsum term, must break), timed beside its plain version and SDPA's
-   backward; then 2 warm-up and 5 timed train steps at batch 32 (step
+   rowsum term, must break), each on the route ``attention_bwd_route``
+   names (whole_row for bf16 at head dim 16/32/64 and L <= 272,
+   streaming above, fp32) with that route's blocks per SM, shared memory
+   a block and ptxas usage by pass, timed beside its plain version and
+   SDPA's backward, and at the train shape beside the streaming route on
+   the same input (``streaming_ms``, the design the bf16 route had
+   before whole_row); then a bf16 sweep
+   of K1b over ``ROUTE_EDGE_LENGTHS`` at batch 4 with 4 heads (77
+   causal; head dims 16 and 32 at L 197): each length on its route (the
+   bits of a launch named with it), bit for bit twice, within the limits,
+   the control outside (but at L = 1); then 2 warm-up and 5 timed train
+   steps at batch 32 (step
    ms, clips/s, peak memory, finite losses, every vision weight and the
    head moved, no gradient in the text tower, K1 12 and K1b 12 launches
    a step), 3 steps with ``TPU.REMAT`` (K1 24, K1b 12 a step), 3 request
@@ -351,7 +362,9 @@ main path launches; K2 and K3 with their route, ``fwd_route`` and
 ``bwd_route``, the occupancy and ptxas usage of their bf16 instances, and
 their fp32 route's numbers beside them; K2 with ``unfused_ms``; K1b's
 launches from the clip_ft phase's train steps, its numbers at the train
-shape in bf16, each other check's beside them), the card line, and last
+shape in bf16 with its ``attention_bwd_route``, the streaming route's
+``streaming_ms`` and ptxas usage beside them, each other check's beside
+them), the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA card, exits
 non-zero without the last line.
 """
@@ -5855,12 +5868,16 @@ def tal(repo, card):
     return _conv_phase("tal", card, parts, agreements, config=TAL)
 
 
-def check_attention_bwd(name, b, l, heads, hd, causal, dtype, seed):
-    """K1b against its plain version (``tools/attn_bwd.py::reading``: two
-    launches bit for bit, the worst third within ``BWD_LIMITS``, the
-    control outside them), timed beside the plain version and the
-    backward of ``F.scaled_dot_product_attention`` on the same Q, K, V
-    (fwd + bwd minus fwd)."""
+def check_attention_bwd(name, b, l, heads, hd, causal, dtype, seed,
+                        streaming=False):
+    """K1b against its plain version on the route ``attention_bwd_route``
+    names (``tools/attn_bwd.py::reading``: two launches bit for bit, the
+    worst third within ``BWD_LIMITS``, the control outside them), timed
+    beside the plain version and the backward of
+    ``F.scaled_dot_product_attention`` on the same Q, K, V (fwd + bwd
+    minus fwd), with the route's blocks per SM, shared memory and ptxas
+    usage; with ``streaming``, the streaming kernel's time on the same
+    input beside it (the private route argument)."""
     import torch
     import torch.nn.functional as F
     from dist_tpu_torch.ops import attention as att
@@ -5891,15 +5908,22 @@ def check_attention_bwd(name, b, l, heads, hd, causal, dtype, seed):
     rec = {
         "check": name, "kernel": "attention_qkv_bwd", "shape": [b, l, 3 * d],
         "heads": heads, "causal": causal, "dtype": dtname, **rec,
-        "blocks_per_sm": att.bwd_blocks_per_sm(hd, dtype),
-        "smem_bytes_per_block": att.bwd_smem_bytes(hd, dtype),
-        "ptxas": _bwd_usage(hd, dtype), "ms": ms,
+        "blocks_per_sm": att.bwd_blocks_per_sm(hd, dtype, l, causal=causal),
+        "smem_bytes_per_block": att.bwd_smem_bytes(hd, dtype, l),
+        "ptxas": attn_bwd.instance_usage(l, hd, dtype, causal), "ms": ms,
         "plain_ms": time_ms(lambda: att.attention_qkv_bwd_plain(
             qkv, dout, heads, causal), 5),
         "library_ms": time_ms(sdpa_fwd_bwd, 20) - time_ms(sdpa_fwd, 20),
         "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
         "tolerance": "max |err| over the largest |plain| of each third "
                      "(tools/attn_bwd.py::BWD_LIMITS)"}
+    if streaming:
+        rec["streaming_ms"] = time_ms(lambda: att.attention_qkv_bwd(
+            qkv, dout, heads, causal, _route="streaming"), 20)
+        rec["streaming_ptxas"] = attn_bwd.instance_usage(
+            l, hd, dtype, causal, "streaming")
+        rec["streaming_blocks_per_sm"] = att.bwd_blocks_per_sm(
+            hd, dtype, l, "streaming", causal)
     emit(rec)
     del q, k, v, do4, qkv, dout
     torch.cuda.empty_cache()
@@ -5910,44 +5934,69 @@ def check_attention_bwd(name, b, l, heads, hd, causal, dtype, seed):
     return rec
 
 
-def _bwd_usage(hd, dtype):
-    """{"dq", "dkv"}: the ptxas registers and spill bytes of K1b's two
-    instances at head dim ``hd`` and ``dtype``."""
-    import re
-
-    import torch
-    from dist_tpu_torch.ops import _build
-
-    want = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
-    out = {}
-    for mangled, v in _build.ptxas_usage("attention_bwd").items():
-        m = re.search(r"attention_bwd_(dq|dkv)_kernelI(13__nv_bfloat16|f)"
-                      r"Li(\d+)E", mangled)
-        if m and m[2] == want and int(m[3]) == hd:
-            out[m[1]] = {"registers": v.get("registers"),
-                         "spill_bytes": v.get("spill_stores", 0)
-                         + v.get("spill_loads", 0)}
-    if set(out) != {"dq", "dkv"}:
-        raise AssertionError(f"no ptxas usage of K1b at hd {hd} {dtype}")
-    return out
-
-
 def clip_ft_kernel_checks():
-    """K1b at the shapes of the CLIP fine-tune's train step in bf16 and
-    fp32, ViT-L/14's step, the causal text tower and a length past the
-    whole-row lengths (``tools/attn_bwd.py::SHAPES``)."""
+    """K1b at the shapes of the CLIP fine-tune's train step in bf16 (the
+    streaming route timed beside the whole-row one) and fp32, ViT-L/14's
+    step, the causal text tower and a length past the whole-row lengths
+    (``tools/attn_bwd.py::SHAPES``), then its bf16 route sweep
+    (:func:`check_bwd_route_sweep`)."""
     import torch
     from dist_tpu_torch.tools.attn_bwd import SHAPES
 
     bf16, f32 = torch.bfloat16, torch.float32
     names = ("train", "l14_train", "text_causal", "l577")
     out = {n: check_attention_bwd(f"attention_bwd {n} bf16", b, l, h, hd, c,
-                                  bf16, 60 + i)
+                                  bf16, 60 + i, streaming=n == "train")
            for i, (n, (b, l, h, hd, c)) in enumerate(zip(names, SHAPES))}
     b, l, h, hd, c = SHAPES[0]
     out["train_fp32"] = check_attention_bwd("attention_bwd train fp32", b, l,
                                             h, hd, c, f32, 65)
+    check_bwd_route_sweep()
     return out
+
+
+def check_bwd_route_sweep():
+    """K1b in bf16 at small batch (B = 4, 4 heads) over the edges of its
+    routes (``ROUTE_EDGE_LENGTHS``, 77 causal, hd 64; hd 16 and 32 at L
+    197), each length on the rule's route: the same bits as a launch named
+    with that route, two launches bit for bit, the worst third within
+    ``BWD_LIMITS`` and the control outside them (but at L = 1, where dS is
+    0 with or without the rowsum term)."""
+    import torch
+    from dist_tpu_torch.ops import attention as att
+    from dist_tpu_torch.tools import attn_bwd
+
+    h, bf16 = ROUTE_SWEEP_HEADS, torch.bfloat16
+    cases, problems = [], []
+    for l, hd, causal in [(l, 64, l == 77) for l in ROUTE_EDGE_LENGTHS] + [
+            (ROUTE_SWEEP_HD32_LEN, 16, False),
+            (ROUTE_SWEEP_HD32_LEN, 32, False)]:
+        qkv, dout = attn_bwd.inputs(ROUTE_SWEEP_BATCH, l, h, hd, bf16, l + hd)
+        rec = attn_bwd.reading(qkv, dout, h, causal)
+        named = torch.empty_like(qkv)
+        att.bwd_launch(qkv, dout, named, torch.empty(
+            (3, ROUTE_SWEEP_BATCH, h, l), device="cuda"), h, causal,
+            rec["route"])
+        on_route = bool(torch.equal(named, att.attention_qkv_bwd(
+            qkv, dout, h, causal)))
+        ok = (max(rec["kernel_err"]) <= rec["limit"] and rec["again_equal"]
+              and on_route and (l == 1 or max(rec["control_err"])
+                                > rec["limit"]))
+        cases.append({"l": l, "hd": hd, "causal": causal,
+                      "route": rec["route"], "on_route": on_route,
+                      **{k: rec[k] for k in ("kernel_err", "control_err",
+                                             "max_abs_err", "again_equal")},
+                      "pass": ok})
+        if not ok:
+            problems.append(f"L={l} hd={hd}: {cases[-1]}")
+    emit({"check": "attention_bwd route sweep bf16",
+          "kernel": "attention_qkv_bwd", "batch": ROUTE_SWEEP_BATCH,
+          "heads": h, "limit": attn_bwd.BWD_LIMITS["bfloat16"],
+          "tolerance": "max |err| over the largest |plain| of each third "
+                       "(tools/attn_bwd.py::BWD_LIMITS)",
+          "cases": cases, "pass": not problems})
+    if problems:
+        raise AssertionError("K1b route sweep: " + "; ".join(problems))
 
 
 def _clip_ft_agree(repo, problems):
@@ -6130,11 +6179,11 @@ def clip_ft(repo, card):
 
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
-    kernel name."""
+    kernel name (K1's, K4's and K1b's passes)."""
     import re
 
-    m = re.search(r"(attention_(?:qkv|rows)_wr_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?",
-                  mangled)
+    m = re.search(r"(attention_(?:qkv|rows|bwd_dq|bwd_dkv)_wr_kernel)ILi(\d+)"
+                  r"ELi(\d+)E(?:Lb([01])E)?", mangled)
     if not m:
         return mangled
     args = [m[2], m[3]] + ([("false", "true")[int(m[4])]] if m[4] else [])
@@ -6270,8 +6319,10 @@ def main():
         whole_row = {_instance(k): v
                      for k, v in _build.ptxas_usage("attention").items()
                      if "_wr_kernel" in k}
+        bwd_whole_row = {_instance(k): v for k, v in _build.ptxas_usage(
+            "attention_bwd").items() if "_wr_kernel" in k}
         k3 = _k3_usage()
-        spills = [k for k, v in {**whole_row, **k3}.items()
+        spills = [k for k, v in {**whole_row, **bwd_whole_row, **k3}.items()
                   if v.get("spill_stores") != 0 or v.get("spill_loads") != 0]
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
@@ -6279,12 +6330,17 @@ def main():
                         for n in names},
               "whole_row_registers": {k: v.get("registers")
                                       for k, v in sorted(whole_row.items())},
+              "bwd_whole_row_registers": {
+                  k: v.get("registers") for k, v in sorted(
+                      bwd_whole_row.items())},
               "bf16_route_registers": {k: v.get("registers")
                                        for k, v in sorted(k3.items())},
               "spills": spills,
-              "pass": bool(whole_row) and bool(k3) and not spills})
-        if not whole_row or not k3 or spills:
+              "pass": bool(whole_row) and bool(bwd_whole_row) and bool(k3)
+              and not spills})
+        if not whole_row or not bwd_whole_row or not k3 or spills:
             raise AssertionError(f"whole-row instances {len(whole_row)}, "
+                                 f"K1b's {len(bwd_whole_row)}, "
                                  f"K2 and K3 bf16 instances {len(k3)}, "
                                  f"spilling: {spills}")
 
@@ -6466,12 +6522,16 @@ def main():
             "earlier_phases_launches": earlier_bwd,
             **{k: train_bwd[k] for k in keys},
             "shape": train_bwd["shape"], "dtype": train_bwd["dtype"],
+            "attention_bwd_route": train_bwd["route"],
             "blocks_per_sm": train_bwd["blocks_per_sm"],
             "smem_bytes_per_block": train_bwd["smem_bytes_per_block"],
             "ptxas": train_bwd["ptxas"],
+            "streaming_ms": train_bwd["streaming_ms"],
+            "streaming_ptxas": train_bwd["streaming_ptxas"],
             "checks": {where: {k: r[k] for k in (
-                *keys, "shape", "dtype", "causal", "kernel_err",
-                "control_err", "blocks_per_sm", "ptxas")}
+                *keys, "shape", "dtype", "causal", "route", "kernel_err",
+                "control_err", "blocks_per_sm", "smem_bytes_per_block",
+                "ptxas")}
                 for where, r in bwd_checks.items()}})
         emit({"kernels": kernels})
         print(card, flush=True)

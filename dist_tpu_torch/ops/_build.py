@@ -1,15 +1,18 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them.
 
 Each source ``csrc/<name>.cu`` is compiled for Hopper (``sm_90a``) into
-its own shared library with a plain C interface, loaded with ``ctypes``.
-The library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded. Builds go
+its own shared library with a plain C interface, loaded with ``ctypes``;
+the headers of ``csrc/`` (``*.cuh``) are on its include path. The
+library's file name carries a hash of its source, the headers and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Builds go
 to ``dist_tpu_torch/_build/`` (listed in ``.gitignore``); nothing is
 built at import time, only when a kernel is first launched or when
 :func:`build` is called.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -39,11 +42,18 @@ def _nvcc():
                        "toolkit")
 
 
+def nvcc_command(src, out):
+    """nvcc's argument list that compiles ``src`` into the library
+    ``out``, with ``csrc/`` on the include path."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", SRC_DIR, "-o", out, src]
+
+
 def _target(name):
     src = os.path.join(SRC_DIR, f"{name}.cu")
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
@@ -53,7 +63,6 @@ def build(names):
     process each, all started together; nvcc's output goes to
     ``_build/<name>.log``. Raises with the log's end if one fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in names:
         src, so = _target(name)
@@ -62,7 +71,7 @@ def build(names):
         tmp = f"{so}.{os.getpid()}.tmp"
         with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as log:
             procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                nvcc_command(src, tmp),
                 stdout=log, stderr=subprocess.STDOUT), tmp, so)
     failed = []
     for name, (proc, tmp, so) in procs.items():

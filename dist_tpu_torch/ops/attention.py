@@ -31,12 +31,12 @@ multi-row variant (``tools/microbench.py::kernel_nb``): the same function
 without the causal mask, with ``nb`` batch rows per block of the kernel;
 its plain version is :func:`attention_qkv_rows_plain`.
 
-On the card K1 and K4 take one of three routes, fixed by (L, head dim,
-dtype) and named by :func:`attention_route`: ``whole_row`` (bf16, head
-dim 16, 32 or 64, L <= 272: a warp keeps its whole row of scores in
-registers), ``streaming`` (every other bf16 case: keys in chunks of 64,
-two passes) and ``fp32`` (CUDA cores). K1b has one design for every
-length, bf16 on the tensor cores and fp32 on the CUDA cores.
+On the card K1, K4 and K1b take one of three routes, fixed by (L, head
+dim, dtype) by one rule (``csrc/whole_row.cuh``), named by
+:func:`attention_route` and :func:`attention_bwd_route`: ``whole_row``
+(bf16, head dim 16, 32 or 64, L <= 272: a warp keeps its whole row of
+scores in registers), ``streaming`` (every other bf16 case: keys in
+chunks of 64 through shared memory) and ``fp32`` (CUDA cores).
 """
 
 import ctypes
@@ -66,13 +66,14 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "dtt_attention_qkv_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "dtt_attention_bwd_blocks_per_sm": [ctypes.c_int] * 3,
-    "dtt_attention_bwd_smem_bytes": [ctypes.c_int] * 2,
+                             + [ctypes.c_float] + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p],
+    "dtt_attention_bwd_blocks_per_sm": [ctypes.c_int] * 6,
+    "dtt_attention_bwd_smem_bytes": [ctypes.c_int] * 5,
     "dtt_attention_bwd_error_string": [ctypes.c_int],
 }
 _HEAD_DIMS = (16, 32, 64, 128)
-# the kernels' routes, numbered as in csrc/attention.cu
+# the kernels' routes, numbered as in csrc/whole_row.cuh
 ROUTES = ("whole_row", "streaming", "fp32")
 # the padded lengths of the whole-row kernel's instances; the last is the
 # longest row whose scores a warp holds in registers
@@ -81,8 +82,8 @@ _WHOLE_ROW_HEAD_DIMS = (16, 32, 64)
 
 
 def attention_route(l, head_dim, dtype):
-    """The kernel route for sequence length ``l``, head dim and dtype, by
-    the rule ``csrc/attention.cu`` applies: ``"fp32"`` for float32,
+    """K1's and K4's route for sequence length ``l``, head dim and dtype,
+    by the rule of ``csrc/whole_row.cuh``: ``"fp32"`` for float32,
     ``"whole_row"`` for bf16 at head dim 16/32/64 and ``l <= 272``, else
     ``"streaming"``."""
     if dtype != torch.bfloat16:
@@ -90,6 +91,12 @@ def attention_route(l, head_dim, dtype):
     if head_dim in _WHOLE_ROW_HEAD_DIMS and l <= WHOLE_ROW_LENS[-1]:
         return "whole_row"
     return "streaming"
+
+
+def attention_bwd_route(l, head_dim, dtype):
+    """K1b's route: the same rule as K1's (:func:`attention_route`), so a
+    backward takes the route its forward took."""
+    return attention_route(l, head_dim, dtype)
 
 
 def attention_qkv_plain(qkv, num_heads, causal=False):
@@ -257,13 +264,18 @@ def _check_bwd(qkv, dout, num_heads):
     return b, l, d, hd
 
 
-def attention_qkv_bwd(qkv, dout, num_heads, causal=False):
+def attention_qkv_bwd(qkv, dout, num_heads, causal=False, _route=None):
     """dqkv (B, L, 3D) = the backward of :func:`fused_attention_qkv` at
     ``qkv`` for the cotangent ``dout`` (B, L, D). CUDA tensors: the
     hand-written kernel of ``csrc/attention_bwd.cu`` (K1b, two passes,
-    one launch of the wrapper), or a raise naming what it cannot take;
-    CPU tensors: :func:`attention_qkv_bwd_plain`. ``launches`` counts
-    the kernel's launches."""
+    one launch of the wrapper) on the route :func:`attention_bwd_route`
+    names, or a raise naming what it cannot take; CPU tensors:
+    :func:`attention_qkv_bwd_plain`. ``launches`` counts the kernel's
+    launches.
+
+    ``_route="streaming"`` times the streaming kernel where the rule says
+    ``whole_row``; no caller on a main path passes it, and the kernel
+    refuses any other route against the rule."""
     _check(qkv, num_heads)
     if tuple(dout.shape) != tuple(qkv.shape[:2]) + (qkv.shape[-1] // 3,):
         raise ValueError(f"dout must be (B, L, D) = "
@@ -272,45 +284,78 @@ def attention_qkv_bwd(qkv, dout, num_heads, causal=False):
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, dout, num_heads, causal)
     b, l, d, hd = _check_bwd(qkv, dout, num_heads)
-    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    route = _route or attention_bwd_route(l, hd, qkv.dtype)
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, num_heads, l), dtype=torch.float32,
                         device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dtt_attention_qkv_bwd(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            b, l, d, num_heads, int(causal), hd ** -0.5,
-            int(qkv.dtype == torch.bfloat16), stream)
-    _build.check(lib, "dtt_attention_bwd_error_string", err,
-                 "attention backward kernel")
+    bwd_launch(qkv, dout, dqkv, stats, num_heads, causal, route)
     attention_qkv_bwd.launches += 1
     return dqkv
 
 
 attention_qkv_bwd.launches = 0
 
+# K1b's passes for bwd_launch: pass dq (dQ and each query row's
+# statistics into the scratch), pass dkv (dK and dV from them), or both
+BWD_PASSES = {"dq": 1, "dkv": 2, "both": 3}
 
-def bwd_blocks_per_sm(head_dim, dtype):
-    """{"dq": blocks, "dkv": blocks}: the blocks of K1b's two passes that
-    fit on one SM, from CUDA's occupancy calculator."""
+
+def bwd_launch(qkv, dout, dqkv, stats, num_heads, causal, route,
+               passes="both"):
+    """Run K1b's ``passes`` (:data:`BWD_PASSES`) on ``route`` on qkv's
+    stream, into ``dqkv`` and the fp32 scratch ``stats`` (3, B, heads,
+    L); pass dkv alone reads the statistics a pass dq left there. No
+    checks beyond the kernel's own and no launch count:
+    :func:`attention_qkv_bwd` is the entry, this is its launch (and
+    ``tools/attn_bwd.py passes`` times one pass with it)."""
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dtt_attention_qkv_bwd(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, l, d, num_heads, int(causal), (d // num_heads) ** -0.5,
+            int(qkv.dtype == torch.bfloat16), ROUTES.index(route),
+            BWD_PASSES[passes], stream)
+    _build.check(lib, "dtt_attention_bwd_error_string", err,
+                 "attention backward kernel")
+
+
+def _bwd_instance_args(l, head_dim, dtype, route):
+    route = route or attention_bwd_route(l, head_dim, dtype)
+    return l, head_dim, int(dtype == torch.bfloat16), ROUTES.index(route)
+
+
+def bwd_blocks_per_sm(head_dim, dtype, l=MAX_FUSED_LEN, route=None,
+                      causal=False):
+    """{"dq": blocks, "dkv": blocks}: the blocks of K1b's two passes that
+    fit on one SM at length ``l`` on ``route`` (by default the rule's; at
+    the default length the streaming or fp32 instance, which serve every
+    length), from CUDA's occupancy calculator."""
+    lib = _build.load("attention_bwd", _BWD_SIGNATURES)
+    args = _bwd_instance_args(l, head_dim, dtype, route)
     out = {}
     for i, name in enumerate(("dq", "dkv")):
-        n = lib.dtt_attention_bwd_blocks_per_sm(
-            head_dim, int(dtype == torch.bfloat16), i)
+        n = lib.dtt_attention_bwd_blocks_per_sm(*args, int(causal), i)
         if n < 0:
-            raise RuntimeError(f"no attention backward kernel at head dim "
-                               f"{head_dim}, {dtype}")
+            raise RuntimeError(f"no attention backward kernel at L={l}, "
+                               f"head dim {head_dim}, {dtype}, route "
+                               f"{route}")
         out[name] = n
     return out
 
 
-def bwd_smem_bytes(head_dim, dtype):
-    """Dynamic shared memory of a block of either pass of K1b."""
+def bwd_smem_bytes(head_dim, dtype, l=MAX_FUSED_LEN, route=None):
+    """{"dq": bytes, "dkv": bytes}: the dynamic shared memory of a block of
+    each of K1b's passes at length ``l`` on ``route`` (as
+    :func:`bwd_blocks_per_sm`)."""
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
-    return lib.dtt_attention_bwd_smem_bytes(head_dim,
-                                            int(dtype == torch.bfloat16))
+    args = _bwd_instance_args(l, head_dim, dtype, route)
+    return {name: lib.dtt_attention_bwd_smem_bytes(*args, i)
+            for i, name in enumerate(("dq", "dkv"))}
 
 
 def _check_rows(qkv, num_heads, nb):

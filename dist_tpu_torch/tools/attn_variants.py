@@ -87,15 +87,15 @@ def build_all(source="attention", variants=None, signatures=None):
     compiled at once (by default this tool's, bound with the attention
     signatures)."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    nvcc, procs = _build._nvcc(), {}
+    procs = {}
     for name in variants or VARIANTS:
         src = os.path.join(OUT_DIR, f"{source}-{name}.cu")
         with open(src, "w") as f:
             f.write(variant_source(name, source, variants))
         so = os.path.join(OUT_DIR, f"{source}-{name}.so")
         with open(os.path.join(OUT_DIR, f"{source}-{name}.log"), "w") as log:
-            procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", so,
-                                             src], stdout=log,
+            procs[name] = (subprocess.Popen(_build.nvcc_command(src, so),
+                                            stdout=log,
                                             stderr=subprocess.STDOUT), so)
     libs = {}
     for name, (proc, so) in procs.items():

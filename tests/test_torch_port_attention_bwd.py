@@ -131,3 +131,18 @@ def test_backward_refuses_a_cotangent_of_another_shape():
     with pytest.raises(ValueError, match="dout must be"):
         att.attention_qkv_bwd(torch.from_numpy(qkv),
                               torch.from_numpy(dout[:, :-1]), 2)
+
+
+@pytest.mark.parametrize("l,hd,dtype,route", [
+    (197, 64, torch.bfloat16, "whole_row"), (1, 16, torch.bfloat16, "whole_row"),
+    (77, 32, torch.bfloat16, "whole_row"), (272, 64, torch.bfloat16, "whole_row"),
+    (273, 64, torch.bfloat16, "streaming"), (577, 64, torch.bfloat16, "streaming"),
+    (197, 128, torch.bfloat16, "streaming"), (197, 64, torch.float32, "fp32"),
+    (77, 16, torch.float32, "fp32")])
+def test_backward_route_rule(l, hd, dtype, route):
+    """K1b's route by the rule of ``csrc/whole_row.cuh``: whole_row for
+    bf16 at head dim 16/32/64 and L <= 272, streaming for other bf16,
+    fp32 for float32; K1's rule, so a backward takes its forward's
+    route."""
+    assert att.attention_bwd_route(l, hd, dtype) == route
+    assert att.attention_route(l, hd, dtype) == route

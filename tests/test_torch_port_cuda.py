@@ -1463,6 +1463,76 @@ def test_attention_bwd_kernel_refuses_what_it_cannot_take():
             assert min(att.bwd_blocks_per_sm(hd, dt).values()) >= 1
 
 
+# K1b's route sweep: the lengths at the edges of the routes at batch 4, 4
+# heads, hd 64 (77 causal, as the text tower), and hd 16 and 32 at L 197
+BWD_ROUTE_CASES = ([(l, 64, l == 77) for l in ROUTE_EDGE_LENGTHS]
+                   + [(197, 16, False), (197, 32, False)])
+
+
+@pytest.mark.parametrize("l,hd,causal", BWD_ROUTE_CASES)
+def test_attention_bwd_route_sweep(l, hd, causal):
+    """K1b in bf16 on the rule's route (whole_row to L 272, streaming
+    past it): the same bits as a launch named with that route, two
+    launches bit for bit, within ``BWD_LIMITS``, the control outside them
+    (but at L = 1, where dS is 0 with or without the rowsum term)."""
+    from dist_tpu_torch.tools import attn_bwd
+
+    qkv, dout = attn_bwd.inputs(4, l, 4, hd, torch.bfloat16, seed=l + hd)
+    rec = attn_bwd.reading(qkv, dout, 4, causal)
+    assert rec["route"] == ("whole_row" if l <= 272 else "streaming")
+    named = torch.empty_like(qkv)
+    att.bwd_launch(qkv, dout, named, torch.empty((3, 4, 4, l), device="cuda"),
+                   4, causal, rec["route"])
+    assert torch.equal(named, att.attention_qkv_bwd(qkv, dout, 4, causal))
+    assert rec["again_equal"]
+    assert max(rec["kernel_err"]) <= rec["limit"], rec
+    if l > 1:
+        assert max(rec["control_err"]) > rec["limit"], rec
+
+
+def test_attention_bwd_streaming_route_on_request_and_refused_routes():
+    """The private ``_route="streaming"`` runs the streaming kernel
+    where the rule says whole_row, within the same limits; the kernel
+    refuses a route the rule does not name."""
+    from dist_tpu_torch.tools import attn_bwd
+
+    qkv, dout = attn_bwd.inputs(4, 197, 12, 64, torch.bfloat16, seed=12)
+    before = att.attention_qkv_bwd.launches
+    got = att.attention_qkv_bwd(qkv, dout, 12, _route="streaming")
+    again = att.attention_qkv_bwd(qkv, dout, 12, _route="streaming")
+    assert att.attention_qkv_bwd.launches == before + 2
+    want = att.attention_qkv_bwd_plain(qkv, dout, 12)
+    limit = attn_bwd.BWD_LIMITS["bfloat16"]
+    assert torch.equal(got, again)
+    assert max(attn_bwd.thirds_err(got, want)) <= limit
+    assert max(attn_bwd.thirds_err(attn_bwd.bwd_without_rowsum(
+        qkv, dout, 12), want)) > limit
+    x, do = attn_bwd.inputs(1, 273, 1, 64, torch.bfloat16, seed=1)
+    with pytest.raises(RuntimeError):                  # whole_row at L 273
+        att.attention_qkv_bwd(x, do, 1, _route="whole_row")
+    with pytest.raises(RuntimeError):                  # whole_row in fp32
+        att.attention_qkv_bwd(x[:, :77].float().contiguous(),
+                              do[:, :77].float().contiguous(), 1,
+                              _route="whole_row")
+    with pytest.raises(ValueError):
+        att.attention_qkv_bwd(qkv, dout, 12, _route="fast")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [77, 197, 257])
+def test_attention_bwd_whole_row_occupancy(l, causal):
+    """Both passes of K1b's whole-row instances at hd 64 keep two blocks
+    on an SM, pass dkv three up to LP 208 (it holds no K or V tile)."""
+    assert att.attention_bwd_route(l, 64, torch.bfloat16) == "whole_row"
+    blocks = att.bwd_blocks_per_sm(64, torch.bfloat16, l, causal=causal)
+    lp = next(p for p in att.WHOLE_ROW_LENS if l <= p)
+    assert blocks["dq"] >= 2
+    assert blocks["dkv"] >= (3 if lp <= 208 else 2)
+    smem = att.bwd_smem_bytes(64, torch.bfloat16, l)
+    assert smem == {"dq": (128 + 2 * lp) * 72 * 2,
+                    "dkv": 2 * lp * 72 * 2 + 12 * lp}
+
+
 def _clip_ft_cfg(*opts):
     import os
 

@@ -26,7 +26,7 @@
    answers requests of 1, 3 and 8 seeded random uint8 clips; checks the
    scores and that every request batch went through both kernels (launch
    counts zeroed just before, read just after).
-4. Agreement: for each of three weight seeds, one request of the served
+4. Agreement: for each of two weight seeds, one request of the served
    model against the same model with the unfused TemporalNet on the card
    and against the same weights on the CPU through the plain versions
    (both bf16, as served), and the card against the CPU with both in
@@ -52,7 +52,7 @@
    and the launches per step (K1 12 in the frozen vision tower, K2 12,
    K3 12); K1's 12 text-tower launches at set-up are counted apart. Then
    times 3 steps with the unfused TemporalNet beside them.
-7. Train agreement: for three weight seeds, one step's dist_net gradients
+7. Train agreement: for two weight seeds, one step's dist_net gradients
    and loss (mixup off) of the fused path against the unfused path (cuDNN
    convs), both bf16 on the card at batch 32, and of the card against the
    CPU plain versions, both fp32 at batch 2, held to
@@ -80,7 +80,7 @@
    of 1024, 257 tokens, 24 ladder steps over 64 dense and 32 sparse
    frames), one model built once: served by ``InferenceEngine`` at batch
    8 (requests of 1, 3 and 8 clips; K1 24 and K2 24 launches per request
-   batch; median latency and clips/s; for three weight seeds one batch-8
+   batch; median latency and clips/s; for two weight seeds one batch-8
    request against the unfused TemporalNet on the card, held to
    ``L14_AGREEMENT_LIMITS``, which a control with a spatial tap dropped
    in every block must break), then trained with ``TPU.REMAT`` at the
@@ -172,7 +172,7 @@
    entries' model gives the trained model's scores bit for bit; a run
    preempted after one step and resumed lies within
    ``TADA_RESUME_FACTOR`` times two uninterrupted runs' difference).
-   Then with TF32 off: (d) for three weight seeds, 2 clips on the card
+   Then with TF32 off: (d) for two weight seeds, 2 clips on the card
    against the CPU (``TADA_AGREEMENT_LIMITS``; a control with every
    route function bypassed must break them) and (e) one train step in
    float64 on both sides, its loss, running stats and worst gradient
@@ -191,7 +191,7 @@
    running stat moved. Then SlowFast's run list (``EPIC_RUN_OPTS``:
    train, val, test, the 10 x 3-view test on synthetic clips; every step's
    log line with the per-head errors, the tests' with the verb, noun and
-   action accuracies). Then with TF32 off: (c) for three weight seeds, 2
+   action accuracies). Then with TF32 off: (c) for two weight seeds, 2
    clips on the card against the CPU (``EPIC_AGREEMENT_LIMITS``) and (d)
    for ``EPIC_TRAIN_AGREEMENT_SEEDS`` (one), one float64 train step's
    loss, running stats and worst gradient leaf
@@ -204,7 +204,7 @@
    trained as the HiCo HMDB51 fine-tune (``S3DG_TRAIN``, 16 x 112^2) at
    the config's batch 16, both
    with ``TRAIN.CHECKPOINT_FILE_PATH ""``, TF32 convolutions; then with
-   TF32 off, for three seeds, (c) scores and features at 32 x 224^2 and
+   TF32 off, for two seeds, (c) scores and features at 32 x 224^2 and
    (d) one float64 step at 16 x 112^2 against the CPU
    (``S3DG_AGREEMENT_LIMITS``, ``FP64_STEP_LIMITS``), which a
    control with every ``SelfGating`` bypassed must break (in (d) the
@@ -221,7 +221,7 @@
    (``VIT_RUN_OPTS``: 2 epochs of 2 steps, val, the test and the 10-view
    test of 2 videos at 128^2); (d) one step of the linear probe
    (``VIT_LFT``: only ``head.*`` moves, the backbone bit for bit); then
-   with TF32 off, for three weight seeds, (e) scores and features of 2
+   with TF32 off, for two weight seeds, (e) scores and features of 2
    clips at 128^2 against the CPU (``VIT_AGREEMENT_LIMITS``) and (f) one
    float64 step at 112^2 (``FP64_STEP_LIMITS``); the ``qkv`` control
    (the fused projection read as ``[q | v | k]``) must break (e)'s limits
@@ -289,7 +289,7 @@
    soft-NMS post-processing and ``EpicDetection`` against ground truth
    from each video's top detection (mAP in (0, 1]; a control with the
    ground truth past the video's end must break it); then with TF32
-   off, for three seeds, the forward of 2 samples card against CPU in
+   off, for two seeds, the forward of 2 samples card against CPU in
    fp32 (``TAL_AGREEMENT_LIMITS``) and one float64 step
    (``FP64_STEP_LIMITS``), which a control whose proposal windows are
    one snippet longer must break. K1-K4 must launch no time in the
@@ -323,6 +323,28 @@
    (``CLIP_FT_AGREEMENT_LIMITS``, which the CPU's control must break).
    No phase before it launches K1b (its count is read across all of
    them).
+23. Export: the flagship (``TPU.FUSED_TEMPORAL_NET true``) exported by
+   ``serving/export.py::export_predictor`` at batch 8 on the card
+   (seconds; its weights equal to those of an ``InferenceEngine`` built
+   from the same config, which it is held to), saved (seconds, MiB),
+   loaded on the card (seconds) and called twice
+   with 5 seeded clips (the loader pads them to 8): K1 12 and K2 12
+   launches a call (counts zeroed just before, read just after), no K1
+   launch causal, the graph's K2 weight operands constants of the
+   program, the scores within ``EXPORT_ENGINE_LIMIT`` of the engine's
+   and the same top-1, the device kernels of one program call and one
+   engine call (``torch.profiler``, by ``serving/profile.py``'s groups:
+   the program may not run more); the same file loaded with
+   ``device="cpu"`` within ``EXPORT_CPU_LIMIT`` of the card's scores;
+   before that CPU run, the batch-8 request through the program and
+   through the engine, timed with CUDA events in turns (engine, program,
+   program, engine). Then TAda2D (``TADA``, batch ``EXPORT_TADA_BATCH``, weights drawn as
+   the tada phase's, TF32 off) the same way through ``export_engine`` of
+   its engine: no kernel launch, the CPU
+   within ``EXPORT_TADA_CPU_LIMIT``. First of all, what the operators'
+   dispatch adds to a launch (``_dispatch_costs``: the operator against
+   the launch beneath it, host-paced, at the text tower's, the zoo's
+   batch-1 and the served shapes). The phase's seconds are printed.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -342,7 +364,8 @@ frames of B/16 and 32 of L/14, and the text towers over Kinetics' 400
 prompts; K2 over 16, 32 and 64 dense frames at 14 x 14 and 64 at 16 x
 16.
 
-Prints one JSON line per check and phase, then ``{"kernels": [...]}`` (the
+Prints one JSON line per check and phase, the seconds of each phase
+(``{"phase_seconds": {...}}``), then ``{"kernels": [...]}`` (the
 numbers of each kernel at the train step's shapes, launches from the train
 phase, the serving shapes' numbers beside them, the multi-view test's
 launches as ``test_launches`` and the train run's (a) as
@@ -354,7 +377,7 @@ under ``zoo`` each zoo shape's numbers; ``tada_launches``,
 ``transformers_launches``, ``ssl_launches``, ``augment_launches`` and
 ``tal_launches`` those phases' (0), ``submission_launches`` the
 flagship's submission entry's, ``clip_ft_launches`` the clip_ft phase's
-by part;
+by part, ``export_launches`` one call of the exported flagship's;
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -386,7 +409,9 @@ TIMED_REPEATS = 10
 # the card's busy wait before a timed run: ~10 ms at the H100's ~2 GHz,
 # longer than the host takes to queue 20 launches
 HOLD_CYCLES = 20_000_000
-AGREEMENT_SEEDS = 3                 # weight seeds RANDOM_SEED + 0, 1, 2
+# weight seeds RANDOM_SEED + 0, 1 of every agreement; its limits were
+# set on seeds 0-2
+AGREEMENT_SEEDS = 2
 AGREEMENT_CLIPS = 3                 # clips per agreement request
 # controls: TemporalNet blocks (from the first) with one spatial tap
 # dropped; applied in this order to one model, each on top of the last
@@ -466,8 +491,8 @@ L14_TRAIN_BATCHES = (32, 16, 8)
 L14_TRAIN_WARMUP_STEPS = 2
 L14_TRAIN_TIMED_STEPS = 3
 # One batch-8 request of the served model (K2) against the same weights
-# with the unfused TemporalNet on the card, for weight seeds RANDOM_SEED +
-# 0, 1, 2. Limits: 3 times the worst reading of the three seeds on an H100
+# with the unfused TemporalNet on the card, for the weight seeds of
+# AGREEMENT_SEEDS. Limits: 3 times the worst reading of seeds 0-2 on an H100
 # (score, logit, 1 - cosine):
 #   unfused_card           7.9e-6            0.0052          7.6e-6
 #   control, every block   1.5e-5 - 1.8e-5   0.0071 - 0.0129  4.3e-5 - 6.4e-5
@@ -597,8 +622,8 @@ CLASSIFY_FRAME_HW = (240, 320)
 TADA = "configs/projects/tada/k400/tada2d_8x8.yaml"
 TADA_SERVE_BATCH = 8
 TADA_STEPS_PER_EPOCH = 15000
-# card against CPU, 3 weight seeds (PERF.md, section 6): scores and
-# features in fp32 with TF32 off, limits 3 times the worst H100 reading;
+# card against CPU (PERF.md, section 6): scores and features in fp32
+# with TF32 off, limits 3 times the worst H100 reading of 3 weight seeds;
 # the control (every route function bypassed) must break them
 TADA_AGREEMENT_LIMITS = {"max_abs_score_diff": 4.7e-5, "feature_rel_l2": 7.7e-4}
 # every conv model's train step, card against CPU, in float64 on both
@@ -634,8 +659,8 @@ EPIC_STEPS_PER_EPOCH = 8402
 CONV_WARMUP = 2
 CONV_TIMED = 5
 CONV_AGREEMENT_CLIPS = 2
-# card against CPU, 3 weight seeds, as TAda's: scores (each head's) and
-# features in fp32 with TF32 off, limits 3 times the worst H100 reading;
+# card against CPU, as TAda's: scores (each head's) and features in fp32
+# with TF32 off, limits 3 times the worst H100 reading of 3 weight seeds;
 # one float64 step within FP64_STEP_LIMITS; the control named per model
 # must break the first, and the second's gradients
 EPIC_CONTROLS = {"slowfast": "fusion", "csn": "depthwise"}
@@ -683,8 +708,8 @@ VIT_LFT = "configs/projects/hico++/ft-hmdb51/lft_hico++_uk400_vit-s_16x112.yaml"
 VIT_OPTS = ["TRAIN.CHECKPOINT_FILE_PATH", ""]
 VIT_SERVE_BATCH = 8
 VIT_STEPS_PER_EPOCH = 56
-# card against CPU, 3 weight seeds, fp32 with TF32 off: scores and
-# features at 128^2; set before the card's first reading (PERF.md, section 6).
+# card against CPU, fp32 with TF32 off: scores and features at 128^2;
+# set before the card's first reading (PERF.md, section 6).
 # The control reads the fused projection as [q | v | k] and must break
 # them, and in the float64 step (FP64_STEP_LIMITS, stochastic depth and
 # dropout off on both sides) the gradients' limit
@@ -840,6 +865,26 @@ ROUTE_SWEEP_HD32_LEN = 197
 ROUTE_SWEEP_BATCH = 4
 ROUTE_SWEEP_HEADS = 4
 
+
+# the export phase: the flagship exported at the serving batch, called
+# with fewer clips than it (the loader pads), and TAda2D at a small batch
+EXPORT_BATCH = 8
+EXPORT_CLIPS = 5
+EXPORT_TADA_BATCH = 2
+EXPORT_TIMED = 10
+# the program against the engine on the same card: the same aten ops in
+# the same order on the same batch, so bit for bit is expected; the bound
+# is the CPU test's (tests/test_torch_port_export.py)
+EXPORT_ENGINE_LIMIT = 1e-6
+# the same file on the CPU (the plain versions, bf16 as served) against the
+# card: the agreement phase's card-against-CPU score limit; TAda2D's
+# (fp32, TF32 off) the tada phase's
+EXPORT_CPU_LIMIT = AGREEMENT_LIMITS["cpu"]["max_abs_score_diff"]
+EXPORT_TADA_CPU_LIMIT = TADA_AGREEMENT_LIMITS["max_abs_score_diff"]
+# the host-paced calls of each operator and of the launch beneath it
+# (no dispatcher) that time what dispatch adds; turns: direct, operator,
+# operator, direct
+DISPATCH_CALLS = 200
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -2318,7 +2363,7 @@ def l14(repo, card):
     (a) served by ``InferenceEngine`` at batch 8: requests of 1, 3 and 8
         seeded clips (64, 224, 224, 3); K1 24 and K2 24 launches per
         request batch, K1 12 at set-up (the text tower); median latency of
-        batch-8 requests and clips/s; for three weight seeds, one batch-8
+        batch-8 requests and clips/s; for two weight seeds, one batch-8
         request against the same weights with the unfused TemporalNet on
         the card, held to ``L14_AGREEMENT_LIMITS``, which the control (one
         spatial tap dropped in every block) must break.
@@ -2406,7 +2451,7 @@ def l14(repo, card):
         "text_setup_launches": setup,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
-    # the serving agreement, three weight seeds; the served model is seed 0
+    # the serving agreement, two weight seeds; the served model is seed 0
     _, tokens = resolve_label_texts(cfg, engine.num_classes)
     base = int(cfg.RANDOM_SEED)
     runs = []
@@ -6177,6 +6222,313 @@ def clip_ft(repo, card):
             "serving": serve_launches}, checks
 
 
+def _kernel_counts(fn):
+    """Device kernels one call of ``fn`` runs, by ``serving/profile.py``'s
+    groups (``torch.profiler``); None if it shows no device event."""
+    import torch
+    from dist_tpu_torch.serving.profile import _group
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            groups[_group(ev.name)] = groups.get(_group(ev.name), 0) + 1
+    return groups or None
+
+
+def _request_ms(fn):
+    """One request's time between two CUDA events (``fn`` ends in a copy
+    to the host)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _operator_calls(program):
+    """{"attention_qkv": [causal flag per call], "temporal_net_fwd":
+    [whether every weight operand is a placeholder of the program]} of an
+    exported program's graph."""
+    specs = {s.arg.name: s.kind.name
+             for s in program.graph_signature.input_specs}
+    out = {"attention_qkv": [], "temporal_net_fwd": [], "other": []}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op != "call_function" or not name.startswith("dist_tpu_torch"):
+            continue
+        if name == "dist_tpu_torch.attention_qkv.default":
+            out["attention_qkv"].append(bool(node.args[2]))
+        elif name == "dist_tpu_torch.temporal_net_fwd.default":
+            out["temporal_net_fwd"].append(all(
+                getattr(a, "op", None) == "placeholder"
+                and specs.get(a.name) in ("BUFFER", "CONSTANT_TENSOR")
+                for a in node.args[1:]))
+        else:
+            out["other"].append(name)
+    return out
+
+
+def _dispatch_costs():
+    """What the operators' dispatch adds to a launch: the host-paced time
+    a call of K1 and K2 through the operator and through the launch
+    beneath it (``_cuda_forward``, ``_fwd_cuda``: the same checks and
+    launch, no dispatcher), ``DISPATCH_CALLS`` back to back, the best of
+    two turns each (direct, operator, operator, direct), at the text
+    tower's, the zoo's batch-1 and the served shapes; the device time of
+    the operator's call (``time_ms``) beside them. These calls count
+    launches outside every phase's window."""
+    import torch
+    from dist_tpu_torch.ops import attention as att
+    from dist_tpu_torch.ops import temporal_net as tn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS
+
+    cases = {}
+    for name, (shape, heads, causal) in {
+            "K1 text causal": ((174, 77, 1536), 8, True),
+            "K1 zoo batch 1": ((8, 197, 2304), 12, False),
+            "K1 serving": ((64, 197, 2304), 12, False)}.items():
+        qkv = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        cases[name] = (
+            shape, lambda q=qkv, h=heads, c=causal: att.attention_qkv_op(q, h, c),
+            lambda q=qkv, h=heads, c=causal: att._cuda_forward(q, h, c))
+    for name, shape in {"K2 zoo batch 1": (1, 16, 14, 14, 96),
+                        "K2 serving": (8, 16, 14, 14, 96)}.items():
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        c = shape[-1]
+        raw = [torch.randn(s, generator=gen, device="cuda") * 0.1 for s in
+               ((c,), (c,), (3, 1, 1, c, c), (c,), (1, 3, 3, c, c), (c,))]
+        packed = tn.pack_weights(*raw)
+        cases[name] = (
+            shape, lambda x=x, p=packed: tn.temporal_net_fwd_op(x, *p),
+            lambda x=x, p=packed: tn._fwd_cuda(x, p))
+    out = {}
+    for name, (shape, op, direct) in cases.items():
+        turns = [host_us(direct), host_us(op), host_us(op), host_us(direct)]
+        out[name] = {"shape": list(shape), "dtype": "bfloat16",
+                     "operator_us": min(turns[1:3]),
+                     "direct_us": min(turns[0], turns[3]), "turns_us": turns,
+                     "added_us": min(turns[1:3]) - min(turns[0], turns[3]),
+                     "device_ms": time_ms(op, 20)}
+    return out
+
+
+def _export_one(what, engine, export, path, clips, cpu_limit, problems,
+                full=None):
+    """The program ``export()`` returns with its meta (timed), with
+    ``engine``'s weights, saved, loaded on the card and on the CPU, and
+    called on ``clips`` (fewer than its batch): held to the engine's
+    scores of the same clips on the card (``EXPORT_ENGINE_LIMIT``, top-1
+    equal) and the CPU's to the card's (``cpu_limit``); K1 and K2
+    launches counted a call (zeroed just before each, read just after)
+    with the causal flag of every K1 launch; the device kernels of one
+    program call and one engine call. With ``full`` (a full batch), the
+    program's request and the engine's are timed with CUDA events in
+    turns (engine, program, program, engine; medians of
+    ``EXPORT_TIMED``), before the CPU's run, whose threads would share
+    the host with them."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.ops import attention as att
+    from dist_tpu_torch.serving.export import load_predictor, save_exported
+
+    rec = {"batch_size": engine.batch_size, "clips": int(clips.shape[0])}
+    want = engine.predict(clips)
+    t0 = time.perf_counter()
+    program, meta = export()
+    rec["export_s"] = time.perf_counter() - t0
+    calls = _operator_calls(program)
+    rec["operators"] = {k: len(v) for k, v in calls.items()}
+    rec["graph_causal_attention"] = sum(calls["attention_qkv"])
+    rec["graph_temporal_net_on_constants"] = all(calls["temporal_net_fwd"])
+    if calls["other"] or not rec["graph_temporal_net_on_constants"]:
+        problems.append(f"{what}: operators {calls}")
+    held = engine.model.module.state_dict()
+    rec["program_weights_are_the_engines"] = all(
+        torch.equal(v, held[k[len("module."):]])
+        for k, v in program.state_dict.items() if k.startswith("module."))
+    t0 = time.perf_counter()
+    save_exported(path, program, meta)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["file_mib"] = os.path.getsize(path) / 2 ** 20
+    del program
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    predict, _ = load_predictor(path)
+    rec["load_s"] = time.perf_counter() - t0
+
+    causal, real_launch = [], att._launch
+
+    def launch(fn, qkv, route, heads, is_causal, *args):
+        causal.append(int(is_causal))
+        return real_launch(fn, qkv, route, heads, is_causal, *args)
+
+    att._launch = launch
+    per_call = []
+    try:
+        for _ in range(2):
+            counts = _zero_counts(bwd=True)
+            got = predict(clips)
+            torch.cuda.synchronize()
+            per_call.append(counts())
+    finally:
+        att._launch = real_launch
+    rec["launches_per_call"] = per_call
+    rec["causal_attention_launches"] = sum(causal)
+    rec["max_abs_diff_engine"] = float(np.abs(got - want).max())
+    rec["engine_limit"] = EXPORT_ENGINE_LIMIT
+    rec["top1_equal"] = bool((got.argmax(1) == want.argmax(1)).all())
+    if not (rec["max_abs_diff_engine"] <= EXPORT_ENGINE_LIMIT
+            and rec["top1_equal"] and got.shape == want.shape
+            and np.isfinite(got).all()
+            and np.allclose(got.sum(1), 1.0, atol=1e-4)):
+        problems.append(f"{what}: program against engine {rec}")
+    if not rec["program_weights_are_the_engines"]:
+        problems.append(f"{what}: the program's weights are not the engine's")
+    rec["device_kernels"] = {"program": _kernel_counts(lambda: predict(clips)),
+                             "engine": _kernel_counts(
+                                 lambda: engine.predict(clips))}
+    if full is not None:
+        turns = {}
+        for who in ("engine", "program", "program", "engine"):
+            fn = (lambda: engine.predict(full)) if who == "engine" else (
+                lambda: predict(full))
+            for _ in range(2):
+                fn()
+            ms = sorted(_request_ms(fn) for _ in range(EXPORT_TIMED))
+            turns.setdefault(who, []).append(ms[len(ms) // 2])
+        rec["batch8_request_ms_median"] = turns
+
+    t0 = time.perf_counter()
+    predict_cpu, _ = load_predictor(path, device="cpu")
+    cpu = predict_cpu(clips)
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["max_abs_diff_cpu"] = float(np.abs(cpu - got).max())
+    rec["cpu_limit"] = cpu_limit
+    rec["cpu_top1_equal"] = bool((cpu.argmax(1) == got.argmax(1)).all())
+    if not rec["max_abs_diff_cpu"] <= cpu_limit:
+        problems.append(f"{what}: the CPU's scores {rec['max_abs_diff_cpu']} "
+                        f"from the card's (limit {cpu_limit})")
+    return rec
+
+
+def export_phase(repo, card):
+    """Model export (``serving/export.py``) at full width: the flagship
+    (``TPU.FUSED_TEMPORAL_NET true``, batch ``EXPORT_BATCH``, 174 classes,
+    random weights from RANDOM_SEED) exported by ``export_predictor`` on
+    the card, saved (seconds, MiB), loaded on the card and on the CPU, and
+    held to an ``InferenceEngine`` built from the same config (the same
+    weights, checked) through ``_export_one``: K1 12 and K2 12 launches a
+    call, none causal, the program's K2 weight operands constants of the
+    program, and before the CPU's run the program's batch-8 request and
+    the engine's timed in turns; then TAda2D (``TADA``, batch
+    ``EXPORT_TADA_BATCH``, weights drawn as the tada phase's, no kernel:
+    every count 0) through ``export_engine`` of its engine. First, before
+    any CPU run, what the operators' dispatch adds to a launch
+    (``_dispatch_costs``). TF32 off. Returns the flagship's launches of
+    one program call."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.serving.export import export_engine, export_predictor
+
+    t_phase = time.perf_counter()
+    problems = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    rec = {"phase": "export", "card": card, "config": FLAGSHIP,
+           "overrides": ["TPU.FUSED_TEMPORAL_NET", "true"]}
+    try:
+        rec["dispatch"] = _dispatch_costs()
+        cfg = load_config(os.path.join(repo, FLAGSHIP), rec["overrides"],
+                          make_output_dir=False)
+        engine = InferenceEngine(cfg, batch_size=EXPORT_BATCH)
+        engine.warmup()
+        rng = np.random.default_rng(int(cfg.RANDOM_SEED))
+        shape = (engine.num_frames, engine.crop, engine.crop, 3)
+        clips = rng.integers(0, 256, (EXPORT_CLIPS,) + shape, dtype=np.uint8)
+        full = rng.integers(0, 256, (EXPORT_BATCH,) + shape, dtype=np.uint8)
+        flagship = _export_one(
+            "flagship", engine,
+            lambda: export_predictor(cfg, batch_size=EXPORT_BATCH),
+            os.path.join(tmp, "flagship.pt2"), clips, EXPORT_CPU_LIMIT,
+            problems, full)
+        rec["flagship"] = flagship
+        layers = engine.model.module.arch.vision_layers
+        ladder = len(engine.model.module.dist.selected_layers)
+        want = {"attention_qkv": layers, "attention_qkv_rows": 0,
+                "temporal_net_fwd": ladder, "temporal_net_bwd": 0,
+                "attention_qkv_bwd": 0}
+        if (any(c != want for c in flagship["launches_per_call"])
+                or flagship["causal_attention_launches"]
+                or flagship["graph_causal_attention"]
+                or flagship["operators"]["attention_qkv"] != layers
+                or flagship["operators"]["temporal_net_fwd"] != ladder):
+            problems.append(f"flagship: launches a call "
+                            f"{flagship['launches_per_call']} != {want}, or "
+                            f"a causal K1, or other weights")
+        kernels = flagship["device_kernels"]
+        if kernels["program"] and kernels["engine"] and \
+                sum(kernels["program"].values()) > sum(
+                    kernels["engine"].values()):
+            problems.append(f"flagship: the program runs more kernels than "
+                            f"the engine: {kernels}")
+
+        del engine
+        torch.cuda.empty_cache()
+
+        tcfg = _conv_cfg(repo, TADA)
+        tengine = InferenceEngine(tcfg, batch_size=EXPORT_TADA_BATCH)
+        seed = int(tcfg.RANDOM_SEED)
+        _draw_conv_weights(tengine.model.module, seed, _prep(
+            tcfg, _conv_clips(tcfg, EXPORT_TADA_BATCH, seed),
+            tengine.device))
+        tclips = _conv_clips(tcfg, 1, seed + 1).numpy()
+        tada_rec = _export_one(
+            "tada", tengine, lambda: export_engine(tengine),
+            os.path.join(tmp, "tada.pt2"), tclips, EXPORT_TADA_CPU_LIMIT,
+            problems)
+        tada_rec["config"] = TADA
+        rec["tada"] = tada_rec
+        if any(any(c.values()) for c in tada_rec["launches_per_call"]):
+            problems.append(f"tada: kernels launched "
+                            f"{tada_rec['launches_per_call']}")
+        del tengine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["pass"] = not problems
+    emit(rec)
+    if problems:
+        raise AssertionError("export: " + "; ".join(problems))
+    return rec["flagship"]["launches_per_call"][0]
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name (K1's, K4's and K1b's passes)."""
@@ -6347,37 +6699,49 @@ def main():
         # K1b's launches over every phase before clip_ft, which train no
         # CLIP tower: read once before clip_ft
         _zero_counts(bwd=True)
-        serve_path, train_path, rows = kernel_checks()
-        l14_path = l14_kernel_checks()
-        zoo_path = zoo_kernel_checks()
-        engine, serve_launches = serve(repo)
-        agreement(repo, engine)
-        test_launches = multiview_test(repo, engine, card)
+        seconds = {}
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t
+            return out
+
+        serve_path, train_path, rows = timed("kernel_checks", kernel_checks)
+        l14_path = timed("l14_kernel_checks", l14_kernel_checks)
+        zoo_path = timed("zoo_kernel_checks", zoo_kernel_checks)
+        engine, serve_launches = timed("serving", serve, repo)
+        timed("agreement", agreement, repo, engine)
+        test_launches = timed("multiview_test", multiview_test, repo, engine,
+                              card)
         del engine
         torch.cuda.empty_cache()
-        train_launches, tokens = train(repo)
-        train_agreement(repo, tokens)
+        train_launches, tokens = timed("train", train, repo)
+        timed("train_agreement", train_agreement, repo, tokens)
         torch.cuda.empty_cache()
-        train_run_launches = train_run(repo, card)
+        train_run_launches = timed("train_run", train_run, repo, card)
         l14_launches = dict(zip(("serving", "train", "text", "run_list"),
-                                l14(repo, card)))
-        ddp_launches = ddp(repo, card)
-        tools_launches = tools(repo)
-        zoo_launches = zoo(repo, card)
-        tada_launches = tada(repo, card)
-        epic_launches = epic(repo, card)
-        s3dg_launches = s3dg(repo, card)
-        vit_launches = vit(repo, card)
-        transformers_launches = transformers(repo, card)
-        ssl_launches = ssl(repo, card)
-        augment_launches = augment(repo, card)
-        submission_launches = submission(repo, card)
-        tal_launches = tal(repo, card)
+                                timed("l14", l14, repo, card)))
+        ddp_launches = timed("ddp", ddp, repo, card)
+        tools_launches = timed("tools", tools, repo)
+        zoo_launches = timed("zoo", zoo, repo, card)
+        tada_launches = timed("tada", tada, repo, card)
+        epic_launches = timed("epic", epic, repo, card)
+        s3dg_launches = timed("s3dg", s3dg, repo, card)
+        vit_launches = timed("vit", vit, repo, card)
+        transformers_launches = timed("transformers", transformers, repo,
+                                      card)
+        ssl_launches = timed("ssl", ssl, repo, card)
+        augment_launches = timed("augment", augment, repo, card)
+        submission_launches = timed("submission", submission, repo, card)
+        tal_launches = timed("tal", tal, repo, card)
         earlier_bwd = att_ops.attention_qkv_bwd.launches
         if earlier_bwd:
             raise AssertionError(f"K1b launched {earlier_bwd} times before "
                                  "clip_ft")
-        clip_ft_launches, bwd_checks = clip_ft(repo, card)
+        clip_ft_launches, bwd_checks = timed("clip_ft", clip_ft, repo, card)
+        export_launches = timed("export", export_phase, repo, card)
+        emit({"phase_seconds": seconds})
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -6461,6 +6825,7 @@ def main():
             entry["tal_launches"] = tal_launches[name]
             entry["clip_ft_launches"] = {part: c[name] for part, c in
                                          clip_ft_launches.items()}
+            entry["export_launches"] = export_launches[name]
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -6501,6 +6866,7 @@ def main():
             "tal_launches": tal_launches["attention_qkv_rows"],
             "clip_ft_launches": {part: c["attention_qkv_rows"]
                                  for part, c in clip_ft_launches.items()},
+            "export_launches": export_launches["attention_qkv_rows"],
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),
@@ -6520,6 +6886,7 @@ def main():
             "clip_ft_launches": {part: c["attention_qkv_bwd"]
                                  for part, c in clip_ft_launches.items()},
             "earlier_phases_launches": earlier_bwd,
+            "export_launches": export_launches["attention_qkv_bwd"],
             **{k: train_bwd[k] for k in keys},
             "shape": train_bwd["shape"], "dtype": train_bwd["dtype"],
             "attention_bwd_route": train_bwd["route"],

@@ -121,7 +121,10 @@ class TemporalNet(nn.Module):
     parameters change (in place, as ``load_state_dict`` does, or by a move
     to another device or type). With grad on, the weights are packed on
     every call and the cached pack is dropped: an optimizer's in-place
-    update need not bump the version counter the cache keys on."""
+    update need not bump the version counter the cache keys on.
+    :meth:`freeze_packed` makes the pack buffers of the module instead,
+    which ``torch.export`` traces (its fake tensors have no ``data_ptr``
+    to key a cache on) and a saved program keeps as constants."""
 
     def __init__(self, cfg, fused=False):
         super().__init__()
@@ -135,6 +138,7 @@ class TemporalNet(nn.Module):
             "c_fc2": Conv3d(hidden, c, (1, 3, 3), padding=(0, 1, 1)),
         })
         self._packed, self._packed_key = None, None
+        self._frozen = False
 
     def _apply(self, fn, *args, **kwargs):
         self._packed, self._packed_key = None, None
@@ -154,14 +158,24 @@ class TemporalNet(nn.Module):
             self._packed, self._packed_key = pack_weights(*params), key
         return self._packed
 
+    def freeze_packed(self):
+        """Pack the kernel's weights once, into non-persistent buffers
+        (``packed_0`` ... ``packed_5``) that every later call without grad
+        takes as they are: for a model whose parameters no longer change,
+        such as the one ``serving/export.py`` exports."""
+        for i, p in enumerate(pack_weights(*self._raw_params())):
+            self.register_buffer(f"packed_{i}", p.detach().clone(),
+                                 persistent=False)
+        self._frozen = True
+
     def forward(self, x):
         if self.fused:
             params = self._raw_params()
             if torch.is_grad_enabled():
                 self._packed, self._packed_key = None, None
                 return temporal_net(x.contiguous(), *params)
-            packed = (self._packed_weights(params)
-                      if x.device.type == "cuda" else None)
+            packed = (tuple(getattr(self, f"packed_{i}") for i in range(6))
+                      if self._frozen else self._packed_weights(params))
             return fused_temporal_net(x.contiguous(), *params, packed=packed)
         c_fc1, c_fc2 = self.temporal_net["c_fc1"], self.temporal_net["c_fc2"]
         h = _to_channels_first(self.ln(x))

@@ -12,10 +12,13 @@ projection, in its native layout, so no head transposes happen around it:
                                            rounded to the input dtype
                  O_h = P V_h               (fp32 accumulation)
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/attention.cu`` (K1), or raises. On a CPU tensor it runs
-:func:`attention_qkv_plain`, the plain PyTorch version that mirrors the
-JAX package's ``_reference_attention_qkv``.
+The forward is the custom operator ``dist_tpu_torch::attention_qkv(qkv,
+num_heads, causal)`` (``torch.library``), so that ``torch.export`` can
+trace it and a saved program calls it by name. Its CUDA kernel launches
+the hand-written kernel of ``csrc/attention.cu`` (K1), or raises; its CPU
+kernel is :func:`attention_qkv_plain`, the plain PyTorch version that
+mirrors the JAX package's ``_reference_attention_qkv``; its fake kernel
+gives the (B, L, D) output's shape. Importing this module registers it.
 
 The function is differentiable, as the JAX package's ``custom_vjp`` is:
 its backward recomputes the attention from ``qkv`` and gives dQ, dK, dV
@@ -29,7 +32,8 @@ alone.
 :func:`attention_qkv_rows` is the port of the microbenchmark's
 multi-row variant (``tools/microbench.py::kernel_nb``): the same function
 without the causal mask, with ``nb`` batch rows per block of the kernel;
-its plain version is :func:`attention_qkv_rows_plain`.
+its plain version is :func:`attention_qkv_rows_plain`. It runs only in the
+microbenchmark, so it stays a direct ``ctypes`` call and no operator.
 
 On the card K1, K4 and K1b take one of three routes, fixed by (L, head
 dim, dtype) by one rule (``csrc/whole_row.cuh``), named by
@@ -163,9 +167,9 @@ def _launch(fn, qkv, route, *args):
     return out
 
 
-def _forward(qkv, num_heads, causal, route):
-    if qkv.device.type == "cpu":
-        return attention_qkv_plain(qkv, num_heads, causal)
+def _cuda_forward(qkv, num_heads, causal, route=None):
+    """K1 on a CUDA tensor on ``route`` (by default the rule's); counts
+    the launch."""
     b, l, _, hd = _check_cuda(qkv, num_heads)
     if b > 65535:
         raise ValueError(f"grid too large: B={b}")
@@ -176,6 +180,30 @@ def _forward(qkv, num_heads, causal, route):
                   hd ** -0.5)
     fused_attention_qkv.launches += 1
     return out
+
+
+@torch.library.custom_op("dist_tpu_torch::attention_qkv", mutates_args=(),
+                         device_types="cuda")
+def attention_qkv_op(qkv: torch.Tensor, num_heads: int,
+                     causal: bool) -> torch.Tensor:
+    """The operator K1 is: its CUDA kernel (the hand-written one, or a
+    raise); :func:`attention_qkv_plain` is its CPU kernel."""
+    return _cuda_forward(qkv, num_heads, causal)
+
+
+attention_qkv_op.register_kernel("cpu")(attention_qkv_plain)
+
+
+@attention_qkv_op.register_fake
+def _attention_qkv_fake(qkv, num_heads, causal):
+    b, l, d3 = qkv.shape
+    return qkv.new_empty(b, l, d3 // 3)
+
+
+def _forward(qkv, num_heads, causal, route):
+    if route is None or qkv.device.type == "cpu":
+        return attention_qkv_op(qkv, num_heads, causal)
+    return _cuda_forward(qkv, num_heads, causal, route)
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -198,15 +226,17 @@ class _AttentionQKV(torch.autograd.Function):
 
 def fused_attention_qkv(qkv, num_heads, causal=False, _route=None):
     """O (B, L, D) = multi-head softmax attention of the fused projection
-    ``qkv`` (B, L, 3D). CUDA tensor: the hand-written kernel on the route
-    :func:`attention_route` names; CPU tensor: :func:`attention_qkv_plain`.
+    ``qkv`` (B, L, 3D), through the operator ``attention_qkv``. CUDA
+    tensor: the hand-written kernel on the route :func:`attention_route`
+    names; CPU tensor: :func:`attention_qkv_plain`.
     Differentiable: where ``qkv`` needs a gradient, the backward is
     :func:`attention_qkv_bwd`. ``launches`` counts the forward kernel's
     launches (a recomputation under ``torch.utils.checkpoint`` too).
 
     ``_route="streaming"`` times the streaming kernel where the rule says
-    ``whole_row``; no caller on a main path passes it, and the kernel
-    refuses any other route against the rule."""
+    ``whole_row`` (beside the operator, which takes no route); no caller
+    on a main path passes it, and the kernel refuses any other route
+    against the rule."""
     _check(qkv, num_heads)
     if qkv.requires_grad and torch.is_grad_enabled():
         return _AttentionQKV.apply(qkv, num_heads, causal, _route)

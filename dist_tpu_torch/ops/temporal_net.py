@@ -8,16 +8,22 @@ runs on channels-last x (B, T, H, W, C) with LayerNorm eps 1e-5, fp32
 inside and the output in x's dtype. The signature and weight layouts are
 the JAX package's: raw kernels ``w1 (k,1,1,C,F)`` and ``w2 (1,3,3,F,C)``.
 
-Forward: on a CUDA tensor :func:`fused_temporal_net` launches the
-hand-written kernel K2 of ``csrc/temporal_net.cu`` (a few launches through
-a scratch the wrapper allocates; one call, one count), or raises. Its
-route follows x's dtype (:func:`temporal_net_fwd_route`): float32 runs on
-the CUDA cores, bf16 (the served and trained model's) on the tensor cores,
-from the stages of K3's bf16 route, with bf16 product operands and fp32
-sums and elementwise steps. On a CPU tensor it runs
-:func:`temporal_net_plain`, which mirrors ``_reference`` / ``_chain_fwd``:
-each conv tap is a shifted view of the zero-padded activations times one
-(C, F) weight block.
+Forward: :func:`fused_temporal_net` calls the custom operator
+``dist_tpu_torch::temporal_net_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2)``
+(``torch.library``) on the kernel's operands, :func:`pack_weights` of the
+block's parameters (fp32, w1 as (k*C, F), w2 as (9*F, C)), so that
+``torch.export`` can trace it and a saved program holds the pack as
+constants. The operator's CUDA kernel launches the hand-written kernel K2
+of ``csrc/temporal_net.cu`` (a few launches through a scratch it
+allocates; one call, one count), or raises. Its route follows x's dtype
+(:func:`temporal_net_fwd_route`): float32 runs on the CUDA cores, bf16
+(the served and trained model's) on the tensor cores, from the stages of
+K3's bf16 route, with bf16 product operands and fp32 sums and elementwise
+steps. Its CPU kernel is :func:`temporal_net_plain` on views of the pack
+in the raw layouts, which mirrors ``_reference`` / ``_chain_fwd``: each
+conv tap is a shifted view of the zero-padded activations times one
+(C, F) weight block. Its fake kernel gives x's shape. Importing this
+module registers it.
 
 Backward: :func:`fused_temporal_net_bwd` launches K3 (the same source; it
 recomputes the forward, as ``_bwd_kernel`` does) or, on a CPU tensor,
@@ -226,36 +232,81 @@ def _check_bf16_widths(dtype, c, f):
 
 def fused_temporal_net(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2,
                        packed=None):
-    """TemporalNet block on x (B, T, H, W, C). CUDA tensor: the
+    """TemporalNet block on x (B, T, H, W, C): the operator
+    ``temporal_net_fwd`` on ``packed`` (:func:`pack_weights` of the same
+    parameters) or on weights packed for this call. CUDA tensor: the
     hand-written kernel K2 on the route :func:`temporal_net_fwd_route`
-    names, on ``packed`` (:func:`pack_weights` of the same parameters; the
-    bf16 route packs its own bf16 tiles from them in each call) or on
-    weights packed for this call; CPU tensor: :func:`temporal_net_plain`.
-    Not differentiable itself: see :func:`temporal_net`."""
-    k, c, f = check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
-    if x.device.type == "cpu":
-        return temporal_net_plain(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
-    params = (ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
-    n = _check_cuda(x, params, c, f)
+    names (the bf16 route packs its own bf16 tiles from the pack in each
+    call); CPU tensor: :func:`temporal_net_plain`. Not differentiable
+    itself: see :func:`temporal_net`."""
+    check_shapes(x, ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    if packed is None:
+        packed = pack_weights(ln_scale, ln_bias, w1_raw, b1, w2_raw, b2)
+    return temporal_net_fwd_op(x, *packed)
+
+
+def _unpack(x, packed):
+    """The pack's shapes checked against x's channels; returns (k, C, F)."""
+    def refuse():
+        return ValueError("packed weights must be pack_weights() of the "
+                          "block's parameters, for x (B, T, H, W, C) "
+                          f"{tuple(x.shape)}")
+
+    if x.dim() != 5 or x.shape[-1] == 0 or packed[2].dim() != 2:
+        raise refuse()
+    c, f = x.shape[-1], packed[2].shape[-1]
+    k = packed[2].shape[0] // c
+    shapes = [(c,), (c,), (k * c, f), (f,), (9 * f, c), (c,)]
+    if k < 1 or [tuple(p.shape) for p in packed] != shapes:
+        raise refuse()
+    return k, c, f
+
+
+def _fwd_cuda(x, packed):
+    """K2 on a CUDA tensor x and :func:`pack_weights`; counts the
+    launch."""
+    k, c, f = _unpack(x, packed)
+    n = _check_cuda(x, packed, c, f)
     _check_bf16_widths(x.dtype, c, f)
     if fwd_scratch_floats(n, c, f, k, x.dtype) > 2 ** 31 - 1:
         raise ValueError(f"{n} positions are too many for one launch")
-    if packed is None:
-        packed = pack_weights(*params)
-    shapes = [(c,), (c,), (k * c, f), (f,), (9 * f, c), (c,)]
-    if [tuple(p.shape) for p in packed] != shapes or any(
-            p.dtype != torch.float32 or not p.is_contiguous()
-            or p.device != x.device for p in packed):
+    if any(p.dtype != torch.float32 or not p.is_contiguous() for p in packed):
         raise ValueError("packed weights must be pack_weights() of the "
-                         "block's parameters, on x's device")
+                         "block's parameters: fp32 and contiguous")
     out = launch_fwd(_build.load("temporal_net", _SIGNATURES), x, packed)
     fused_temporal_net.launches += 1
     return out
 
 
+@torch.library.custom_op("dist_tpu_torch::temporal_net_fwd", mutates_args=(),
+                         device_types="cuda")
+def temporal_net_fwd_op(x: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, w1: torch.Tensor,
+                        b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor) -> torch.Tensor:
+    """The operator K2 is, on x and :func:`pack_weights`: its CUDA kernel
+    (the hand-written one, or a raise)."""
+    return _fwd_cuda(x, (ln_scale, ln_bias, w1, b1, w2, b2))
+
+
+@temporal_net_fwd_op.register_kernel("cpu")
+def _temporal_net_fwd_cpu(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """The operator's CPU kernel: :func:`temporal_net_plain` on the pack
+    seen in the raw layouts."""
+    k, c, f = _unpack(x, (ln_scale, ln_bias, w1, b1, w2, b2))
+    return temporal_net_plain(x, ln_scale, ln_bias, w1.reshape(k, 1, 1, c, f),
+                              b1, w2.reshape(1, 3, 3, f, c), b2)
+
+
+@temporal_net_fwd_op.register_fake
+def _temporal_net_fwd_fake(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    _unpack(x, (ln_scale, ln_bias, w1, b1, w2, b2))
+    return x.new_empty(x.shape)
+
+
 def launch_fwd(lib, x, packed):
     """One launch of ``dtt_temporal_net_fwd`` from the library ``lib`` on
-    x and its :func:`pack_weights`, checked by :func:`fused_temporal_net`;
+    x and its :func:`pack_weights`, checked by the operator's CUDA kernel;
     counts nothing."""
     ln_s, ln_b, w1p, b1f, w2p, b2f = packed
     c, f = ln_s.shape[0], w1p.shape[1]

@@ -380,6 +380,55 @@ def test_served_tiny_model_runs_through_both_kernels():
     np.testing.assert_allclose(got, want.numpy(), atol=1e-5, rtol=0)
 
 
+def test_exported_tiny_model_on_the_card(tmp_path):
+    """The tiny config exported on the card (``serving/export.py``),
+    saved, loaded on the card: the engine's scores, and each call of the
+    program launches K1 once per vision layer (never the text tower's
+    causal K1: its features are baked in) and K2 once per ladder step."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.serving.export import (
+        export_predictor,
+        load_predictor,
+        save_exported,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true", "TRAIN.MIXED_PRECISION", "false"],
+        make_output_dir=False)
+    path = str(tmp_path / "tiny.pt2")
+    save_exported(path, *export_predictor(cfg, batch_size=4))
+    predict, meta = load_predictor(path)
+    assert meta["exported_on"] == "cuda"
+    engine = InferenceEngine(cfg, batch_size=4)
+    clips = np.random.default_rng(0).integers(
+        0, 256, (3, 4, 64, 64, 3), dtype=np.uint8)
+    causal = []
+    real_launch = att._launch
+
+    def launch(fn, qkv, route, heads, is_causal, *args):
+        causal.append(is_causal)
+        return real_launch(fn, qkv, route, heads, is_causal, *args)
+
+    att._launch = launch
+    try:
+        for _ in range(2):
+            att.fused_attention_qkv.launches = 0
+            tn.fused_temporal_net.launches = 0
+            got = predict(clips)
+            torch.cuda.synchronize()
+            assert att.fused_attention_qkv.launches == 2
+            assert tn.fused_temporal_net.launches == 2
+    finally:
+        att._launch = real_launch
+    assert causal == [0] * 4
+    np.testing.assert_allclose(got, engine.predict(clips), atol=1e-5, rtol=0)
+
+
 # K3's bf16 route (bf16 product operands, fp32 sums and elementwise steps)
 # against its fp32 plain version, per output (tools/tnet_bwd.py's
 # ``errors``; chip_smoke.py states the same): max |err| / max |ref| and

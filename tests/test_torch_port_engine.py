@@ -122,3 +122,35 @@ def test_entry_points_need_a_card_unless_told(repo_root, monkeypatch):
         InferenceEngine(cfg, batch_size=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
+
+
+def test_exported_program_matches_jax(engines, repo_root, tmp_path):
+    """The engine's predictor exported with both operators in the graph
+    (``TPU.FUSED_TEMPORAL_NET true``) on the JAX engine's weights, saved,
+    loaded on the CPU and given fewer clips than its batch: the JAX
+    engine's scores and top-3 (``test_torch_port_export.py`` holds the
+    rest of the export)."""
+    from dist_tpu_torch.serving.export import (
+        export_engine,
+        load_predictor,
+        save_exported,
+    )
+
+    jax_engine, engine = engines
+    fused = InferenceEngine(load_config(
+        os.path.join(repo_root, CFG),
+        OPTS + ["TPU.FUSED_TEMPORAL_NET", "true"], make_output_dir=False),
+        batch_size=4, device="cpu")
+    fused.load_state_dict(engine.model.module.state_dict())
+    path = str(tmp_path / "model.pt2")
+    save_exported(path, *export_engine(fused))
+    predict, meta = load_predictor(path, device="cpu")
+    assert meta["batch_size"] == 4
+    clips = np.random.default_rng(5).integers(
+        0, 256, (3, engine.num_frames, engine.crop, engine.crop, 3),
+        dtype=np.uint8)
+    got = predict(clips)
+    want = jax_engine.predict(clips)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert [list(np.argsort(r)[::-1][:3]) for r in got] == \
+        [list(np.argsort(r)[::-1][:3]) for r in want]

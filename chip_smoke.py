@@ -346,6 +346,34 @@
    the launch beneath it, host-paced, at the text tower's, the zoo's
    batch-1 and the served shapes). The phase's seconds are printed.
 
+24. Parallel: multi-GPU, the rest, on the one card (correctness, not
+   scaling). Kernel checks first (``parallel_kernel_checks``): K1 at the
+   model axis's shapes (the flagship's 6 of 12 heads a rank on a served
+   batch of 8, the text tower's 4 of 8, causal) and K1b at the
+   fine-tune's train step at batch 4 with 6 heads. (a) The pod8 recipe
+   (``POD8``: L/14 at full width, remat, batch 4) under ``TPU.FSDP``
+   (FSDP2 units: each CLIP block, each ladder step, the root) on an NCCL
+   group of one rank in this process, the ddp phase's weights, batches
+   and steps: losses within ``FSDP_LIMITS`` of the ddp phase's DDP run,
+   K1 24, K2 48 and K3 24 a step, no trainable parameter without a
+   gradient, step ms, peak GB and the bytes of parameters and AdamW
+   moments a rank beside DDP's. (b) The flagship's ``InferenceEngine``
+   over ``PARALLEL_ENGINE_DEVICES`` (two replicas on ``cuda:0``) against
+   the one-device engine: one batch-8 request split 4 + 4, its scores
+   within ``HTTP_SCORE_LIMIT``, the same top-1, K1 and K2 12 a replica.
+   (c) ``TPU.SHARD_FRAMES``: classify's model path (``load_classifier``,
+   ``score_video``) with the kept frames over two towers on the card
+   against the replicated run on the same seeded views: within 6 x
+   ``HTTP_SCORE_LIMIT`` (6 clips summed), the same top-1, K1 12 a tower,
+   K2 12. (d) Two gloo ranks sharing ``cuda:0`` in one spawn, each job on
+   its own mesh: the flagship's eval of 8 clips under tp 2 (K1 12 a rank
+   at 6 heads) and under 2 pipe stages (K1 18 a rank: 6 layers x 3
+   ticks), the CLIP fine-tune's 2 train steps at batch 4 under each (K1
+   and K1b 12 or 18 a step), against one rank in this process
+   (``PARALLEL_LIMITS``); and the pod8 recipe under FSDP at world 2 (2 a
+   rank) against (a)'s first steps, or the reason gloo refuses FSDP2's
+   collectives on CUDA tensors. The phase's seconds are printed.
+
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
 bit, equal to K1 bit for bit, K1's time on the same input beside it, and
@@ -377,7 +405,9 @@ under ``zoo`` each zoo shape's numbers; ``tada_launches``,
 ``transformers_launches``, ``ssl_launches``, ``augment_launches`` and
 ``tal_launches`` those phases' (0), ``submission_launches`` the
 flagship's submission entry's, ``clip_ft_launches`` the clip_ft phase's
-by part, ``export_launches`` one call of the exported flagship's;
+by part, ``export_launches`` one call of the exported flagship's,
+``parallel_launches`` the parallel phase's by part and rank (under
+``parallel`` K1's numbers at the model axis's shapes);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -602,6 +632,52 @@ BWD_BF16_LIMITS = {
     "dw2": {"max_rel": 0.014, "rel_l2": 0.012},
     "db2": {"max_rel": 0.0077, "rel_l2": 0.0054},
 }
+# the parallel phase: multi-GPU, the rest, on the one card. (a) The pod8
+# recipe under TPU.FSDP (FSDP2, ZeRO-3) on an NCCL group of one rank, the
+# ddp phase's steps (same weights, batches) against its DDP run; (b) the
+# flagship's engine over two replicas on the card; (c) TPU.SHARD_FRAMES
+# through classify's model path over two towers on the card; (d) two gloo
+# ranks sharing the card: the model axis (tp 2) and the pipe axis (2
+# stages) on the flagship's eval forward and the CLIP fine-tune's train
+# steps against one rank, and FSDP at world 2 against (a)
+PARALLEL_WORLD = 2
+PARALLEL_DEVICE = "cuda:0"
+PARALLEL_ENGINE_DEVICES = ["cuda:0", "cuda:0"]
+PARALLEL_EVAL_CLIPS = 8
+PARALLEL_TRAIN_CLIPS = 4
+PARALLEL_TRAIN_STEPS = 2
+PARALLEL_FSDP_STEPS = 2
+PARALLEL_SPAWN_TIMEOUT_S = 420
+# FSDP against DDP at world 1: the same kernels on the same values (the
+# gathered weights are the shards' copies; the reduce-scatter of one rank
+# divides by 1), so the losses are predicted equal; the limit allows the
+# AdamW update of a DTensor to sum in another order
+FSDP_LIMITS = {"loss_rel_diff": 1e-5}
+# Two gloo ranks on the card against one rank in bf16, per axis: the
+# largest score difference of the eval of 8 clips (and top-1 equal where
+# it leads by more than twice that), the first train step's loss
+# (relative: the forward's rounding alone) and every step's (AdamW's
+# updates of near-zero gradients diverge after the first).
+#   tp    3 times the readings on an H100 (NVIDIA H100 80GB HBM3, 700.00
+#         W): scores 1.48e-4, losses 1.26e-4 and 2.31e-3. Each rank's
+#         partial product of a row-split layer is rounded to bf16 before
+#         the fp32 sum: a rounding the unsplit product does not make. The
+#         control (in_proj split in contiguous rows) must break the score
+#         limit.
+#   pipe  the same blocks on microbatches: the scores read 0.0 and the
+#         losses 1.01e-5; the serving agreement's score limit and the ddp
+#         phase's loss limit
+#   fsdp  FSDP at world 2 (2 clips a rank) against world 1 (4): the ddp
+#         phase's two-rank loss limit (read 1.85e-5)
+PARALLEL_LIMITS = {
+    "tp": {"max_abs_score_diff": 4.5e-4, "first_loss_rel_diff": 3.8e-4,
+           "loss_rel_diff": 7e-3},
+    "pipe": {"max_abs_score_diff": HTTP_SCORE_LIMIT,
+             "first_loss_rel_diff": DDP_LIMITS["loss_rel_diff"],
+             "loss_rel_diff": DDP_LIMITS["loss_rel_diff"]},
+    "fsdp": {"loss_rel_diff": DDP_LIMITS["loss_rel_diff"]}}
+# the ddp phase's DDP run of the pod8 recipe, which (a) is held to
+_POD8_DDP = {}
 K4_ROWS = (2, 4, 8)
 # the zoo phase: the Model-Zoo harness's dry run over all eight rows at
 # their own geometry (synthetic clips, random weights, 2 videos of 2
@@ -2749,6 +2825,7 @@ def _ddp_steps(cfg, batches, tokens, through_ddp, seed, keep_grads):
             grads.append({k: p.grad.clone() for k, p in params})
     return {"losses": losses, "grads": grads, "ms": times,
             "launches": counts(), "unused": unused,
+            "bytes": _local_bytes(model.module, optimizer),
             "expected_unused": _last_integration2temporal(model),
             "grad_bytes": 4 * sum(p.numel() for _, p in params),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2764,7 +2841,6 @@ def _ddp_world1(repo, problems):
     """(a): an NCCL group of one rank in this process. The flagship's train
     step at batch 32 through DDP against the same steps without it, from
     the same weights and batches; then the pod8 recipe through DDP."""
-    import logging
     import shutil
     import tempfile
 
@@ -2829,33 +2905,23 @@ def _ddp_world1(repo, problems):
         del ddp, plain, batches
         torch.cuda.empty_cache()
 
-        # the pod8 recipe, built after the flagship's model is freed
+        # the pod8 recipe, built after the flagship's model is freed,
+        # through DDP (TPU.FSDP off: its FSDP run is the parallel phase's,
+        # held to this one)
         pcfg = load_config(os.path.join(repo, POD8),
-                           ["TPU.FUSED_TEMPORAL_NET", "true"],
-                           make_output_dir=False)
-        warnings = []
-
-        class Count(logging.Handler):
-            def emit(self, record):
-                if "TPU.FSDP" in record.getMessage():
-                    warnings.append(record.getMessage())
-
-        handler = Count(logging.WARNING)
-        mesh_logger = logging.getLogger("dist_tpu_torch.parallel.mesh")
-        mesh_logger.addHandler(handler)
-        try:
-            t0 = time.perf_counter()
-            batch = int(pcfg.TRAIN.BATCH_SIZE)
-            _, ptokens = resolve_label_texts(pcfg, classes)
-            psteps = L14_TRAIN_WARMUP_STEPS + L14_TRAIN_TIMED_STEPS
-            pod8 = _ddp_steps(pcfg, _train_batches(pcfg, psteps, seed),
-                              ptokens, True, seed, False)
-            seconds = time.perf_counter() - t0
-        finally:
-            mesh_logger.removeHandler(handler)
+                           ["TPU.FUSED_TEMPORAL_NET", "true",
+                            "TPU.FSDP", "false"], make_output_dir=False)
+        t0 = time.perf_counter()
+        batch = int(pcfg.TRAIN.BATCH_SIZE)
+        _, ptokens = resolve_label_texts(pcfg, classes)
+        psteps = L14_TRAIN_WARMUP_STEPS + L14_TRAIN_TIMED_STEPS
+        pod8 = _ddp_steps(pcfg, _train_batches(pcfg, psteps, seed),
+                          ptokens, True, seed, False)
+        seconds = time.perf_counter() - t0
         parch = pod8["model"].module.arch
         pladder = len(pod8["model"].module.dist.selected_layers)
         remat = bool(pod8["model"].module.dist_net.remat)
+        through_ddp = pod8["model"].ddp is not None
         del pod8["model"]
         pwant = {"attention_qkv": parch.vision_layers * psteps,
                  "attention_qkv_rows": 0,
@@ -2866,16 +2932,19 @@ def _ddp_world1(repo, problems):
             problems.append(f"(a) pod8 launches {pod8['launches']} != {pwant}")
         if not all(math.isfinite(v) for v in plosses):
             problems.append(f"(a) pod8 losses {plosses}")
-        if len(warnings) != 1 or not remat or batch != 4:
-            problems.append(f"(a) pod8: FSDP warnings {warnings}, remat "
+        if not through_ddp or not remat or batch != 4:
+            problems.append(f"(a) pod8: through DDP {through_ddp}, remat "
                             f"{remat}, batch {batch}")
         if pod8["unused"] != pod8["expected_unused"]:
             problems.append(f"(a) pod8 parameters without a gradient "
                             f"{pod8['unused']} != {pod8['expected_unused']}")
         median = _median(pod8["ms"][L14_TRAIN_WARMUP_STEPS:])
+        _POD8_DDP.update(losses=plosses, step_ms_median=median,
+                         peak_mem_gb=pod8["peak_mem_gb"], **pod8["bytes"])
         rec["pod8"] = {
             "config": POD8, "batch_size_per_rank": batch, "remat": remat,
-            "fsdp_warnings": warnings, "losses": plosses,
+            "through_ddp": through_ddp, "losses": plosses,
+            **pod8["bytes"],
             "step_ms": pod8["ms"], "step_ms_median": median,
             "clips_per_s": batch * 1e3 / median,
             "peak_mem_gb": pod8["peak_mem_gb"], "launches": pod8["launches"],
@@ -3204,6 +3273,558 @@ def ddp(repo, card):
             "nccl_world1_pod8": launches1["pod8"],
             "gloo_world2_rank0": launches2["rank0"],
             "gloo_world2_rank1": launches2["rank1"]}
+
+
+def _parallel_cfg(repo, path, *opts):
+    from dist_tpu_torch.config import load_config
+
+    return load_config(os.path.join(repo, path),
+                       ["TPU.FUSED_TEMPORAL_NET", "true", *opts],
+                       make_output_dir=False)
+
+
+def _card():
+    """The current card: a spawned rank's is the one it was bound to."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _local_bytes(module, optimizer):
+    """Bytes of the parameters and of the optimizer's moments this rank
+    holds (a ``DTensor``'s local shard)."""
+    def local(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.numel() * t.element_size()
+
+    params = sum(local(p) for p in module.parameters())
+    moments = sum(local(v) for s in optimizer.state.values()
+                  for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+    return {"param_bytes": params, "moment_bytes": moments}
+
+
+def _fsdp_steps(cfg, tokens, batches, seed):
+    """The train steps of ``cfg`` (the pod8 recipe under ``TPU.FSDP``) from
+    weights made from ``seed``, this data shard on its rows of each of
+    ``batches`` (the global batches): the mean losses, host ms a step, the
+    launches, peak GB, the bytes of parameters and moments this rank
+    holds, and the trainable parameters without a gradient at the
+    optimizer's step (none: the unused ladder module gets its zero)."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.parallel import collectives
+    from dist_tpu_torch.parallel.mesh import prepare_model
+    from dist_tpu_torch.tasks.state import (
+        compute_text_features,
+        create_train_state,
+        ema_decay,
+        make_train_step,
+    )
+
+    model = prepare_model(build_model(cfg, _card(), seed=seed))
+    text = compute_text_features(model, tokens)
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    missing = []
+    optimizer.register_step_pre_hook(lambda opt, a, k: missing.extend(
+        p.shape for g in opt.param_groups for p in g["params"]
+        if p.grad is None))
+    rank, world = collectives.data_rank(), collectives.data_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    losses, times = [], []
+    for batch in batches:
+        b = batch["labels"].shape[0] // world
+        rows = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics = step(state, {**rows, "text_features": text})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(collectives.all_reduce_mean(float(metrics["loss"]))[0])
+    out = {"losses": losses, "step_ms": times, "launches": counts(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params_without_gradient": len(missing),
+           "layers": model.module.arch.vision_layers,
+           "ladder": len(model.module.dist.selected_layers),
+           **_local_bytes(model.module, optimizer)}
+    del model, state, optimizer, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_clips(cfg, n, seed):
+    """``n`` seeded uint8 clips on the card at the config's test crop."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, crop = int(cfg.DATA.NUM_INPUT_FRAMES), int(cfg.DATA.TEST_CROP_SIZE)
+    return torch.randint(0, 256, (n, t, crop, crop, 3), generator=gen,
+                         device="cuda", dtype=torch.int32).to(torch.uint8)
+
+
+def _parallel_eval(cfg, seed, naive_qkv=False):
+    """The eval step's scores of ``PARALLEL_EVAL_CLIPS`` seeded clips on
+    this rank's mesh (the model laid out by ``prepare_model``; with
+    ``naive_qkv`` the model axis's control, ``in_proj`` split in
+    contiguous rows), the launches of the eval alone and of the label
+    texts' set-up, and the vision tower's first block as this rank holds
+    it."""
+    import torch
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.parallel.mesh import prepare_model
+    from dist_tpu_torch.tasks.state import compute_text_features, make_eval_step
+
+    model = build_model(cfg, _card(), seed=seed)
+    if naive_qkv:       # the control: in_proj split in contiguous rows
+        from dist_tpu_torch.parallel import tensor
+        from dist_tpu_torch.parallel.mesh import layout
+        tensor.shard_model(model.module, layout(), _naive_qkv=True)
+    else:
+        prepare_model(model)
+    _, tokens = resolve_label_texts(cfg, int(cfg.VIDEO.HEAD.NUM_CLASSES))
+    counts = _zero_counts()
+    text = compute_text_features(model, tokens)
+    torch.cuda.synchronize()
+    set_up = counts()
+    video = _parallel_clips(cfg, PARALLEL_EVAL_CLIPS, seed + 1)
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    preds = make_eval_step(model, cfg)({"video": video,
+                                        "text_features": text})["preds"]
+    scores = preds.float().cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    attn = model.module.visual.transformer.resblocks[0].attn
+    out = {"scores": scores, "ms": ms, "launches": counts(),
+           "set_up_launches": set_up, "heads": attn.num_heads,
+           "in_proj": list(attn.in_proj_weight.shape)}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_train(cfg, seed):
+    """``PARALLEL_TRAIN_STEPS`` train steps of the CLIP fine-tune (its
+    tower trained; ``CLIP_FT``) on this rank's mesh, each data shard on
+    its rows of seeded batches of ``PARALLEL_TRAIN_CLIPS``: the mean
+    losses, host ms a step, the launches (K1 and K1b) and the vision
+    tower's first block as this rank holds it."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.parallel import collectives
+    from dist_tpu_torch.parallel.mesh import prepare_model, wrap_ddp
+    from dist_tpu_torch.tasks.state import (
+        create_train_state,
+        ema_decay,
+        make_train_step,
+    )
+
+    model = prepare_model(build_model(cfg, _card(), seed=seed))
+    optimizer, lr_fn = construct_optimizer(cfg, model.module,
+                                           TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    if torch.distributed.is_initialized():
+        wrap_ddp(model)
+    step = make_train_step(model, cfg, optimizer, lr_fn)
+    batches = _train_batches(cfg, PARALLEL_TRAIN_STEPS, seed + 2,
+                             clips=PARALLEL_TRAIN_CLIPS)
+    rank, world = collectives.data_rank(), collectives.data_size()
+    torch.cuda.synchronize()
+    counts = _zero_counts(bwd=True)
+    losses, times = [], []
+    for batch in batches:
+        b = batch["labels"].shape[0] // world
+        rows = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics = step(state, rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(collectives.all_reduce_mean(float(metrics["loss"]))[0])
+    attn = model.module.visual.transformer.resblocks[0].attn
+    out = {"losses": losses, "step_ms": times, "launches": counts(),
+           "heads": attn.num_heads, "in_proj": list(attn.in_proj_weight.shape)}
+    del model, state, optimizer, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_rank(repo, jobs):
+    """One of the two gloo ranks sharing ``cuda:0``: each job of ``jobs``
+    (name, config path, options, function name, its arguments) on the mesh
+    its config lays out (``parallel/mesh.py::set_layout``; with two ranks
+    every axis is the whole group). The FSDP job reports a collective that
+    gloo refuses on CUDA tensors instead of raising (both ranks make the
+    same call, so both refuse it)."""
+    import torch
+    from dist_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, path, opts, fn, args in jobs:
+        cfg = _parallel_cfg(repo, path, *opts)
+        lay = mesh.set_layout(cfg)
+        rec = {"layout": [lay.data, lay.pipe, lay.model]}
+        try:
+            rec.update(globals()[fn](cfg, *args))
+        except RuntimeError as e:
+            if fn != "_fsdp_steps":
+                raise
+            rec["refused"] = f"{type(e).__name__}: {e}"[:600]
+        out[name] = rec
+    return out
+
+
+def _parallel_fsdp_world1(repo, problems):
+    """(a) The pod8 recipe under ``TPU.FSDP`` on an NCCL group of one rank
+    in this process, against the ddp phase's DDP run of the same steps
+    (``_POD8_DDP``: same weights, batches and launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+    from dist_tpu_torch.parallel.mesh import init_distributed
+
+    cfg = _parallel_cfg(repo, POD8, "TPU.FSDP", "true")
+    seed = int(cfg.RANDOM_SEED)
+    _, tokens = resolve_label_texts(cfg, int(cfg.VIDEO.HEAD.NUM_CLASSES))
+    steps = L14_TRAIN_WARMUP_STEPS + L14_TRAIN_TIMED_STEPS
+    tmp = tempfile.mkdtemp(prefix="fsdp_store_")
+    init_distributed(cfg, PARALLEL_DEVICE, 0, 1,
+                     "file://" + os.path.join(tmp, "s"))
+    try:
+        backend = dist.get_backend()
+        rec = _fsdp_steps(cfg, tokens, _train_batches(cfg, steps, seed),
+                          seed)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    ddp = _POD8_DDP
+    want = {"attention_qkv": rec["layers"] * steps, "attention_qkv_rows": 0,
+            "temporal_net_fwd": 2 * rec["ladder"] * steps,
+            "temporal_net_bwd": rec["ladder"] * steps}
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(rec["losses"], ddp["losses"]))
+    if backend != "nccl" or rec["launches"] != want:
+        problems.append(f"(a) backend {backend}, launches "
+                        f"{rec['launches']} != {want}")
+    if loss_rel > FSDP_LIMITS["loss_rel_diff"] or \
+            rec["params_without_gradient"]:
+        problems.append(f"(a) FSDP against DDP: loss rel {loss_rel}, "
+                        f"{rec['params_without_gradient']} parameters "
+                        "without a gradient")
+    rec.update({"config": POD8, "backend": backend, "world": 1,
+                "expected_launches": want, "ddp_losses": ddp["losses"],
+                "loss_rel_diff": loss_rel, "limits": FSDP_LIMITS,
+                "step_ms_median": _median(rec["step_ms"][
+                    L14_TRAIN_WARMUP_STEPS:]),
+                "ddp_step_ms_median": ddp["step_ms_median"],
+                "ddp_peak_mem_gb": ddp["peak_mem_gb"],
+                "ddp_param_bytes": ddp["param_bytes"],
+                "ddp_moment_bytes": ddp["moment_bytes"]})
+    return rec
+
+
+def _parallel_engine(repo, problems):
+    """(b) The flagship's engine over two replicas on the one card against
+    the one-device engine: one batch-8 request (split 4 + 4)."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = _parallel_cfg(repo, FLAGSHIP)
+    one = InferenceEngine(cfg, batch_size=PARALLEL_EVAL_CLIPS,
+                          device=PARALLEL_DEVICE)
+    clips = _parallel_clips(cfg, PARALLEL_EVAL_CLIPS,
+                            int(cfg.RANDOM_SEED) + 5).cpu().numpy()
+    want = one.predict(clips)
+    t0 = time.perf_counter()
+    one.predict(clips)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    del one
+    torch.cuda.empty_cache()
+    two = InferenceEngine(cfg, batch_size=PARALLEL_EVAL_CLIPS,
+                          devices=PARALLEL_ENGINE_DEVICES)
+    two.predict(clips)          # warm-up
+    counts = _zero_counts()
+    t0 = time.perf_counter()
+    got = two.predict(clips)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    arch = two.model.module.arch
+    ladder = len(two.model.module.dist.selected_layers)
+    replicas = len(two.replicas)
+    del two
+    torch.cuda.empty_cache()
+    diff = float(np.abs(got - want).max())
+    ok = bool((got.argmax(-1) == want.argmax(-1)).all()) and \
+        diff <= HTTP_SCORE_LIMIT
+    expected = {"attention_qkv": arch.vision_layers * replicas,
+                "attention_qkv_rows": 0,
+                "temporal_net_fwd": ladder * replicas,
+                "temporal_net_bwd": 0}
+    if not ok or launches != expected:
+        problems.append(f"(b) engine over {replicas} replicas: score diff "
+                        f"{diff} (limit {HTTP_SCORE_LIMIT}), launches "
+                        f"{launches} != {expected}")
+    return {"devices": PARALLEL_ENGINE_DEVICES, "replicas": replicas,
+            "clips": PARALLEL_EVAL_CLIPS, "max_abs_score_diff": diff,
+            "limit": HTTP_SCORE_LIMIT, "top1_equal": bool(
+                (got.argmax(-1) == want.argmax(-1)).all()),
+            "request_ms": ms, "one_device_request_ms": one_ms,
+            "launches": launches,
+            "expected_launches": expected,
+            "label": "two replicas on one card: the split and the gather, "
+                     "not scaling"}, launches
+
+
+def _parallel_shard_frames(repo, problems):
+    """(c) ``TPU.SHARD_FRAMES``: ``tools/classify.py``'s model path on the
+    flagship, the kept frames over two replicas of the tower on the one
+    card, against the replicated run on the same decoded views."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.tools import classify
+
+    base = _parallel_cfg(repo, FLAGSHIP, *CLASSIFY_OPTS[2:])
+    rng = np.random.default_rng(int(base.RANDOM_SEED) + 17)
+    frames = [rng.integers(0, 256, (int(base.DATA.NUM_INPUT_FRAMES),
+                                    *CLASSIFY_FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(int(base.TEST.NUM_ENSEMBLE_VIEWS))]
+    model, _, text = classify.load_classifier(base, PARALLEL_DEVICE)
+    want = classify.score_video(base, model, text, frames)
+    del model
+    torch.cuda.empty_cache()
+    cfg = _parallel_cfg(repo, FLAGSHIP, *CLASSIFY_OPTS[2:],
+                        "TPU.SHARD_FRAMES", "true")
+    model, _, text = classify.load_classifier(cfg,
+                                              devices=PARALLEL_ENGINE_DEVICES)
+    counts = _zero_counts()
+    got = classify.score_video(cfg, model, text, frames)
+    torch.cuda.synchronize()
+    launches = counts()
+    towers = len(model.module.tower_runner.towers)
+    expected = {"attention_qkv": model.module.arch.vision_layers * towers,
+                "attention_qkv_rows": 0,
+                "temporal_net_fwd": len(model.module.dist.selected_layers),
+                "temporal_net_bwd": 0}
+    del model
+    torch.cuda.empty_cache()
+    clips = int(cfg.TEST.NUM_ENSEMBLE_VIEWS) * int(cfg.TEST.NUM_SPATIAL_CROPS)
+    limit = clips * HTTP_SCORE_LIMIT
+    diff = float(np.abs(got - want).max())
+    top = bool(got.argmax() == want.argmax())
+    if diff > limit or not top or launches != expected:
+        problems.append(f"(c) SHARD_FRAMES: score diff {diff} (limit "
+                        f"{limit}), top-1 equal {top}, launches {launches} "
+                        f"!= {expected}")
+    return {"devices": PARALLEL_ENGINE_DEVICES, "towers": towers,
+            "clips": clips, "max_abs_score_diff": diff, "limit": limit,
+            "top1_equal": top, "launches": launches,
+            "expected_launches": expected}, launches
+
+
+def _parallel_ranks(repo, problems, fsdp_losses):
+    """(d) Two gloo ranks sharing ``cuda:0``, one spawn: the flagship's
+    eval forward and the CLIP fine-tune's train steps under the model
+    axis (tp 2) and the pipe axis (2 stages), and the pod8 recipe under
+    FSDP at world 2; each against one rank in this process."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.parallel import launch
+
+    from dist_tpu_torch.data.base_dataset import resolve_label_texts
+
+    seed = 0
+    ft = [*CLIP_FT_OPTS, "TRAIN.BATCH_SIZE", str(PARALLEL_TRAIN_CLIPS)]
+    tp, pp = ["TPU.MESH.MODEL", "2"], ["TPU.MESH.PIPE", "2"]
+    # FSDP at world 2: the world-1 run's first global batches of 4, 2 a
+    # rank, from the same weights (the ranks take host tensors)
+    pod8 = _parallel_cfg(repo, POD8, "TPU.FSDP", "true")
+    pod8_seed = int(pod8.RANDOM_SEED)
+    _, tokens = resolve_label_texts(pod8, int(pod8.VIDEO.HEAD.NUM_CLASSES))
+    fsdp_batches = [{k: v.cpu() for k, v in b.items()} for b in
+                    _train_batches(pod8, PARALLEL_FSDP_STEPS, pod8_seed)]
+    fsdp = ["TPU.FSDP", "true", "TRAIN.BATCH_SIZE",
+            str(int(pod8.TRAIN.BATCH_SIZE) // PARALLEL_WORLD)]
+    jobs = [("tp_eval", FLAGSHIP, tp, "_parallel_eval", (seed,)),
+            ("tp_eval_naive", FLAGSHIP, tp, "_parallel_eval", (seed, True)),
+            ("pipe_eval", FLAGSHIP, pp, "_parallel_eval", (seed,)),
+            ("tp_train", CLIP_FT, ft + tp, "_parallel_train", (seed,)),
+            ("pipe_train", CLIP_FT, ft + pp, "_parallel_train", (seed,)),
+            ("fsdp", POD8, fsdp, "_fsdp_steps_host",
+             (tokens, fsdp_batches, pod8_seed))]
+    group_cfg = _parallel_cfg(repo, FLAGSHIP, *tp, "DIST_BACKEND", "gloo")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.launch_task(group_cfg, _parallel_rank, (repo, jobs),
+                               device=PARALLEL_DEVICE,
+                               timeout=PARALLEL_SPAWN_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    # one rank, in this process
+    one = {"eval": _parallel_eval(_parallel_cfg(repo, FLAGSHIP), seed),
+           "train": _parallel_train(_parallel_cfg(repo, CLIP_FT, *ft), seed)}
+    rec = {"world": PARALLEL_WORLD, "backend": "gloo",
+           "device": PARALLEL_DEVICE, "spawn_s": spawn_s,
+           "label": "two ranks on one card: correctness, not scaling",
+           "one_rank": {"eval_ms": one["eval"]["ms"],
+                        "eval_launches": one["eval"]["launches"],
+                        "train_losses": one["train"]["losses"],
+                        "train_step_ms": one["train"]["step_ms"],
+                        "train_launches": one["train"]["launches"]}}
+    layers = 12
+    naive = max(float(np.abs(r["tp_eval_naive"]["scores"]
+                             - one["eval"]["scores"]).max()) for r in ranks)
+    rec["tp_naive_control"] = {"max_abs_score_diff": naive}
+    if naive <= PARALLEL_LIMITS["tp"]["max_abs_score_diff"]:
+        problems.append(f"(d) the naive in_proj split passes the limit: "
+                        f"{naive}")
+    for name in ("tp_eval", "pipe_eval"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        limits = PARALLEL_LIMITS[name.split("_")[0]]
+        diff = max(float(np.abs(r["scores"] - one["eval"]["scores"]).max())
+                   for r in (r0, r1))
+        top = all(_top1_agree(r["scores"], one["eval"]["scores"],
+                              2 * limits["max_abs_score_diff"])
+                  for r in (r0, r1))
+        k1 = layers if name == "tp_eval" else layers // 2 * 3
+        want = {"attention_qkv": k1, "attention_qkv_rows": 0,
+                "temporal_net_fwd": 12, "temporal_net_bwd": 0}
+        heads = 6 if name == "tp_eval" else 12
+        bad = [r["launches"] for r in (r0, r1) if r["launches"] != want]
+        if diff > limits["max_abs_score_diff"] or not top or bad \
+                or r0["heads"] != heads:
+            problems.append(f"(d) {name}: score diff {diff}, top-1 equal "
+                            f"{top}, launches {bad} != {want}, heads "
+                            f"{r0['heads']}")
+        rec[name] = {"layout": r0["layout"], "max_abs_score_diff": diff,
+                     "limits": limits, "top1_equal_where_clear": top,
+                     "heads_a_rank": r0["heads"],
+                     "in_proj_a_rank": r0["in_proj"],
+                     "launches": [r0["launches"], r1["launches"]],
+                     "expected_launches": want,
+                     "set_up_launches": r0["set_up_launches"],
+                     "ms": [r0["ms"], r1["ms"]]}
+    for name in ("tp_train", "pipe_train"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        limits = PARALLEL_LIMITS[name.split("_")[0]]
+        first = max(abs(r["losses"][0] - one["train"]["losses"][0])
+                    / abs(one["train"]["losses"][0]) for r in (r0, r1))
+        rel = max(abs(a - b) / abs(b) for r in (r0, r1)
+                  for a, b in zip(r["losses"], one["train"]["losses"]))
+        k1 = layers if name == "tp_train" else layers // 2 * 3
+        want = {"attention_qkv": k1 * PARALLEL_TRAIN_STEPS,
+                "attention_qkv_rows": 0, "temporal_net_fwd": 0,
+                "temporal_net_bwd": 0,
+                "attention_qkv_bwd": k1 * PARALLEL_TRAIN_STEPS}
+        bad = [r["launches"] for r in (r0, r1) if r["launches"] != want]
+        if first > limits["first_loss_rel_diff"] \
+                or rel > limits["loss_rel_diff"] or bad \
+                or r0["losses"] != r1["losses"]:
+            problems.append(f"(d) {name}: loss rel {first}, {rel}, ranks "
+                            f"{r0['losses']} {r1['losses']}, launches {bad}"
+                            f" != {want}")
+        rec[name] = {"layout": r0["layout"], "losses": r0["losses"],
+                     "first_loss_rel_diff": first, "loss_rel_diff": rel,
+                     "limits": limits, "heads_a_rank": r0["heads"],
+                     "in_proj_a_rank": r0["in_proj"],
+                     "launches": [r0["launches"], r1["launches"]],
+                     "expected_launches": want,
+                     "step_ms": [r0["step_ms"], r1["step_ms"]]}
+    r0, r1 = ranks[0]["fsdp"], ranks[1]["fsdp"]
+    rec["fsdp"] = {"layout": r0["layout"], "config": POD8,
+                   "rank_batch": int(pod8.TRAIN.BATCH_SIZE) // PARALLEL_WORLD}
+    if "refused" in r0 or "refused" in r1:
+        rec["fsdp"]["refused"] = [r0.get("refused"), r1.get("refused")]
+        rec["fsdp"]["covered_by"] = "tests/test_torch_port_fsdp.py (gloo, CPU)"
+    else:
+        rec["fsdp"].update({k: r0[k] for k in (
+            "losses", "step_ms", "peak_mem_gb", "param_bytes",
+            "moment_bytes", "launches", "params_without_gradient")})
+        rec["fsdp"]["rank1_param_bytes"] = r1["param_bytes"]
+        rec["fsdp"]["rank1_moment_bytes"] = r1["moment_bytes"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(r0["losses"], fsdp_losses))
+        rec["fsdp"].update(world1_losses=fsdp_losses[:len(r0["losses"])],
+                           loss_rel_diff=rel)
+        if r0["losses"] != r1["losses"] or r0["params_without_gradient"] \
+                or rel > PARALLEL_LIMITS["fsdp"]["loss_rel_diff"]:
+            problems.append(f"(d) fsdp at world 2: losses {r0['losses']} "
+                            f"{r1['losses']}, against world 1 {rel}")
+    launches = {f"{name}_rank{r}": ranks[r][name]["launches"]
+                for name in ("tp_eval", "pipe_eval", "tp_train", "pipe_train")
+                for r in (0, 1)}
+    return rec, launches
+
+
+def _top1_agree(got, want, margin):
+    """Whether ``got``'s top-1 is ``want``'s on every row where ``want``'s
+    top-1 leads its second by more than ``margin`` (random weights leave
+    near ties that a difference within the limit may flip)."""
+    import numpy as np
+
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > margin
+    return bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+
+
+def _fsdp_steps_host(cfg, tokens, batches, seed):
+    """``_fsdp_steps`` of host batches, copied to this rank's card."""
+    return _fsdp_steps(cfg, tokens, [{k: v.cuda() for k, v in b.items()}
+                                     for b in batches], seed)
+
+
+def parallel_kernel_checks():
+    """K1 and K1b at the shapes the model axis gives them (6 of the
+    flagship's 12 heads a rank; the text tower's 4 of 8, causal): the
+    served batch of 8, the fine-tune's train step at batch 4, the text
+    tower's prompts."""
+    import torch
+
+    bf16 = torch.bfloat16
+    att = {"tp_serving": check_attention(
+        "attention tp serving bf16", PARALLEL_EVAL_CLIPS * 8, 197, 6, 64,
+        False, bf16, 60),
+        "tp_text": check_attention("attention tp text bf16", 174, 77, 4, 64,
+                                   True, bf16, 61)}
+    bwd = {"tp_train": check_attention_bwd(
+        "attention_bwd tp train bf16", PARALLEL_TRAIN_CLIPS * 8, 197, 6, 64,
+        False, bf16, 62)}
+    return {"attention_qkv": att, "attention_qkv_bwd": bwd}
+
+
+def parallel(repo, card):
+    """Multi-GPU, the rest (PR 22), on the one card: (a) the pod8 recipe
+    under ``TPU.FSDP`` on an NCCL group of one rank against the ddp
+    phase's DDP steps; (b) the engine over two replicas of the flagship;
+    (c) ``TPU.SHARD_FRAMES`` through classify's model path; (d) two gloo
+    ranks sharing the card: the model and pipe axes (eval and the
+    fine-tune's train steps) and FSDP at world 2. Nothing here is
+    scaling: there is one card. Returns each part's launches and the
+    kernel checks."""
+    t0 = time.perf_counter()
+    problems = []
+    checks = parallel_kernel_checks()
+    fsdp = _parallel_fsdp_world1(repo, problems)
+    engine, engine_launches = _parallel_engine(repo, problems)
+    frames, frames_launches = _parallel_shard_frames(repo, problems)
+    ranks, rank_launches = _parallel_ranks(repo, problems, fsdp["losses"])
+    rec = {"phase": "parallel", "nvidia_smi": card, "fsdp_nccl_world1": fsdp,
+           "engine": engine, "shard_frames": frames, "gloo_world2": ranks,
+           "seconds": time.perf_counter() - t0, "pass": not problems}
+    emit(rec)
+    if problems:
+        raise AssertionError("parallel: " + "; ".join(problems))
+    return {"fsdp_nccl_world1": fsdp["launches"], "engine": engine_launches,
+            "shard_frames": frames_launches, **rank_launches}, checks
 
 
 def _http(port, path, body=None):
@@ -6741,7 +7362,13 @@ def main():
                                  "clip_ft")
         clip_ft_launches, bwd_checks = timed("clip_ft", clip_ft, repo, card)
         export_launches = timed("export", export_phase, repo, card)
+        parallel_launches, parallel_checks = timed("parallel", parallel,
+                                                   repo, card)
         emit({"phase_seconds": seconds})
+
+        def parallel_counts(name):
+            return {part: c.get(name, 0)
+                    for part, c in parallel_launches.items()}
 
         sources = {"attention_qkv": ("dist_tpu_torch/csrc/attention.cu",
                                      "dist_tpu/ops/attention.py:60"),
@@ -6826,6 +7453,15 @@ def main():
             entry["clip_ft_launches"] = {part: c[name] for part, c in
                                          clip_ft_launches.items()}
             entry["export_launches"] = export_launches[name]
+            entry["parallel_launches"] = parallel_counts(name)
+            # the parallel phase's shapes (the model axis's 6 and 4 heads)
+            for where, r in parallel_checks.get(name, {}).items():
+                entry.setdefault("parallel", {})[where] = {
+                    "shape": r["shape"], "heads": r["heads"],
+                    **{k: r[k] for k in keys},
+                    **{k: v for k, v in _attention_entry(
+                        r, "attention_qkv_wr_kernel").items()
+                       if k in att_keys}}
             # the zoo phase's new shapes and their numbers
             entry["zoo"] = {}
             for where, r in zoo_path.get(name, {}).items():
@@ -6867,6 +7503,7 @@ def main():
             "clip_ft_launches": {part: c["attention_qkv_rows"]
                                  for part, c in clip_ft_launches.items()},
             "export_launches": export_launches["attention_qkv_rows"],
+            "parallel_launches": parallel_counts("attention_qkv_rows"),
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),
@@ -6887,6 +7524,7 @@ def main():
                                  for part, c in clip_ft_launches.items()},
             "earlier_phases_launches": earlier_bwd,
             "export_launches": export_launches["attention_qkv_bwd"],
+            "parallel_launches": parallel_counts("attention_qkv_bwd"),
             **{k: train_bwd[k] for k in keys},
             "shape": train_bwd["shape"], "dtype": train_bwd["dtype"],
             "attention_bwd_route": train_bwd["route"],
@@ -6899,7 +7537,9 @@ def main():
                 *keys, "shape", "dtype", "causal", "route", "kernel_err",
                 "control_err", "blocks_per_sm", "smem_bytes_per_block",
                 "ptxas")}
-                for where, r in bwd_checks.items()}})
+                for where, r in {**bwd_checks, **{
+                    f"parallel_{k}": v for k, v in parallel_checks[
+                        "attention_qkv_bwd"].items()}}.items()}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,7 @@ from dist_tpu_torch.config.config import Config
 # the dataset modules register their classes
 from dist_tpu_torch.data import datasets, long_video  # noqa: F401
 from dist_tpu_torch.data.base_dataset import DATASET_REGISTRY
+from dist_tpu_torch.parallel.local import check_shard_frames
 from dist_tpu_torch.parallel.mesh import data_axis_size
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
@@ -96,12 +97,13 @@ def _proc_worker_getitem(index, seed, epoch_rate=None):
 
 
 def process_rank():
-    """(process_index, process_count): torch.distributed's rank and world
-    size when it is initialised, else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(process_index, process_count): this rank's data shard and the
+    data axis (``parallel/mesh.py::Layout``; the ranks of one shard, its
+    model or pipe ranks, read the same batches), else (0, 1)."""
+    from dist_tpu_torch.parallel.mesh import layout
+
+    lay = layout()
+    return lay.data_rank, lay.data
 
 
 class Loader:
@@ -336,7 +338,11 @@ def build_loader(cfg, split, device=None):
     video batches are pinned."""
     device = resolve_device(device)
     process_index, process_count = process_rank()
-    d = data_axis_size(cfg, process_count)
+    dist = torch.distributed
+    # raises where the mesh does not tile the ranks (one outside a group)
+    d = data_axis_size(cfg, dist.get_world_size()
+                       if dist.is_available() and dist.is_initialized()
+                       else 1)
     if d % process_count:
         raise ValueError(
             f"data axis ({d}) must be a multiple of the process count "
@@ -352,6 +358,10 @@ def build_loader(cfg, split, device=None):
         batch_size = int(cfg.TRAIN.BATCH_SIZE)
         shuffle, drop_last, num_folds = False, False, 1
     else:
+        # TPU.SHARD_FRAMES spreads one clip's frames over the local
+        # devices of one process (parallel/local.py): the batch is the
+        # config's, as everywhere in the port, and a group refuses it
+        check_shard_frames(cfg)
         batch_size = int(cfg.TEST.BATCH_SIZE)
         shuffle, drop_last, num_folds = False, False, 1
     collate_fn = None

@@ -17,6 +17,7 @@ from dist_tpu_torch.ops.attention import (
     attention_qkv_plain,
     fused_attention_qkv,
 )
+from dist_tpu_torch.parallel.tensor import copy_to, reduce_from
 
 
 def quick_gelu(x):
@@ -66,6 +67,15 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _row_out(x, linear, group):
+    """A row-split ``linear`` of this rank's slice ``x``: the partial
+    products summed over the model axis in fp32 and the bias added once,
+    then rounded to ``x``'s dtype once, as the unsplit product's epilogue
+    rounds it."""
+    y = F.linear(x, linear.weight.to(x.dtype)).float()
+    return (reduce_from(y, group) + linear.bias.float()).to(x.dtype)
+
+
 class MultiheadAttention(nn.Module):
     """Multi-head attention with the fused qkv projection of torch's
     ``nn.MultiheadAttention`` (``in_proj_weight`` (3D, D), ``out_proj``).
@@ -75,6 +85,8 @@ class MultiheadAttention(nn.Module):
     ``blocks.py:91-96``; above ``MAX_FUSED_LEN`` tokens it runs the plain
     version, as the JAX package runs its reference there. Cross-attention
     (``key_value`` given) is plain math mirroring ``blocks.py:97-128``.
+    Sliced to its heads by ``parallel/tensor.py``, it runs Megatron's
+    tensor-parallel forward over ``tp_group``.
     """
 
     def __init__(self, dim, num_heads, causal=False):
@@ -86,9 +98,21 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = Linear(dim, dim)
+        # the model axis's group once parallel/tensor.py has sliced this
+        # block to its heads: the tensor-parallel forward
+        self.tp_group = None
+
+    def _out(self, out):
+        if self.tp_group is None:
+            return self.out_proj(out)
+        return _row_out(out, self.out_proj, self.tp_group)
 
     def forward(self, query, key_value=None):
         dtype = query.dtype
+        if self.tp_group is not None:
+            query = copy_to(query, self.tp_group)
+            if key_value is not None:
+                key_value = copy_to(key_value, self.tp_group)
         w_in = self.in_proj_weight.to(dtype)
         b_in = self.in_proj_bias.to(dtype)
         if key_value is None:
@@ -97,7 +121,7 @@ class MultiheadAttention(nn.Module):
                 out = attention_qkv_plain(qkv, self.num_heads, self.causal)
             else:
                 out = fused_attention_qkv(qkv, self.num_heads, self.causal)
-            return self.out_proj(out)
+            return self._out(out)
         wq, wk, wv = w_in.chunk(3, dim=0)
         bq, bk, bv = b_in.chunk(3, dim=0)
         q = F.linear(query, wq, bq)
@@ -116,7 +140,7 @@ class MultiheadAttention(nn.Module):
                                          device=q.device).triu(1)
         weights = torch.softmax(logits, dim=-1).to(dtype)
         out = torch.einsum("bhlm,bmhd->blhd", weights, v).reshape(b, l, dim)
-        return self.out_proj(out)
+        return self._out(out)
 
 
 class MLP(nn.Module):
@@ -126,9 +150,13 @@ class MLP(nn.Module):
         super().__init__()
         self.c_fc = Linear(dim, hidden_dim)
         self.c_proj = Linear(hidden_dim, out_dim)
+        self.tp_group = None          # as MultiheadAttention's
 
     def forward(self, x):
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        if self.tp_group is None:
+            return self.c_proj(quick_gelu(self.c_fc(x)))
+        h = quick_gelu(self.c_fc(copy_to(x, self.tp_group)))
+        return _row_out(h, self.c_proj, self.tp_group)
 
 
 class ResidualAttentionBlock(nn.Module):

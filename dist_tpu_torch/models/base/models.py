@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from dist_tpu_torch.models.base.blocks import init_weights
 from dist_tpu_torch.models.base.bn import set_train_mode
 from dist_tpu_torch.models.precision import island_dtype
+from dist_tpu_torch.parallel.fsdp import is_fsdp, reshard, swapped
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.registry import Registry
 
@@ -211,7 +212,8 @@ class VideoModel:
         with the module in train or eval mode (:meth:`set_mode`);
         ``train=True`` gives the head's training output (no softmax).
         ``state_dict`` (e.g. an EMA copy, running stats included) stands
-        in for the module's own weights and buffers in this call. The
+        in for the module's own weights and buffers in this call (under
+        FSDP it is copied into the shards for the call). The
         training forward goes through ``ddp`` where there is one, so that
         its backward all-reduces the gradients."""
         self.set_mode(train)
@@ -219,6 +221,9 @@ class VideoModel:
         if state_dict is None:
             out = (self.ddp if train and self.ddp is not None
                    else self.module)(*args)
+        elif is_fsdp(self.module):
+            with swapped(self.module, state_dict):
+                out = self.module(*args)
         else:
             out = torch.func.functional_call(self.module, state_dict, args)
         if _head_inside(self.module):
@@ -228,6 +233,12 @@ class VideoModel:
         return self.head(out, train=train)
 
     def encode_text(self, tokens):
+        if is_fsdp(self.module):
+            # through the module's call, whose hooks gather the weights;
+            # the root's stay gathered after a forward until resharded
+            feats = self.module(None, tokens=tokens)
+            reshard(self.module)
+            return feats
         return self.module.encode_text(tokens)
 
 
@@ -305,8 +316,17 @@ def build_backbone_on_meta(cfg) -> nn.Module:
 def build_model(cfg, device=None, seed=None) -> VideoModel:
     """Backbone + head, with random weights from ``seed`` (default
     ``cfg.RANDOM_SEED``), in eval mode on ``device`` (default: the CUDA
-    card; raises without one unless ``device="cpu"``)."""
+    card; raises without one unless ``device="cpu"``). ``TPU.MESH.PIPE``
+    above 1 is taken by the CLIP meta-arch alone, as in the JAX
+    package."""
     device = resolve_device(device)
+    meta_arch = cfg.VIDEO.BACKBONE.META_ARCH
+    pipe = int(((cfg.get("TPU") or {}).get("MESH") or {}).get("PIPE", 1) or 1)
+    if pipe > 1 and meta_arch != "ClipVisionTextTransformer":
+        raise ValueError(
+            f"TPU.MESH.PIPE={pipe} is only wired into the CLIP tower "
+            f"(parallel/pipeline.py); {meta_arch} would duplicate all work "
+            "across the pipe axis -- use the data/model axes instead")
     module = build_backbone_on_meta(cfg).to_empty(device="cpu")
     gen = torch.Generator().manual_seed(
         int(cfg.RANDOM_SEED if seed is None else seed))

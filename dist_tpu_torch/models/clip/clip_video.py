@@ -54,7 +54,8 @@ class CLIPDiSTModel(TextTransformer):
     def __init__(self, arch: CLIPArchitecture, dist: Optional[DiSTConfig] = None,
                  num_frames=16, sparse_alpha=1, freeze_visual=True,
                  freeze_text=True, prediction_fusion=False, fusion_weight=0.5,
-                 dtype=torch.float32, fused_temporal=False, remat=False):
+                 dtype=torch.float32, fused_temporal=False, remat=False,
+                 pipe_stages=1, pipe_microbatches=0):
         super().__init__(arch, remat=remat)
         self.dist = dist
         self.num_frames = num_frames
@@ -65,7 +66,11 @@ class CLIPDiSTModel(TextTransformer):
         self.fusion_weight = fusion_weight
         self.dtype = dtype
         self.visual = VisionTransformer(arch, sparse_alpha=sparse_alpha,
-                                        remat=remat)
+                                        remat=remat, pipe_stages=pipe_stages,
+                                        pipe_microbatches=pipe_microbatches)
+        # frame-parallel eval (TPU.SHARD_FRAMES): a callable that stands
+        # in for ``visual`` (parallel/local.py::FrameParallelTower)
+        self.tower_runner = None
         if dist is not None:
             self.dist_net = DiSTNetwork(dist, d_model=arch.vision_width,
                                         output_dim=arch.embed_dim,
@@ -113,10 +118,10 @@ class CLIPDiSTModel(TextTransformer):
                 f"NUM_INPUT_FRAMES ({video.shape[1]}) must be divisible by "
                 f"SPARSE_SAMPLE_ALPHA ({self.sparse_alpha})")
         video = video.to(self.dtype)
+        tower = self.tower_runner or self.visual
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_visual):
-            cls_x, _, taps = self.visual(video,
-                                         collect_taps=self.dist is not None)
+            cls_x, _, taps = tower(video, collect_taps=self.dist is not None)
         if self.dist is None:
             t = self.num_frames // self.sparse_alpha
             return cls_x.reshape(-1, t, cls_x.shape[-1]).mean(dim=1), cls_x
@@ -125,7 +130,11 @@ class CLIPDiSTModel(TextTransformer):
             taps = taps[torch.tensor(sel, device=taps.device)]
         return self.dist_net(video, taps), cls_x
 
-    def forward(self, video, text_features=None):
+    def forward(self, video, text_features=None, tokens=None):
+        """``tokens`` given: :meth:`encode_text` of them (a call through
+        the module, which FSDP's hooks see: ``parallel/fsdp.py``)."""
+        if tokens is not None:
+            return self.encode_text(tokens)
         out = self._features(video, text_features)
         return out if self.head is None else self.head(out)
 
@@ -156,8 +165,10 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
     """The model definition from a Config (and an optional sniffed
     architecture; else the preset ``VIDEO.BACKBONE.META_ARCH_NAME``).
 
-    Of the ``TPU.*`` keys ``FUSED_TEMPORAL_NET`` and ``REMAT`` shape the
-    model; the others (mesh, unroll, pipeline) are not the model's. Under
+    Of the ``TPU.*`` keys ``FUSED_TEMPORAL_NET``, ``REMAT``,
+    ``MESH.PIPE`` and ``PIPE_MICROBATCHES`` (the vision tower's pipeline)
+    shape the model; the others (the data and model axes, unroll) are
+    not the model's. Under
     data parallelism each rank runs the fused kernels on its own batch, so
     ``NUM_GPUS`` and ``NUM_SHARDS`` do not matter here, as in the JAX
     package.
@@ -196,4 +207,6 @@ def clip_dist_from_cfg(cfg, arch: Optional[CLIPArchitecture] = None):
         dtype=torch.bfloat16 if use_bf16 else torch.float32,
         fused_temporal=fused,
         remat=bool(tpu.get("REMAT", False)),
+        pipe_stages=int((tpu.get("MESH") or {}).get("PIPE", 1) or 1),
+        pipe_microbatches=int(tpu.get("PIPE_MICROBATCHES", 0) or 0),
     )

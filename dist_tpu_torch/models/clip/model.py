@@ -91,11 +91,23 @@ class Transformer(nn.Module):
     """A stack of residual attention blocks. With ``remat``, each block
     that runs with a gradient is recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant), which keeps only the
-    blocks' inputs alive for it; under ``no_grad`` it changes nothing."""
+    blocks' inputs alive for it; under ``no_grad`` it changes nothing.
 
-    def __init__(self, width, layers, heads, causal=False, remat=False):
+    ``pipe_stages > 1`` (``TPU.MESH.PIPE``, the vision tower's): the same
+    blocks run through the GPipe schedule of ``parallel/pipeline.py`` over
+    the pipe group that ``parallel/pipeline.py::check_model`` gives the
+    tower as ``pipe``, with ``pipe_microbatches`` microbatches
+    (``TPU.PIPE_MICROBATCHES``, 0: one per stage); without that group it
+    raises, as the JAX package asserts its mesh. The parameters and the
+    checkpoints are the same either way."""
+
+    def __init__(self, width, layers, heads, causal=False, remat=False,
+                 pipe_stages=1, pipe_microbatches=0):
         super().__init__()
         self.remat = remat
+        self.pipe_stages = int(pipe_stages)
+        self.pipe_microbatches = int(pipe_microbatches)
+        self.pipe = None
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal)
             for _ in range(layers))
@@ -109,6 +121,8 @@ class Transformer(nn.Module):
         gradient through the taps reaches each block."""
         taps = None
         remat = self.remat and torch.is_grad_enabled()
+        if self.pipe_stages > 1:
+            return self._pipelined(x, collect_taps, remat)
         for i, block in enumerate(self.resblocks):
             x = (checkpoint(block, x, use_reentrant=False) if remat
                  else block(x))
@@ -117,6 +131,26 @@ class Transformer(nn.Module):
                     taps = x.new_empty((len(self.resblocks),) + x.shape)
                 taps[i] = x
         return x, taps
+
+    def _pipelined(self, x, collect_taps, remat):
+        from dist_tpu_torch.parallel.pipeline import pipeline_stack
+
+        pipe = self.pipe
+        if pipe is None or pipe["stages"] != self.pipe_stages:
+            raise ValueError(
+                f"TPU.MESH.PIPE={self.pipe_stages} needs a process group "
+                f"whose pipe axis is {self.pipe_stages} (python -m "
+                "dist_tpu_torch.run starts one); got "
+                f"{None if pipe is None else pipe['stages']}")
+
+        def run(block, c):
+            return (checkpoint(block, c, use_reentrant=False) if remat
+                    else block(c))
+
+        return pipeline_stack(self.resblocks, x, group=pipe["group"],
+                              stage=pipe["stage"], stages=pipe["stages"],
+                              n_microbatches=self.pipe_microbatches,
+                              collect_taps=collect_taps, run_layer=run)
 
 
 class VisionTransformer(nn.Module):
@@ -132,7 +166,8 @@ class VisionTransformer(nn.Module):
     taps (layers, B*t, L, width) or None).
     """
 
-    def __init__(self, arch, sparse_alpha=1, remat=False):
+    def __init__(self, arch, sparse_alpha=1, remat=False, pipe_stages=1,
+                 pipe_microbatches=0):
         super().__init__()
         w, p = arch.vision_width, arch.vision_patch_size
         self.arch = arch
@@ -143,7 +178,9 @@ class VisionTransformer(nn.Module):
             torch.empty(arch.grid_size ** 2 + 1, w))
         self.ln_pre = LayerNorm(w)
         self.transformer = Transformer(w, arch.vision_layers,
-                                       arch.vision_heads, remat=remat)
+                                       arch.vision_heads, remat=remat,
+                                       pipe_stages=pipe_stages,
+                                       pipe_microbatches=pipe_microbatches)
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, arch.embed_dim))
 
@@ -152,8 +189,10 @@ class VisionTransformer(nn.Module):
         for p in (self.class_embedding, self.positional_embedding, self.proj):
             p.normal_(0.0, std, generator=generator)
 
-    def forward(self, frames, collect_taps=True):
-        if self.sparse_alpha > 1:
+    def forward(self, frames, collect_taps=True, sampled=False):
+        """``sampled``: ``frames`` are the kept frames already (the
+        frame-parallel eval hands each device its share of them)."""
+        if self.sparse_alpha > 1 and not sampled:
             frames = frames[:, ::self.sparse_alpha]
         x = frames.reshape((-1,) + tuple(frames.shape[2:])).permute(0, 3, 1, 2)
         x = self.conv1(x)                              # (B*t, width, g, g)

@@ -139,6 +139,10 @@ class TemporalNet(nn.Module):
         })
         self._packed, self._packed_key = None, None
         self._frozen = False
+        # under FSDP the gathered weights' storage is freed and allocated
+        # again at the same address with the same version, which the
+        # cache's key cannot tell apart (parallel/fsdp.py)
+        self.pack_every_call = False
 
     def _apply(self, fn, *args, **kwargs):
         self._packed, self._packed_key = None, None
@@ -153,6 +157,8 @@ class TemporalNet(nn.Module):
                 c_fc2.weight.permute(2, 3, 4, 1, 0), c_fc2.bias)
 
     def _packed_weights(self, params):
+        if self.pack_every_call:
+            return pack_weights(*params)
         key = tuple((p.data_ptr(), p._version, p.device) for p in params)
         if key != self._packed_key:
             self._packed, self._packed_key = pack_weights(*params), key

@@ -1,2 +1,3 @@
-"""Data parallelism over ``torch.distributed``: the data axis, the host
-collectives and the launcher (port of ``dist_tpu/parallel/``)."""
+"""The mesh over ``torch.distributed`` (data, pipe and model axes, FSDP),
+the host collectives, the launcher and one process over its local
+devices (port of ``dist_tpu/parallel/``)."""

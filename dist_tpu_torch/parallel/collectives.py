@@ -9,6 +9,12 @@ mixes samples (the SSL losses). Each is the identity in a process outside
 any group. Under NCCL the exchanged values
 ride this rank's card, under gloo the CPU. ``local_rows`` has no
 counterpart: each rank holds exactly its own rows.
+
+Results and metrics are exchanged over the data axis
+(``parallel/mesh.py::Layout``): the ranks of one data shard (its model
+or pipe ranks) hold the same rows and the same values, so a gather over
+every rank would count them more than once. :func:`data_rank` and
+:func:`data_size` name this rank's shard and the shards' count.
 """
 
 import numpy as np
@@ -33,6 +39,21 @@ def get_rank():
     return dist.get_rank() if _in_group() else 0
 
 
+def _layout():
+    from dist_tpu_torch.parallel.mesh import layout
+    return layout()
+
+
+def data_rank():
+    """This rank's data shard (0 outside a group)."""
+    return _layout().data_rank
+
+
+def data_size():
+    """The data axis: the count of data shards (1 outside a group)."""
+    return _layout().data
+
+
 def _device():
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
@@ -46,17 +67,18 @@ class _GatherSplice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(get_world_size())]
-        dist.all_gather(parts, x)
+        lay = _layout()
+        parts = [torch.empty_like(x) for _ in range(lay.data)]
+        dist.all_gather(parts, x, group=lay.data_group)
         # this rank's own rows, so that the rows are x itself
-        parts[get_rank()] = x
-        ctx.rows, ctx.rank = x.shape[0], get_rank()
+        parts[lay.data_rank] = x
+        ctx.rows, ctx.rank, ctx.world = x.shape[0], lay.data_rank, lay.data
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         lo = ctx.rank * ctx.rows
-        return grad[lo:lo + ctx.rows] * get_world_size()
+        return grad[lo:lo + ctx.rows] * ctx.world
 
 
 def gather_with_grad(x):
@@ -70,33 +92,36 @@ def gather_with_grad(x):
     the ranks then gives the global loss's gradient, both to the weights
     before the gather (each rank holds its rows' part) and to those after
     it (each rank holds the whole). Outside a group: ``x``."""
-    if get_world_size() == 1:
+    if data_size() == 1:
         return x
     return _GatherSplice.apply(x)
 
 
 def all_gather_arrays(*arrays):
-    """Gather each rank's numpy arrays to every rank, concatenated in rank
-    order along the leading axis (reference ``du.all_gather``,
-    utils/distributed.py:19-38). The ranks' lengths may differ.
-    Outside a group: identity."""
-    if get_world_size() == 1:
+    """Gather each data shard's numpy arrays to every rank, concatenated
+    in data-shard order along the leading axis (reference
+    ``du.all_gather``, utils/distributed.py:19-38). The shards' lengths
+    may differ. With one data shard (and outside a group): identity."""
+    lay = _layout()
+    if lay.data == 1:
         return list(arrays)
-    gathered = [None] * get_world_size()
-    dist.all_gather_object(gathered, [np.asarray(a) for a in arrays])
+    gathered = [None] * lay.data
+    dist.all_gather_object(gathered, [np.asarray(a) for a in arrays],
+                           group=lay.data_group)
     return [np.concatenate([g[i] for g in gathered], axis=0)
             for i in range(len(arrays))]
 
 
 def all_reduce_mean(*scalars):
-    """Mean of host scalars across ranks, in float64 (reference
+    """Mean of host scalars across the data shards, in float64 (reference
     ``du.all_reduce`` with average, utils/distributed.py:41-57)."""
-    if get_world_size() == 1:
+    lay = _layout()
+    if lay.data == 1:
         return [float(s) for s in scalars]
     t = torch.tensor([float(s) for s in scalars], dtype=torch.float64,
                      device=_device())
-    dist.all_reduce(t)
-    return (t / get_world_size()).tolist()
+    dist.all_reduce(t, group=lay.data_group)
+    return (t / lay.data).tolist()
 
 
 def any_flag(flag):

@@ -1,5 +1,12 @@
-"""Inference engine: one config -> one predictor on one GPU (port of
-``dist_tpu/serving/engine.py``).
+"""Inference engine: one config -> one predictor over the local GPUs
+(port of ``dist_tpu/serving/engine.py``).
+
+- **Local devices.** One process holds a replica of the model on each
+  device of a list, every local card by default
+  (``parallel/local.py::Replicas``): a padded bucket that the replicas
+  divide is split over them, each launches its own kernels on its own
+  card, and the scores are gathered in order, as the JAX engine shards a
+  bucket over its data axis when the bucket divides it.
 
 - **Buckets.** A request batch of n clips runs at the smallest bucket of
   1, 2, 4, ..., ``batch_size`` that holds it, padded with zero clips, so
@@ -18,10 +25,11 @@ import numpy as np
 import torch
 
 from dist_tpu_torch.models.base.models import build_model
+from dist_tpu_torch.parallel.local import Replicas, local_devices
+from dist_tpu_torch.parallel.mesh import _mesh_shape_cfg
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     load_pretrained,
-    make_eval_step,
 )
 from dist_tpu_torch.utils.checkpoint import load_test_checkpoint
 from dist_tpu_torch.utils.logging import get_logger
@@ -39,45 +47,68 @@ _DUAL_HEAD = ("the serving engine serves single-label heads; a dual "
               "(SUBMISSION.ENABLE true: tasks/submission.py)")
 
 
+_MESH_AXES = ("the serving engine is one process over the local devices, "
+              "each a replica of the data axis; TPU.MESH.PIPE and MODEL "
+              "split the model over ranks, which python -m "
+              "dist_tpu_torch.run starts (set them to 1 to serve)")
+
+
 class InferenceEngine:
     """Build once, then ``predict(clips) -> scores``.
 
     clips: uint8 ``(n, T, S, S, 3)`` with ``n <= batch_size``,
     ``T = DATA.NUM_INPUT_FRAMES``, ``S = DATA.TEST_CROP_SIZE``. Returns
     per-clip class scores ``(n, num_classes)`` as numpy (softmax with the
-    head's softmax activation). Runs on the CUDA card unless
-    ``device="cpu"`` is passed; without a card and without that, raises.
+    head's softmax activation). Runs on every local CUDA card unless
+    ``device`` names one (``"cpu"`` for the CPU) or ``devices`` lists the
+    replicas' devices (``["cuda:0", "cuda:1"]``, ``["cpu", "cpu"]``);
+    without a card and without those, raises. One process serves the
+    data axis alone: ``TPU.MESH.PIPE`` or ``MODEL`` above 1 raises.
     ``ready`` turns true once :meth:`warmup` or a first request has run
     (the HTTP server's health check reads it).
     """
 
-    def __init__(self, cfg, batch_size=8, device=None):
+    def __init__(self, cfg, batch_size=8, device=None, devices=None):
         if isinstance(cfg.VIDEO.HEAD.NUM_CLASSES, (list, tuple)):
             raise NotImplementedError(_DUAL_HEAD)
+        _, pipe, model = _mesh_shape_cfg(cfg)
+        if pipe > 1 or model > 1:
+            raise ValueError(_MESH_AXES)
         self.cfg = cfg
         self.batch_size = int(batch_size)
         self.num_frames = int(cfg.DATA.NUM_INPUT_FRAMES)
         self.crop = int(cfg.DATA.TEST_CROP_SIZE or 224)
         self.num_classes = int(cfg.VIDEO.HEAD.NUM_CLASSES)
-        self.model = build_model(cfg, device=device)
+        devices = local_devices(device, devices)
+        self.model = build_model(cfg, device=devices[0])
         self.device = self.model.device
         load_pretrained(cfg, self.model)
         load_test_checkpoint(cfg, self.model)
-        self._step = make_eval_step(self.model, cfg)
+        self.replicas = Replicas(self.model, devices)
+        self._step = self.replicas.steps[0]
         self.label_names, self.text_features = self._label_setup()
         self.ready = False
 
+    @property
+    def devices(self):
+        """The replicas' devices, the first the model's."""
+        return self.replicas.devices
+
     def _label_setup(self):
-        """Label names and the text features, computed once."""
+        """Label names and the text features, computed once on the first
+        device (and copied to each replica's: ``_replica_text``)."""
         from dist_tpu_torch.data.base_dataset import resolve_label_texts
 
         names, tokens = resolve_label_texts(self.cfg, self.num_classes)
-        return names, compute_text_features(self.model, tokens)
+        text = compute_text_features(self.model, tokens)
+        self._replica_text = (None if text is None else
+                              [text.to(d) for d in self.replicas.devices])
+        return names, text
 
     def load_state_dict(self, state_dict):
-        """Replace the weights (names and shapes must match exactly) and
-        recompute the label-text features."""
-        self.model.module.load_state_dict(state_dict)
+        """Replace the weights of every replica (names and shapes must
+        match exactly) and recompute the label-text features."""
+        self.replicas.load_state_dict(state_dict)
         self.label_names, self.text_features = self._label_setup()
 
     def buckets(self):
@@ -115,9 +146,12 @@ class InferenceEngine:
         if n < bucket:
             clips = np.concatenate(
                 [clips, np.zeros((bucket - n,) + expect, np.uint8)])
-        video = torch.from_numpy(clips).to(self.device)
-        preds = self._step({"video": video,
-                            "text_features": self.text_features})["preds"]
+        video = torch.from_numpy(clips)
+        if len(self.replicas) == 1:
+            preds = self._step({"video": video.to(self.device),
+                                "text_features": self.text_features})["preds"]
+        else:
+            preds = self.replicas.run(video, self._replica_text)
         out = preds[:n].float().cpu().numpy()
         self.ready = True
         return out

@@ -21,6 +21,7 @@ from dist_tpu_torch.ops import augment_device
 from dist_tpu_torch.optim.losses import calculate_loss
 from dist_tpu_torch.optim.optimizer import set_lr
 from dist_tpu_torch.parallel import collectives
+from dist_tpu_torch.parallel.mesh import finish_gradients
 from dist_tpu_torch.utils.logging import get_logger
 from dist_tpu_torch.utils.metrics import joint_topks_correct, topks_correct
 
@@ -174,23 +175,24 @@ def step_generator(seed, step):
 @contextlib.contextmanager
 def step_rng(device, seed, step):
     """torch's default generators (the CPU's and ``device``'s) seeded
-    from (``seed``, ``step``, the rank) inside the block and restored
-    after it: the model's dropout masks are a function of the step, so
-    that a resumed run draws what an uninterrupted one draws."""
+    from (``seed``, ``step``, the data shard) inside the block and
+    restored after it: the model's dropout masks are a function of the
+    step, so that a resumed run draws what an uninterrupted one draws,
+    and the model or pipe ranks of one data shard draw alike."""
     devices = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices):
-        torch.manual_seed(hash((int(seed), int(step), collectives.get_rank()))
+        torch.manual_seed(hash((int(seed), int(step), collectives.data_rank()))
                           & 0x7FFFFFFFFFFFFFFF)
         yield
 
 
 def augment_draws(c, rows, seed, step):
     """The device augmentation's factors for this rank's ``rows`` rows of
-    step ``step``: drawn for the global batch (every rank's rows) from
-    ``step_generator(seed, step)`` and sliced to this rank's, so that
-    the rows of a group get the factors one process would give the
+    step ``step``: drawn for the global batch (every data shard's rows)
+    from ``step_generator(seed, step)`` and sliced to this shard's, so
+    that the rows of a group get the factors one process would give the
     concatenated batch."""
-    world, rank = collectives.get_world_size(), collectives.get_rank()
+    world, rank = collectives.data_size(), collectives.data_rank()
     draws = augment_device.draw(c, rows * world, step_generator(seed, step))
     return {k: v[rank * rows:(rank + 1) * rows] for k, v in draws.items()}
 
@@ -285,6 +287,7 @@ def make_train_step(model, cfg, optimizer, lr_fn):
                                          cur_epoch=state.step)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        finish_gradients(model)
         for p in params:
             # a parameter that did not reach the loss (the last ladder
             # step's integration2temporal net) has a zero gradient, as in

@@ -4,9 +4,12 @@ Per clip-view forward -> softmax scores; the TestMeter regroups views by
 ``dataset index // num_clips`` and sums (or maxes) them per video. In a
 data-parallel group each rank scores its own shard of the views and the
 ranks gather every rank's scores, labels and ids before the meter, so
-every rank finalizes the same accuracies. Frame-parallel eval
-(``TPU.SHARD_FRAMES``) waits for ROADMAP.md queue A: Multi-GPU, the
-rest.
+every rank finalizes the same accuracies. Under the model or pipe axis
+(``parallel/mesh.py``) each data shard's ranks score its views together
+and the gathers go over the data axis; under ``TPU.FSDP`` the weights are
+sharded over it. Frame-parallel eval (``TPU.SHARD_FRAMES``) is one
+process that spreads each clip's kept frames over its local devices
+(``parallel/local.py``); the batch is not scaled.
 """
 
 import os
@@ -18,6 +21,12 @@ import torch
 from dist_tpu_torch.data.builder import build_loader
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.parallel.collectives import all_gather_arrays, is_master_proc
+from dist_tpu_torch.parallel.local import (
+    check_shard_frames,
+    local_devices,
+    shard_frames,
+)
+from dist_tpu_torch.parallel.mesh import prepare_model
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     load_pretrained,
@@ -31,34 +40,40 @@ from dist_tpu_torch.utils.meters import EpicKitchenMeter, TestMeter
 
 logger = logging.get_logger(__name__)
 
-_SHARD_FRAMES_TODO = ("TPU.SHARD_FRAMES (frame-parallel eval) is not ported "
-                      "yet (ROADMAP.md queue A: Multi-GPU, the rest, 3: "
-                      "TPU.SHARD_FRAMES)")
 _VIS_TODO = ("VISUALIZATION.ENABLE (utils/visualization.py) is not ported yet "
              "(ROADMAP.md queue A: Tools that wait on the card's machine)")
 
 
 def _check_supported(cfg):
-    if cfg.get("TPU") and cfg.TPU.get("SHARD_FRAMES"):
-        raise NotImplementedError(_SHARD_FRAMES_TODO)
+    check_shard_frames(cfg)
     if cfg.VISUALIZATION.ENABLE:
         raise NotImplementedError(_VIS_TODO)
+    return bool(cfg.get("TPU") and cfg.TPU.get("SHARD_FRAMES"))
 
 
-def test(cfg, device=None):
+def test(cfg, device=None, devices=None):
     """Evaluate the configured checkpoint on the test split, every view of
     every video, on ``device`` (default: the CUDA card; raises without one
-    unless ``device="cpu"``). Returns the meter: its ``stats`` hold the
-    final top-k accuracies, ``video_preds`` the ensembled per-video scores
-    and ``timing`` the loop's time."""
+    unless ``device="cpu"``). Under ``TPU.SHARD_FRAMES`` the CLIP tower's
+    frames spread over ``devices`` (default: every local card, or
+    ``[device]``; ``["cpu", "cpu"]`` on the CPU), the first of which is
+    the model's. Returns the meter: its ``stats`` hold the final top-k
+    accuracies, ``video_preds`` the ensembled per-video scores and
+    ``timing`` the loop's time."""
+    shard = _check_supported(cfg)
+    if shard:
+        devices = local_devices(device, devices)
+        device = devices[0]
     device = resolve_device(device)
-    _check_supported(cfg)
     np.random.seed(int(cfg.RANDOM_SEED))
     logging.setup_logging(cfg, cfg.TEST.LOG_FILE)
 
     model = build_model(cfg, device=device)
     load_pretrained(cfg, model)
     load_test_checkpoint(cfg, model)
+    prepare_model(model)
+    if shard:
+        shard_frames(model, devices)
     if cfg.LOG_MODEL_INFO:
         misc.log_model_info(model.module)
     loader = build_loader(cfg, "test", device=device)

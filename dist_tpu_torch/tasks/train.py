@@ -35,7 +35,7 @@ from dist_tpu_torch.data.builder import build_loader, shuffle_dataset
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.optim.optimizer import construct_optimizer
 from dist_tpu_torch.parallel import collectives
-from dist_tpu_torch.parallel.mesh import wrap_ddp
+from dist_tpu_torch.parallel.mesh import prepare_model, wrap_ddp
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     create_train_state,
@@ -104,9 +104,9 @@ def _poll_stop(cfg, boundary_iter):
 
 
 def _global_mean(values, weight):
-    """(the ranks' mean of each of ``values``, each rank weighted by
-    ``weight``; the total weight). One process: as given."""
-    world = collectives.get_world_size()
+    """(the data shards' mean of each of ``values``, each shard weighted
+    by ``weight``; the total weight). One shard: as given."""
+    world = collectives.data_size()
     if world == 1:
         return values, weight
     keys = sorted(values)
@@ -130,6 +130,9 @@ def train(cfg, device=None):
 
     model = build_model(cfg, device=device)
     load_pretrained(cfg, model)
+    # the model axis's slices, the pipe stage or FSDP's shards: before the
+    # optimizer, which must step the tensors the module reads
+    prepare_model(model)
     train_loader = build_loader(cfg, "train", device=device)
     val_loader = build_loader(cfg, "val", device=device)
     try:
@@ -281,7 +284,7 @@ def train_epoch(cfg, state, train_step, loader, meter, cur_epoch,
     def consume(metrics, cur_iter, mb_size):
         values, _ = _global_mean({k: float(v) for k, v in metrics.items()},
                                  1.0)
-        mb_size *= collectives.get_world_size()
+        mb_size *= collectives.data_size()
         misc.check_nan_losses(values["loss"])
         meter.iter_toc()
         meter.update_stats(values["top1_err"], values["top5_err"],

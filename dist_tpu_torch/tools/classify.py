@@ -13,8 +13,9 @@ views (``DATA.SAMPLING_MODE``'s frame indices) of
 ``TEST.NUM_SPATIAL_CROPS`` crops; their scores are summed. Files are
 decoded by the repository's native decoder (``data/native_decoder.py``),
 which needs FFmpeg's libraries. Runs on the CUDA card; ``--device cpu``
-runs on the CPU. Frame-parallel inference (``TPU.SHARD_FRAMES``) is not
-ported yet and raises.
+runs on the CPU. Frame-parallel inference (``TPU.SHARD_FRAMES true``)
+spreads the CLIP tower's frames over every local card, or over
+``--devices`` (``cuda:0,cuda:1``; ``cpu,cpu`` on the CPU).
 """
 
 import argparse
@@ -27,24 +28,30 @@ _DUAL_HEAD = ("classify.py handles single-label heads; for EPIC verb/noun "
               "use runs/run.py with SUBMISSION.ENABLE true")
 
 
-def load_classifier(cfg, device=None):
+def load_classifier(cfg, device=None, devices=None):
     """(the model with the test task's checkpoint loaded, the label names
     or None, the label-text features or None) on ``device`` (default: the
-    CUDA card)."""
+    CUDA card); under ``TPU.SHARD_FRAMES`` its CLIP tower's frames spread
+    over ``devices`` (default every local card, or ``[device]``), the
+    first of which is the model's."""
     from dist_tpu_torch.data.base_dataset import resolve_label_texts
     from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.parallel import local
     from dist_tpu_torch.tasks.state import compute_text_features, load_pretrained
-    from dist_tpu_torch.tasks.test import _SHARD_FRAMES_TODO
     from dist_tpu_torch.utils.checkpoint import load_test_checkpoint
 
     nc = cfg.VIDEO.HEAD.NUM_CLASSES
     if isinstance(nc, (list, tuple)):
         raise ValueError(_DUAL_HEAD)
-    if cfg.get("TPU") and cfg.TPU.get("SHARD_FRAMES"):
-        raise NotImplementedError(_SHARD_FRAMES_TODO)
+    shard = local.check_shard_frames(cfg)
+    if shard:
+        devices = local.local_devices(device, devices)
+        device = devices[0]
     model = build_model(cfg, device=device)
     load_pretrained(cfg, model)
     load_test_checkpoint(cfg, model)
+    if shard:
+        local.shard_frames(model, devices)
     names, tokens = resolve_label_texts(cfg, int(nc))
     return model, names, compute_text_features(model, tokens)
 
@@ -90,13 +97,18 @@ def main(argv=None):
     ap.add_argument("--topk", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the CPU")
+    ap.add_argument("--devices", default=None,
+                    help="TPU.SHARD_FRAMES: the devices the frames spread "
+                         "over, comma-separated (default: every local card)")
     ap.add_argument("opts", nargs="*", default=[])
     args = ap.parse_args(argv)
 
     from dist_tpu_torch.config import load_config
 
     cfg = load_config(args.cfg, list(args.opts), make_output_dir=False)
-    model, label_names, text_features = load_classifier(cfg, args.device)
+    model, label_names, text_features = load_classifier(
+        cfg, args.device,
+        args.devices.split(",") if args.devices else None)
     for path in args.videos:
         scores = score_video(cfg, model, text_features,
                              decode_views(cfg, path))

@@ -24,6 +24,7 @@ through ``models/clip/convert.py::state_dict_from_jax`` and a ``.pyth``
 file.
 """
 
+import functools
 import os
 import pickle
 import re
@@ -31,7 +32,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from dist_tpu_torch.parallel import collectives
+from dist_tpu_torch.parallel import collectives, shards
 from dist_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -136,8 +137,10 @@ def _loader_signature(cfg, dataset_len=-1):
     """What each rank's batch stream is a function of: a mid-epoch
     checkpoint's iter resumes correctly only when these match at restore
     (seed, per-rank batch, process count, folds, dataset length), as the
-    JAX package's signature: one rank is one data shard, so its batch is
-    ``TRAIN.BATCH_SIZE`` and the count the world. ``dataset_len`` is -1
+    JAX package's signature: one rank is one process, so its batch is
+    ``TRAIN.BATCH_SIZE`` and the count the world (under the model or pipe
+    axis a data shard's ranks read the same batches, and a resume at
+    another layout replays the fold-epoch from iter 0). ``dataset_len`` is -1
     where the caller has no loader in hand."""
     return [int(cfg.RANDOM_SEED), int(cfg.TRAIN.BATCH_SIZE),
             collectives.get_world_size(), int(cfg.TRAIN.get("NUM_FOLDS", 1)),
@@ -226,7 +229,10 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
     thread; the next save, or ``wait_until_finished``, joins it.
 
     Every rank of a group calls in; rank 0 writes, then all meet at a
-    barrier, so a synchronous save is committed when any rank returns."""
+    barrier, so a synchronous save is committed when any rank returns.
+    A sharded state (``TPU.FSDP``, the model axis) is gathered to full
+    tensors first, on every rank (``parallel/shards.py``): the file is
+    the replicated run's."""
     async_save = bool(cfg.TRAIN.get("CHECKPOINT_ASYNC", False))
     if iter_in_epoch is None:
         epoch = cur_epoch + int(cfg.TRAIN.get("NUM_FOLDS", 1))
@@ -234,18 +240,30 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
     else:
         epoch = cur_epoch
         path = _ckpt_path(cfg, epoch, iter_in_epoch)
+    module = state.model.module
+    sharded = shards.is_sharded(module)
+    if sharded:
+        # every rank gathers the full tensors (collective); rank 0 writes
+        model_state = shards.full_state_dict(module)
+        optimizer_state = shards.full_optimizer_state(module, state.optimizer)
+        ema = (shards.full_state_dict(module, state.ema)
+               if state.ema is not None else None)
     if not collectives.is_master_proc():
         collectives.synchronize()
         return path
+    if not sharded:
+        model_state = module.state_dict()
+        optimizer_state = state.optimizer.state_dict()
+        ema = state.ema
     make_checkpoint_dir(cfg.OUTPUT_DIR)
     payload = {"epoch": int(epoch), "step": int(state.step),
-               "model_state": state.model.module.state_dict(),
-               "optimizer_state": state.optimizer.state_dict()}
+               "model_state": model_state,
+               "optimizer_state": optimizer_state}
     if iter_in_epoch is not None:
         payload["iter"] = int(iter_in_epoch)
         payload["loader_sig"] = _loader_signature(cfg, dataset_len)
-    if state.ema is not None:
-        payload["ema"] = state.ema
+    if ema is not None:
+        payload["ema"] = ema
     payload = _to_host(payload)
     if async_save:
         # retention before the save is issued: only committed files are
@@ -323,11 +341,17 @@ def load_torch_weights(model, path, cfg=None):
     from dist_tpu_torch.models.clip.convert import load_torch_state_dict
 
     sd = load_torch_state_dict(path)
-    own = model.module.state_dict()
+    module = model.module
+    if shards.is_sharded(module):
+        own = {k: torch.empty(v, device="meta")
+               for k, v in shards.global_shapes(module).items()}
+        load = functools.partial(shards.load_state_dict, module)
+    else:
+        own, load = module.state_dict(), module.load_state_dict
     if cfg is not None:
         sd = preprocess_loaded(cfg, sd, own)
     take, missing, unexpected = match_state_dict(sd, own)
-    model.module.load_state_dict(take, strict=False)
+    load(take, strict=False)
     if missing:
         logger.info("Keys in model not matched: %s", missing[:20])
     if unexpected:
@@ -367,13 +391,20 @@ def load_train_checkpoint(cfg, state, dataset_len=-1):
 def _resume(cfg, state, path, dataset_len):
     """Restore ``state`` from the port checkpoint at ``path``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.module.load_state_dict(blob["model_state"])
-    state.optimizer.load_state_dict(blob["optimizer_state"])
+    module = state.model.module
+    if shards.is_sharded(module):
+        shards.load_state_dict(module, blob["model_state"])
+        shards.load_optimizer_state(module, state.optimizer,
+                                    blob["optimizer_state"])
+    else:
+        module.load_state_dict(blob["model_state"])
+        state.optimizer.load_state_dict(blob["optimizer_state"])
     state.step = int(blob["step"])
     if state.ema is not None:
         if "ema" in blob:
             device = state.model.device
-            state.ema = {k: v.to(device) for k, v in blob["ema"].items()}
+            state.ema = shards.local_state_dict(
+                module, {k: v.to(device) for k, v in blob["ema"].items()})
         else:
             # MODEL.EMA switched on since the save: the EMA restarts from
             # the restored weights, as a fresh EMA does

@@ -138,7 +138,9 @@ def test_scores_and_top_k_match_jax(repo_root, case):
 
 def test_refusals(repo_root, case, monkeypatch):
     """The dual-head refusal with the JAX assert's message, frame-parallel
-    inference and a missing card."""
+    inference inside a group of more than one rank (as the JAX package
+    asserts a single process; in one process it runs:
+    ``test_torch_port_local_devices.py``) and a missing card."""
     dual = ["VIDEO.HEAD.NUM_CLASSES", "[97, 300]"]
     spec = importlib.util.spec_from_file_location(
         "jax_classify", os.path.join(repo_root, "tools", "classify.py"))
@@ -152,8 +154,12 @@ def test_refusals(repo_root, case, monkeypatch):
     with pytest.raises(ValueError) as port_error:
         classify.main([*argv, "--device", "cpu", *dual])
     assert str(port_error.value) == str(jax_error.value)
-    with pytest.raises(NotImplementedError, match="SHARD_FRAMES"):
-        classify.main([*argv, "--device", "cpu", "TPU.SHARD_FRAMES", "true"])
+    with monkeypatch.context() as m:
+        m.setattr(torch.distributed, "is_initialized", lambda: True)
+        m.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+        with pytest.raises(ValueError, match="SHARD_FRAMES"):
+            classify.main([*argv, "--device", "cpu", "TPU.SHARD_FRAMES",
+                           "true"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         classify.main(argv)

@@ -889,6 +889,116 @@ def test_tiny_ddp_step_at_nccl_world_1_equals_plain_step(tmp_path):
             assert torch.equal(grads[k], g), k
 
 
+def test_tiny_fsdp_step_at_nccl_world_1_equals_plain_step(tmp_path):
+    """``TPU.FSDP`` (FSDP2, ``parallel/fsdp.py``) in an NCCL group of one
+    rank against the plain steps from the same weights: two train steps
+    (losses and every trainable gradient, gathered, bit for bit: the
+    gathered weights are the shards' copies and one rank's reduce-scatter
+    divides by one; 2 launches of each of K1, K2 and K3 a step), then an
+    eval, an EMA eval and an eval again (K2's packs under the caching
+    allocator, which hands FSDP2's freed storage back: the scores equal
+    the plain model's bit for bit)."""
+    import os
+
+    import torch.distributed as dist
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.parallel import shards
+    from dist_tpu_torch.parallel.mesh import init_distributed, prepare_model
+    from dist_tpu_torch.tasks.state import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true", "TPU.FSDP", "true",
+         "MODEL.EMA.ENABLE", "true", "MODEL.EMA.DECAY", "0.5"],
+        make_output_dir=False)
+    rng = np.random.default_rng(5)
+    batches = [{"video": torch.from_numpy(rng.integers(
+                    0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)).cuda(),
+                "labels": torch.tensor([3, 7]).cuda(),
+                "text_features": torch.from_numpy(rng.standard_normal(
+                    (12, 32)).astype(np.float32)).cuda()} for _ in range(2)]
+    init_distributed(cfg, "cuda:0", 0, 1, "file://" + str(tmp_path / "store"))
+    try:
+        out = {}
+        for fsdp in (False, True):
+            model = build_model(cfg)
+            if fsdp:
+                prepare_model(model)
+            optimizer, lr_fn = construct_optimizer(cfg, model.module, 4)
+            state = create_train_state(model, optimizer, 0.5)
+            step = make_train_step(model, cfg, optimizer, lr_fn)
+            names = {id(p): k for k, p in model.module.named_parameters()}
+            grads = {}
+            optimizer.register_step_pre_hook(lambda o, a, k: grads.update(
+                (names[id(p)], p.grad) for g in o.param_groups
+                for p in g["params"]))
+            out[fsdp] = []
+            for batch in batches:
+                att.fused_attention_qkv.launches = 0
+                tn.fused_temporal_net.launches = 0
+                tn.fused_temporal_net_bwd.launches = 0
+                loss = step(state, batch)["loss"]
+                torch.cuda.synchronize()
+                assert (att.fused_attention_qkv.launches,
+                        tn.fused_temporal_net.launches,
+                        tn.fused_temporal_net_bwd.launches) == (2, 2, 2)
+                out[fsdp].append((loss, shards.full_state_dict(
+                    model.module, grads) if fsdp else {
+                        k: g.cpu() for k, g in grads.items()}))
+            ev = {k: batches[0][k] for k in ("video", "text_features")}
+            plain, ema = make_eval_step(model, cfg), make_eval_step(
+                model, cfg, use_ema=True)
+            out[fsdp].append([plain(ev)["preds"], ema(ev, state)["preds"],
+                              plain(ev)["preds"]])
+    finally:
+        dist.destroy_process_group()
+    for (loss, grads), (want_loss, want) in zip(out[True][:-1],
+                                                out[False][:-1]):
+        assert torch.equal(loss, want_loss)
+        assert sorted(grads) == sorted(want)
+        for k, g in want.items():
+            assert torch.equal(grads[k], g), k
+    for got, want in zip(out[True][-1], out[False][-1]):
+        assert torch.equal(got, want)
+
+
+def test_tiny_engine_over_two_replicas_on_the_card():
+    """The serving engine over two replicas on ``cuda:0``
+    (``parallel/local.py::Replicas``) against the one-device engine, in
+    fp32: a request of 3 clips (bucket 4, split 2 + 2) within 1e-6, the
+    same top-1, and each replica's K1 and K2 launches (2 layers, 2 ladder
+    steps each)."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.engine import InferenceEngine
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(
+        os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TPU.FUSED_TEMPORAL_NET", "true", "TRAIN.MIXED_PRECISION", "false"],
+        make_output_dir=False)
+    clips = np.random.default_rng(6).integers(0, 256, (3, 4, 64, 64, 3),
+                                              dtype=np.uint8)
+    want = InferenceEngine(cfg, batch_size=4, device="cuda:0").predict(clips)
+    two = InferenceEngine(cfg, batch_size=4, devices=["cuda:0", "cuda:0"])
+    att.fused_attention_qkv.launches = 0
+    tn.fused_temporal_net.launches = 0
+    got = two.predict(clips)
+    assert (att.fused_attention_qkv.launches,
+            tn.fused_temporal_net.launches) == (4, 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert (got.argmax(1) == want.argmax(1)).all()
+
+
 # the tiny geometry of tests/test_model_zoo_harness.py::TINY_OPTS (this
 # file imports no other test module: it runs where the repository's other
 # tests cannot)

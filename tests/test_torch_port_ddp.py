@@ -139,11 +139,12 @@ def world2(repo_root):
             "weights": weights}
 
 
-def _jax_step(jcfg, params, batch):
+def _jax_step(jcfg, params, batch, fsdp=False):
     """The JAX package's jitted train step on its 8-device mesh at
-    per-shard batch 1, with the gradient of the global batch's loss taken
-    in the same jit: the loss, the gradients, the weights after AdamW and
-    the LR of the step."""
+    per-shard batch 1 (or the config's mesh and batch), with the gradient
+    of the global batch's loss taken in the same jit: the loss, the
+    gradients, the weights after AdamW and the LR of the step. ``fsdp``:
+    the state placed as ``TPU.FSDP`` places it."""
     model = jax_build_model(jcfg)
     variables = {"params": params}
     tx, lr_fn = jopt.construct_optimizer(jcfg, variables, 4)
@@ -164,7 +165,7 @@ def _jax_step(jcfg, params, batch):
         return jax.grad(loss)(state.variables, b), train_step(state, b, rng)
 
     with mesh:
-        state = shard_params(mesh, state)
+        state = shard_params(mesh, state, fsdp=fsdp)
         sharded = shard_batch(mesh, {"video": batch["video"],
                                      "labels": batch["labels"]})
         sharded["text_features"] = jnp.asarray(batch["text_features"])

@@ -60,19 +60,43 @@ def test_data_axis_matches_jax(repo_root, path, opts, world):
         assert mesh.data_axis_size(cfg, world) == want == world
 
 
-@pytest.mark.parametrize("opts,item", [
-    (["TPU.MESH.MODEL", "2"], "4: the tensor-parallel model axis"),
-    (["TPU.MESH.PIPE", "2"], "5: parallel/pipeline.py")])
-def test_model_and_pipe_axes_are_refused(repo_root, opts, item):
-    """JAX builds these meshes; the port has no such axis and raises,
-    naming the ROADMAP.md item, where ignoring the key would change the
-    global batch."""
+@pytest.mark.parametrize("opts,world", [
+    (["TPU.MESH.MODEL", "2", "TPU.MESH.PIPE", "2"], 4),
+    (["TPU.MESH.MODEL", "2", "TPU.MESH.DATA", "3"], 4)])
+def test_model_and_pipe_axes_are_refused(repo_root, opts, world):
+    """What JAX's ``build_mesh`` refuses, the port refuses: a pipe axis
+    with a model axis (not composed), and an explicit data axis that
+    does not tile the ranks with the model axis. The axes alone run:
+    ``test_model_and_pipe_axes_match_jax``."""
     cfg, jcfg = _cfgs(repo_root, TINY, opts)
-    assert config_data_axis_size(jcfg, 8) == 4
-    with pytest.raises(NotImplementedError, match=item):
-        mesh.data_axis_size(cfg, 4)
-    with pytest.raises(NotImplementedError, match=item):
-        mesh.requested_world(cfg, "cpu")
+    assert _jax_axis(jcfg, world) is AssertionError
+    with pytest.raises(ValueError, match="TPU.MESH"):
+        mesh.data_axis_size(cfg, world)
+    if "TPU.MESH.PIPE" in opts:     # refused whatever the world
+        with pytest.raises(ValueError, match="TPU.MESH"):
+            mesh.requested_world(cfg, "cpu")
+
+
+@pytest.mark.parametrize("opts", [
+    ["TPU.MESH.MODEL", "2"], ["TPU.MESH.PIPE", "2"],
+    ["TPU.MESH.MODEL", "4"], ["TPU.MESH.PIPE", "2", "TPU.MESH.DATA", "4"]])
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_model_and_pipe_axes_match_jax(repo_root, opts, world):
+    """The model and pipe axes take ranks from the data axis as JAX's mesh
+    takes devices: the port's data axis is JAX's on as many devices, and
+    a world JAX refuses the port refuses. Without ``torchrun`` the launch
+    on the CPU starts one data shard's ranks unless the data axis is
+    explicit."""
+    cfg, jcfg = _cfgs(repo_root, TINY, opts)
+    want = _jax_axis(jcfg, world)
+    if want is AssertionError:
+        with pytest.raises(ValueError, match="TPU.MESH"):
+            mesh.data_axis_size(cfg, world)
+    else:
+        assert mesh.data_axis_size(cfg, world) == want
+    data, pipe, model = mesh._mesh_shape_cfg(cfg)
+    assert mesh.requested_world(cfg, "cpu") == (
+        data if data > 0 else 1) * pipe * model
 
 
 def test_requested_world_and_backend(repo_root, monkeypatch):

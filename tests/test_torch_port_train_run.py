@@ -132,7 +132,19 @@ def _port_list(repo_root, out, ckpt, *opts):
 
 
 @pytest.fixture(scope="module")
-def runs(repo_root, tmp_path_factory):
+def few_threads():
+    """Two intra-op threads for the port's side while the module's
+    fixture runs: the suite runs in several worker processes at once, and
+    every core in each of them would oversubscribe the host many times
+    over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def runs(repo_root, tmp_path_factory, few_threads):
     out = str(tmp_path_factory.mktemp("train_run"))
     cfg_path = os.path.join(repo_root, TINY)
     ckpt = os.path.join(out, "weights.pyth")

@@ -371,8 +371,8 @@
    ticks), the CLIP fine-tune's 2 train steps at batch 4 under each (K1
    and K1b 12 or 18 a step), against one rank in this process
    (``PARALLEL_LIMITS``); and the pod8 recipe under FSDP at world 2 (2 a
-   rank) against (a)'s first steps, or the reason gloo refuses FSDP2's
-   collectives on CUDA tensors. The phase's seconds are printed.
+   rank) against (a)'s first steps. Any error in a rank fails the
+   phase. The phase's seconds are printed.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -3457,9 +3457,7 @@ def _parallel_rank(repo, jobs):
     """One of the two gloo ranks sharing ``cuda:0``: each job of ``jobs``
     (name, config path, options, function name, its arguments) on the mesh
     its config lays out (``parallel/mesh.py::set_layout``; with two ranks
-    every axis is the whole group). The FSDP job reports a collective that
-    gloo refuses on CUDA tensors instead of raising (both ranks make the
-    same call, so both refuse it)."""
+    every axis is the whole group). Any error fails the phase."""
     import torch
     from dist_tpu_torch.parallel import mesh
 
@@ -3470,12 +3468,7 @@ def _parallel_rank(repo, jobs):
         cfg = _parallel_cfg(repo, path, *opts)
         lay = mesh.set_layout(cfg)
         rec = {"layout": [lay.data, lay.pipe, lay.model]}
-        try:
-            rec.update(globals()[fn](cfg, *args))
-        except RuntimeError as e:
-            if fn != "_fsdp_steps":
-                raise
-            rec["refused"] = f"{type(e).__name__}: {e}"[:600]
+        rec.update(globals()[fn](cfg, *args))
         out[name] = rec
     return out
 
@@ -3742,23 +3735,19 @@ def _parallel_ranks(repo, problems, fsdp_losses):
     r0, r1 = ranks[0]["fsdp"], ranks[1]["fsdp"]
     rec["fsdp"] = {"layout": r0["layout"], "config": POD8,
                    "rank_batch": int(pod8.TRAIN.BATCH_SIZE) // PARALLEL_WORLD}
-    if "refused" in r0 or "refused" in r1:
-        rec["fsdp"]["refused"] = [r0.get("refused"), r1.get("refused")]
-        rec["fsdp"]["covered_by"] = "tests/test_torch_port_fsdp.py (gloo, CPU)"
-    else:
-        rec["fsdp"].update({k: r0[k] for k in (
-            "losses", "step_ms", "peak_mem_gb", "param_bytes",
-            "moment_bytes", "launches", "params_without_gradient")})
-        rec["fsdp"]["rank1_param_bytes"] = r1["param_bytes"]
-        rec["fsdp"]["rank1_moment_bytes"] = r1["moment_bytes"]
-        rel = max(abs(a - b) / abs(b)
-                  for a, b in zip(r0["losses"], fsdp_losses))
-        rec["fsdp"].update(world1_losses=fsdp_losses[:len(r0["losses"])],
-                           loss_rel_diff=rel)
-        if r0["losses"] != r1["losses"] or r0["params_without_gradient"] \
-                or rel > PARALLEL_LIMITS["fsdp"]["loss_rel_diff"]:
-            problems.append(f"(d) fsdp at world 2: losses {r0['losses']} "
-                            f"{r1['losses']}, against world 1 {rel}")
+    rec["fsdp"].update({k: r0[k] for k in (
+        "losses", "step_ms", "peak_mem_gb", "param_bytes",
+        "moment_bytes", "launches", "params_without_gradient")})
+    rec["fsdp"]["rank1_param_bytes"] = r1["param_bytes"]
+    rec["fsdp"]["rank1_moment_bytes"] = r1["moment_bytes"]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(r0["losses"], fsdp_losses))
+    rec["fsdp"].update(world1_losses=fsdp_losses[:len(r0["losses"])],
+                       loss_rel_diff=rel)
+    if r0["losses"] != r1["losses"] or r0["params_without_gradient"] \
+            or rel > PARALLEL_LIMITS["fsdp"]["loss_rel_diff"]:
+        problems.append(f"(d) fsdp at world 2: losses {r0['losses']} "
+                        f"{r1['losses']}, against world 1 {rel}")
     launches = {f"{name}_rank{r}": ranks[r][name]["launches"]
                 for name in ("tp_eval", "pipe_eval", "tp_train", "pipe_train")
                 for r in (0, 1)}

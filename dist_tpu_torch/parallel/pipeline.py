@@ -179,13 +179,14 @@ def check_model(model, lay):
 def sync_stage_grads(layers, lay):
     """Each stage's gradients of ``layers`` (the pipelined stack), from
     its own rank, on every rank of the pipe group (one broadcast a
-    stage). Nothing when the stack does not train."""
+    stage). A stage with no trainable parameter (its blocks frozen) sends
+    nothing; the stages after it still do."""
     per = len(layers) // lay.pipe
     for s in range(lay.pipe):
         params = [p for i in range(s * per, (s + 1) * per)
                   for p in layers[i].parameters() if p.requires_grad]
         if not params:
-            return
+            continue
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1)
                           for p in params])

@@ -85,7 +85,6 @@ class InferenceEngine:
         load_pretrained(cfg, self.model)
         load_test_checkpoint(cfg, self.model)
         self.replicas = Replicas(self.model, devices)
-        self._step = self.replicas.steps[0]
         self.label_names, self.text_features = self._label_setup()
         self.ready = False
 
@@ -94,16 +93,24 @@ class InferenceEngine:
         """The replicas' devices, the first the model's."""
         return self.replicas.devices
 
+    @property
+    def text_features(self):
+        """The label-text features on the first device, or None. Setting
+        them copies them to every replica's device."""
+        return self._replica_text[0] if self._replica_text else None
+
+    @text_features.setter
+    def text_features(self, text):
+        self._replica_text = (None if text is None else
+                              [text.to(d) for d in self.replicas.devices])
+
     def _label_setup(self):
         """Label names and the text features, computed once on the first
-        device (and copied to each replica's: ``_replica_text``)."""
+        device."""
         from dist_tpu_torch.data.base_dataset import resolve_label_texts
 
         names, tokens = resolve_label_texts(self.cfg, self.num_classes)
-        text = compute_text_features(self.model, tokens)
-        self._replica_text = (None if text is None else
-                              [text.to(d) for d in self.replicas.devices])
-        return names, text
+        return names, compute_text_features(self.model, tokens)
 
     def load_state_dict(self, state_dict):
         """Replace the weights of every replica (names and shapes must
@@ -146,12 +153,7 @@ class InferenceEngine:
         if n < bucket:
             clips = np.concatenate(
                 [clips, np.zeros((bucket - n,) + expect, np.uint8)])
-        video = torch.from_numpy(clips)
-        if len(self.replicas) == 1:
-            preds = self._step({"video": video.to(self.device),
-                                "text_features": self.text_features})["preds"]
-        else:
-            preds = self.replicas.run(video, self._replica_text)
+        preds = self.replicas.run(torch.from_numpy(clips), self._replica_text)
         out = preds[:n].float().cpu().numpy()
         self.ready = True
         return out

@@ -105,9 +105,9 @@ def main(argv=None):
     def device_step(clips):
         batch = {"video": torch.from_numpy(clips).to(device),
                  "text_features": engine.text_features}
+        step = engine.replicas.steps[0]
         wait()
-        return timed(lambda: engine._step(batch)["preds"].float().cpu(),
-                     args.iters)
+        return timed(lambda: step(batch)["preds"].float().cpu(), args.iters)
 
     dev1 = device_step(clip1)
     dev_full = device_step(clip_full)

@@ -4,7 +4,7 @@ OpenCV (the test may use OpenCV; the port may not), at the tiny geometry
 of ``tiny_synth.yaml`` in fp32 with 2 views of 3 crops, one ``.pyth``
 checkpoint and a ``labels.json``: the same decoded views, per-class
 scores within 1e-4 (float32 sums in another order) and the same printed
-top-k. Skips where the port's native decoder does not build, as
+top-k, replicated and under ``TPU.SHARD_FRAMES``. Skips where the port's native decoder does not build, as
 ``tests/test_torch_port_native_decoder.py`` does."""
 
 import contextlib
@@ -134,6 +134,46 @@ def test_scores_and_top_k_match_jax(repo_root, case):
     for (_, _, a), (_, _, b) in zip(port, jax):
         assert abs(a - b) <= FP32_ATOL + 1e-4
     assert out.getvalue().splitlines()[1] == f"{case['video']}:"
+
+
+def test_scores_under_shard_frames_match_jax(repo_root, case, tmp_path):
+    """``TPU.SHARD_FRAMES`` at 8 frames: the JAX tool, its 6 clips'
+    frames sharded over its data axis of 8, against the port's, the 4
+    kept frames spread over two CPU replicas (``--devices cpu,cpu``):
+    per-class scores within 1e-4 and the same printed top-k. The
+    checkpoint is made at 8 frames (the side network's temporal
+    embeddings have T's shape)."""
+    from dist_tpu_torch.parallel import local
+
+    ckpt = str(tmp_path / "weights8.pyth")
+    opts = [*case["opts"], "DATA.NUM_INPUT_FRAMES", "8",
+            "TEST.CHECKPOINT_FILE_PATH", ckpt]
+    cfg = load_config(case["cfg_path"], opts, make_output_dir=False)
+    torch.save({"model_state": build_model(cfg, device="cpu", seed=4)
+                .module.state_dict()}, ckpt)
+    opts += ["TPU.SHARD_FRAMES", "true"]
+    argv = ["--cfg", case["cfg_path"], "--videos", case["video"],
+            "--topk", "5", *opts]
+    jax_text, (preds,) = _jax_classify(repo_root, argv)
+    assert preds.shape == (6, CLASSES)
+
+    cfg = load_config(case["cfg_path"], opts, make_output_dir=False)
+    model, _, text = classify.load_classifier(cfg, "cpu", ["cpu", "cpu"])
+    assert isinstance(model.module.tower_runner, local.FrameParallelTower)
+    got = classify.score_video(cfg, model, text,
+                               classify.decode_views(cfg, case["video"]))
+    np.testing.assert_allclose(got, preds.sum(axis=0), atol=FP32_ATOL,
+                               rtol=0)
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert classify.main(argv[:4] + ["--device", "cpu", "--devices",
+                                         "cpu,cpu"] + argv[4:]) == 0
+    port, jax = _printed(out.getvalue()), _printed(jax_text)
+    assert len(port) == len(jax) == 5
+    assert [r[:2] for r in port] == [r[:2] for r in jax]
+    for (_, _, a), (_, _, b) in zip(port, jax):
+        assert abs(a - b) <= FP32_ATOL + 1e-4
 
 
 def test_refusals(repo_root, case, monkeypatch):

@@ -9,8 +9,9 @@ launcher.
   the gradients of the weights and the input.
 - The tiny CLIP+DiST model's eval forward with its frozen tower
   pipelined, and two train steps of the unfrozen tower (the CLIP
-  fine-tune's path, its blocks trained through the schedule), against
-  one process at the same global batch.
+  fine-tune's path, its blocks trained through the schedule), also with
+  the first stage's block frozen by name, against one process at the
+  same global batch.
 - What stays refused: pipe on a backbone other than CLIP's, pipe with a
   model axis, and a tower whose layers the stages do not divide."""
 
@@ -122,6 +123,12 @@ def runs(repo_root, tmp_path_factory, few_threads):
     plain_train = load_config(ft, FT_OPTS, make_output_dir=False)
     ft_weights = {k: v.numpy() for k, v in build_model(
         plain_train, device="cpu", seed=0).module.state_dict().items()}
+    # the fine-tune with stage 0's block (and the text tower's first)
+    # frozen by name, stage 1's trained
+    frozen_train = load_config(ft, FT_OPTS + PIPE, make_output_dir=False)
+    plain_frozen = load_config(ft, FT_OPTS, make_output_dir=False)
+    for c in (frozen_train, plain_frozen):
+        c.TRAIN.FIXED_WEIGHTS = ["0"]
     rng = np.random.default_rng(3)
     ft_batch = {"video": rng.integers(0, 256, (8, 4, 64, 64, 3),
                                       dtype=np.uint8),
@@ -130,12 +137,15 @@ def runs(repo_root, tmp_path_factory, few_threads):
     group = launch.launch_task(cfg, R.group_runs, ([
         ("pipeline_toy", (w, b, x, z, CASES)),
         ("eval_scores", (cfg, weights, batch)),
-        ("train_steps", (train_cfg, ft_weights, ft_batch, STEPS))],),
+        ("train_steps", (train_cfg, ft_weights, ft_batch, STEPS)),
+        ("train_steps", (frozen_train, ft_weights, ft_batch, STEPS))],),
         device="cpu", timeout=SPAWN_TIMEOUT_S)
     return {"group": group, "jax_toy": _jax_toy(w, b, x, z),
             "toy": R.pipeline_toy(w, b, x, z, CASES),
             "eval": R.eval_scores(plain, weights, batch),
-            "steps": R.train_steps(plain_train, ft_weights, ft_batch, STEPS)}
+            "steps": R.train_steps(plain_train, ft_weights, ft_batch, STEPS),
+            "frozen_steps": R.train_steps(plain_frozen, ft_weights, ft_batch,
+                                          STEPS)}
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -181,8 +191,24 @@ def test_train_steps_under_pipe_match_one_process(runs):
     """The unfrozen tower trained through the schedule: each step's loss,
     the first step's gradients (the tower's from its own stage, on every
     rank), the weights after; every rank alike."""
-    one = runs["steps"]
-    ranks = [r[2] for r in runs["group"]]
+    _steps_match(runs["steps"], [r[2] for r in runs["group"]])
+
+
+def test_train_steps_with_the_first_stage_frozen(runs):
+    """Stage 0's block frozen by ``TRAIN.FIXED_WEIGHTS``, stage 1's
+    trained: stage 1's gradients still reach the rank of stage 0, and
+    every rank steps the weights of one process."""
+    one = runs["frozen_steps"]
+    assert not any(k.startswith("visual.transformer.resblocks.0.")
+                   for k in one["grads"])
+    assert any(k.startswith("visual.transformer.resblocks.1.")
+               for k in one["grads"])
+    _steps_match(one, [r[3] for r in runs["group"]])
+
+
+def _steps_match(one, ranks):
+    """Each step's loss, the first step's gradients (the tower's from its
+    own stage, on every rank), the weights after; every rank alike."""
     np.testing.assert_allclose(ranks[0]["losses"], one["losses"],
                                rtol=LOSS_REL)
     assert any(k.startswith("visual.transformer.") for k in one["grads"])

@@ -915,6 +915,18 @@ TAL_DURATION_S = 60.0
 # head over the video embedding (the whole vision tower trains, bf16,
 # AdamW, mixup and cutmix, dropout 0.5, as shipped), SSV2's steps an
 # epoch at batch 32 as the flagship's
+# the visualize phase (feature maps, utils/visualization.py): the
+# flagship through tools/visualize_features.py at batch 2 on synthetic
+# clips, TAda2D-R50 8x8 at batch 1, and bench_pipeline's refusal where
+# FFmpeg is absent; the JAX package's names of TAda2D's 261 maps, as the
+# CPU test holds both packages to them
+VIS_FLAGSHIP_BATCH = 2
+VIS_TADA_BATCH = 1
+VIS_TADA_NAMES = "tests/tada2d_8x8_feature_maps.txt"
+VIS_BENCH_VIDEOS = 8
+# the flagship's vision tower blocks: 7,087,872 weights each, 6 of the
+# 12 on the other pipe stage (parallel phase, (d))
+VIT_B16_BLOCK_PARAMS = 7087872
 CLIP_FT = "configs/projects/dist/vit_base_16_ssv2.yaml"
 CLIP_FT_OPTS = ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear"]
 CLIP_FT_WARMUP = 2
@@ -3392,16 +3404,20 @@ def _parallel_eval(cfg, seed, naive_qkv=False):
     torch.cuda.synchronize()
     set_up = counts()
     video = _parallel_clips(cfg, PARALLEL_EVAL_CLIPS, seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     counts = _zero_counts()
     t0 = time.perf_counter()
     preds = make_eval_step(model, cfg)({"video": video,
                                         "text_features": text})["preds"]
     scores = preds.float().cpu().numpy()
     ms = (time.perf_counter() - t0) * 1e3
-    attn = model.module.visual.transformer.resblocks[0].attn
+    attn = _held_blocks(model)[0].attn
     out = {"scores": scores, "ms": ms, "launches": counts(),
            "set_up_launches": set_up, "heads": attn.num_heads,
-           "in_proj": list(attn.in_proj_weight.shape)}
+           "in_proj": list(attn.in_proj_weight.shape),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           **_held(model)}
     del model
     torch.cuda.empty_cache()
     return out
@@ -3435,6 +3451,7 @@ def _parallel_train(cfg, seed):
                              clips=PARALLEL_TRAIN_CLIPS)
     rank, world = collectives.data_rank(), collectives.data_size()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     counts = _zero_counts(bwd=True)
     losses, times = [], []
     for batch in batches:
@@ -3445,11 +3462,40 @@ def _parallel_train(cfg, seed):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(collectives.all_reduce_mean(float(metrics["loss"]))[0])
-    attn = model.module.visual.transformer.resblocks[0].attn
+    attn = _held_blocks(model)[0].attn
     out = {"losses": losses, "step_ms": times, "launches": counts(),
-           "heads": attn.num_heads, "in_proj": list(attn.in_proj_weight.shape)}
+           "heads": attn.num_heads, "in_proj": list(attn.in_proj_weight.shape),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           **_held(model, optimizer)}
     del model, state, optimizer, step
     torch.cuda.empty_cache()
+    return out
+
+
+def _held_blocks(model):
+    """The vision tower's blocks this rank holds (a pipe rank: its
+    stage's)."""
+    return [b for b in model.module.visual.transformer.resblocks
+            if hasattr(b, "attn")]
+
+
+def _held(model, optimizer=None):
+    """What this rank holds: parameter elements and bytes, the vision
+    tower's blocks, and with ``optimizer`` its AdamW moments' elements
+    and bytes and the gradients' bytes."""
+    def size(ts):
+        ts = [t.to_local() if hasattr(t, "to_local") else t for t in ts]
+        return sum(t.numel() for t in ts), sum(
+            t.numel() * t.element_size() for t in ts)
+
+    params = list(model.module.parameters())
+    out = dict(zip(("param_elements", "param_bytes"), size(params)))
+    out["tower_blocks"] = len(_held_blocks(model))
+    if optimizer is not None:
+        moments = [v for st in optimizer.state.values()
+                   for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        out.update(zip(("moment_elements", "moment_bytes"), size(moments)))
+        out["grad_bytes"] = size([p for p in params if p.requires_grad])[1]
     return out
 
 
@@ -3669,6 +3715,9 @@ def _parallel_ranks(repo, problems, fsdp_losses):
            "device": PARALLEL_DEVICE, "spawn_s": spawn_s,
            "label": "two ranks on one card: correctness, not scaling",
            "one_rank": {"eval_ms": one["eval"]["ms"],
+                        "eval_peak_mem_bytes": one["eval"]["peak_mem_bytes"],
+                        "train_peak_mem_bytes":
+                            one["train"]["peak_mem_bytes"],
                         "eval_launches": one["eval"]["launches"],
                         "train_losses": one["train"]["losses"],
                         "train_step_ms": one["train"]["step_ms"],
@@ -3698,6 +3747,9 @@ def _parallel_ranks(repo, problems, fsdp_losses):
             problems.append(f"(d) {name}: score diff {diff}, top-1 equal "
                             f"{top}, launches {bad} != {want}, heads "
                             f"{r0['heads']}")
+        if name == "pipe_eval":
+            rec["pipe_eval_held"] = _pipe_held(
+                (r0, r1), one["eval"], ("param",), problems, name)
         rec[name] = {"layout": r0["layout"], "max_abs_score_diff": diff,
                      "limits": limits, "top1_equal_where_clear": top,
                      "heads_a_rank": r0["heads"],
@@ -3725,6 +3777,9 @@ def _parallel_ranks(repo, problems, fsdp_losses):
             problems.append(f"(d) {name}: loss rel {first}, {rel}, ranks "
                             f"{r0['losses']} {r1['losses']}, launches {bad}"
                             f" != {want}")
+        if name == "pipe_train":
+            rec["pipe_train_held"] = _pipe_held(
+                (r0, r1), one["train"], ("param", "moment"), problems, name)
         rec[name] = {"layout": r0["layout"], "losses": r0["losses"],
                      "first_loss_rel_diff": first, "loss_rel_diff": rel,
                      "limits": limits, "heads_a_rank": r0["heads"],
@@ -3752,6 +3807,38 @@ def _parallel_ranks(repo, problems, fsdp_losses):
                 for name in ("tp_eval", "pipe_eval", "tp_train", "pipe_train")
                 for r in (0, 1)}
     return rec, launches
+
+
+def _pipe_held(ranks, one, kinds, problems, name):
+    """Each pipe rank against the one-rank run: half the tower's blocks
+    (6 of the flagship's 12), ``6 x VIT_B16_BLOCK_PARAMS`` fewer
+    parameters (42,527,232) and, under training,
+    twice that fewer AdamW moments (each of ``kinds`` checked exactly),
+    with the bytes and peak memory beside."""
+    half = one["tower_blocks"] // 2
+    fewer = half * VIT_B16_BLOCK_PARAMS
+    want = {"param": fewer, "moment": 2 * fewer}
+    out = {"one_rank": {k: v for k, v in one.items()
+                        if k.endswith(("_elements", "_bytes"))
+                        or k == "tower_blocks"},
+           "expected_fewer_elements": {k: want[k] for k in kinds}}
+    for r, rec in enumerate(ranks):
+        got = {k: one[f"{k}_elements"] - rec[f"{k}_elements"] for k in kinds}
+        out[f"rank{r}"] = {
+            **{k: v for k, v in rec.items()
+               if k.endswith(("_elements", "_bytes")) or k == "tower_blocks"},
+            "fewer_elements": got,
+            "fewer_bytes": {k: one[f"{k}_bytes"] - rec[f"{k}_bytes"]
+                            for k in kinds},
+            "peak_mem_drop_bytes": one["peak_mem_bytes"]
+            - rec["peak_mem_bytes"]}
+        if got != {k: want[k] for k in kinds} \
+                or rec["tower_blocks"] != half:
+            problems.append(f"(d) {name} rank {r}: holds {got} fewer "
+                            f"elements than one rank (want "
+                            f"{ {k: want[k] for k in kinds} }), "
+                            f"{rec['tower_blocks']} tower blocks")
+    return out
 
 
 def _top1_agree(got, want, margin):
@@ -7139,6 +7226,242 @@ def export_phase(repo, card):
     return rec["flagship"]["launches_per_call"][0]
 
 
+def _files_under(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            out[os.path.relpath(path, root)] = os.path.getsize(path)
+    return out
+
+
+def _vis_flagship(repo, tmp, problems):
+    """(a) The flagship at full width through ``tools/visualize_features``'s
+    ``main`` at batch 2 on synthetic clips: its files and launches; then
+    the captured forward on the same clips (K1 and K2 only) against
+    ``InferenceEngine.predict`` with the same label-text features, bit for
+    bit, and the dump's seconds."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.tasks.state import _prep_video
+    from dist_tpu_torch.tools import visualize_features as vf
+    from dist_tpu_torch.utils.visualization import (
+        _iter_feature_maps,
+        dump_feature_maps,
+    )
+
+    out_dir = os.path.join(tmp, "flagship")
+    opts = ["DATA.SYNTHETIC", "true", "TEST.BATCH_SIZE",
+            str(VIS_FLAGSHIP_BATCH), "TPU.FUSED_TEMPORAL_NET", "true",
+            "OUTPUT_DIR", out_dir]
+    counts = _zero_counts(bwd=True)
+    t0 = time.perf_counter()
+    rc = vf.main(["--cfg", os.path.join(repo, FLAGSHIP), *opts])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    main_launches = counts()
+    files = _files_under(os.path.join(out_dir, "features"))
+    want_files = sorted(f"im_{i}/dist_net.temporal_stem_feature.jpg"
+                        for i in range(VIS_FLAGSHIP_BATCH))
+    cfg = load_config(os.path.join(repo, FLAGSHIP), opts,
+                      make_output_dir=False)
+    model, text = vf.load_model(cfg)
+    video = vf.video_batch(cfg)
+    counts = _zero_counts(bwd=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds, inter = model.forward_with_intermediates(
+        _prep_video(cfg, torch.from_numpy(video).to(model.device)), text)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_launches = counts()
+    shapes = {k: list(a.shape) for k, a in _iter_feature_maps(inter)}
+    cfg.OUTPUT_DIR = os.path.join(tmp, "flagship_again")
+    t0 = time.perf_counter()
+    written = dump_feature_maps(cfg, inter)
+    jpeg_s = time.perf_counter() - t0
+    scores = preds.float().cpu().numpy()
+    del model, inter, preds
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(cfg, batch_size=VIS_FLAGSHIP_BATCH)
+    engine.text_features = text
+    want = engine.predict(video)
+    del engine
+    torch.cuda.empty_cache()
+    equal = bool(np.array_equal(scores, want))
+    layers, ladder = 12, 12
+    want_main = {"attention_qkv": 2 * layers, "attention_qkv_rows": 0,
+                 "temporal_net_fwd": ladder, "temporal_net_bwd": 0,
+                 "attention_qkv_bwd": 0}
+    want_capture = {**want_main, "attention_qkv": layers}
+    want_shapes = {"dist_net.temporal_stem": [VIS_FLAGSHIP_BATCH, 16, 14,
+                                              14, 96]}
+    if rc != 0 or sorted(files) != want_files or written != len(want_files) \
+            or not equal or main_launches != want_main \
+            or capture_launches != want_capture or shapes != want_shapes \
+            or not np.isfinite(scores).all():
+        problems.append(
+            f"(a) flagship: rc {rc}, files {sorted(files)}, written "
+            f"{written}, scores equal to predict {equal}, launches "
+            f"{main_launches} (want {want_main}), capture "
+            f"{capture_launches} (want {want_capture}), maps {shapes}")
+    return {"config": FLAGSHIP, "batch": VIS_FLAGSHIP_BATCH,
+            "files": files, "main_s": main_s, "capture_s": capture_s,
+            "jpeg_s": jpeg_s, "file_bytes": sum(files.values()),
+            "maps": shapes, "scores_equal_predict": equal,
+            "max_abs_score_diff": float(np.abs(scores - want).max()),
+            "main_launches": main_launches,
+            "expected_main_launches": want_main,
+            "capture_launches": capture_launches,
+            "expected_capture_launches": want_capture}, {
+                "flagship_main": main_launches,
+                "flagship_capture": capture_launches}
+
+
+def _vis_tada(repo, tmp, problems):
+    """(b) TAda2D-R50 8x8 at full width, batch 1: the capture (its scores
+    the plain forward's, bit for bit), the dump (the 261 files of the
+    JAX package's names), their seconds and bytes; the largest map
+    rendered and JPEG-coded on the card against the CPU, byte for byte."""
+    import numpy as np
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.utils import jpeg
+    from dist_tpu_torch.utils.visualization import (
+        _iter_feature_maps,
+        dump_feature_maps,
+        feature_map_image,
+    )
+
+    out_dir = os.path.join(tmp, "tada2d")
+    cfg = _conv_cfg(repo, TADA, "DATA.SYNTHETIC", "true", "TEST.BATCH_SIZE",
+                    str(VIS_TADA_BATCH), "OUTPUT_DIR", out_dir)
+    model = build_model(cfg, _card())
+    video = _prep(cfg, _conv_clips(cfg, VIS_TADA_BATCH, 41), _card())
+    counts = _zero_counts(bwd=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds, inter = model.forward_with_intermediates(video)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with torch.no_grad():
+        plain, _ = model.apply({"video": video}, train=False)
+    equal = bool(torch.equal(preds, plain))
+    finite = bool(torch.isfinite(preds).all())
+    maps = list(_iter_feature_maps(inter))
+    pixels = sum(a.numel() for _, a in maps)      # the images' pixels
+    t0 = time.perf_counter()
+    written = dump_feature_maps(cfg, inter)
+    torch.cuda.synchronize()
+    jpeg_s = time.perf_counter() - t0
+    launches = counts()
+    name, big = max(maps, key=lambda m: m[1].numel())
+    big_shape = list(big.shape)
+    img = feature_map_image(big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = jpeg.encode(img)
+    torch.cuda.synchronize()
+    card_encode_ms = (time.perf_counter() - t0) * 1e3
+    on_cpu_img = feature_map_image(big.cpu())
+    t0 = time.perf_counter()
+    on_cpu = jpeg.encode(on_cpu_img)
+    cpu_encode_ms = (time.perf_counter() - t0) * 1e3
+    same_bytes = on_card == on_cpu and torch.equal(img.cpu(), on_cpu_img)
+    del model, inter, preds, plain, maps, big, img
+    torch.cuda.empty_cache()
+    files = _files_under(os.path.join(out_dir, "features"))
+    with open(os.path.join(repo, VIS_TADA_NAMES)) as f:
+        names = f.read().split()
+    want_files = sorted(f"im_0/{n}_feature.jpg" for n in names)
+    zero = {"attention_qkv": 0, "attention_qkv_rows": 0,
+            "temporal_net_fwd": 0, "temporal_net_bwd": 0,
+            "attention_qkv_bwd": 0}
+    if len(names) != 261 or sorted(files) != want_files \
+            or written != 261 or not equal or not finite \
+            or launches != zero or not same_bytes:
+        missing = sorted(set(want_files) - set(files))[:5]
+        extra = sorted(set(files) - set(want_files))[:5]
+        problems.append(
+            f"(b) TAda2D: {written} files (missing {missing}, extra "
+            f"{extra}), scores equal to the plain forward {equal}, finite "
+            f"{finite}, launches {launches}, the largest map's JPEG on the "
+            f"card equal to the CPU's {same_bytes}")
+    return {"config": TADA, "batch": VIS_TADA_BATCH, "files": len(files),
+            "names_file": VIS_TADA_NAMES, "pixels": pixels,
+            "capture_s": capture_s, "jpeg_s": jpeg_s,
+            "file_bytes": sum(files.values()),
+            "scores_equal_plain": equal, "launches": launches,
+            "largest_map": {"name": name, "shape": big_shape,
+                            "card_encode_ms": card_encode_ms,
+                            "cpu_encode_ms": cpu_encode_ms,
+                            "bytes_equal_cpu": same_bytes}}, launches
+
+
+def _vis_bench(repo, tmp, problems):
+    """(c) ``tools/bench_pipeline`` on this machine: where FFmpeg's
+    libraries are absent (the native decoder or mp4 writer does not
+    build), the tool must raise at once with that status; this is a
+    refusal, not a measurement. Where they are present, its two lines at
+    ``VIS_BENCH_VIDEOS`` videos."""
+    from dist_tpu_torch.data import native_decoder, native_encoder
+    from dist_tpu_torch.tools import bench_pipeline
+
+    rec = {"decoder_status": native_decoder.status(),
+           "writer_status": native_encoder.status()}
+    video_dir = os.path.join(tmp, "bench_videos")
+    t0 = time.perf_counter()
+    if "native" == rec["decoder_status"] == rec["writer_status"]:
+        rec["lines"] = bench_pipeline.run(VIS_BENCH_VIDEOS, video_dir)
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
+    try:
+        bench_pipeline.run(VIS_BENCH_VIDEOS, video_dir)
+        message = None
+    except RuntimeError as e:
+        message = str(e)
+    rec.update(refused=message is not None, message=message,
+               seconds=time.perf_counter() - t0,
+               label="FFmpeg absent: the tool's refusal, not a measurement")
+    status = (rec["decoder_status"] if rec["decoder_status"] != "native"
+              else rec["writer_status"])
+    if message is None or status not in message or rec["seconds"] > 60 \
+            or os.path.exists(video_dir):
+        problems.append(f"(c) bench_pipeline without FFmpeg: {message!r} "
+                        f"after {rec['seconds']} s, status {status!r}")
+    return rec
+
+
+def visualize(repo, card):
+    """The last modules: feature-map visualization and the
+    input-pipeline bench, on the card: (a) the flagship through
+    ``tools/visualize_features`` and its capture against
+    ``InferenceEngine.predict``; (b) TAda2D-R50 8x8 at full width, its
+    261 maps; (c) ``tools/bench_pipeline`` (its refusal without FFmpeg).
+    Returns each part's launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="visualize_")
+    try:
+        flagship, flagship_launches = _vis_flagship(repo, tmp, problems)
+        tada2d, tada_launches = _vis_tada(repo, tmp, problems)
+        bench = _vis_bench(repo, tmp, problems)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "visualize", "nvidia_smi": card, "flagship": flagship,
+          "tada2d": tada2d, "bench_pipeline": bench,
+          "seconds": time.perf_counter() - t0, "pass": not problems})
+    if problems:
+        raise AssertionError("visualize: " + "; ".join(problems))
+    return {**flagship_launches, "tada2d": tada_launches}
+
+
 def _instance(mangled):
     """``attention_qkv_wr_kernel<64, 208, false>`` for a mangled whole-row
     kernel name (K1's, K4's and K1b's passes)."""
@@ -7353,7 +7676,12 @@ def main():
         export_launches = timed("export", export_phase, repo, card)
         parallel_launches, parallel_checks = timed("parallel", parallel,
                                                    repo, card)
+        visualize_launches = timed("visualize", visualize, repo, card)
         emit({"phase_seconds": seconds})
+
+        def visualize_counts(name):
+            return {part: c.get(name, 0)
+                    for part, c in visualize_launches.items()}
 
         def parallel_counts(name):
             return {part: c.get(name, 0)
@@ -7443,6 +7771,7 @@ def main():
                                          clip_ft_launches.items()}
             entry["export_launches"] = export_launches[name]
             entry["parallel_launches"] = parallel_counts(name)
+            entry["visualize_launches"] = visualize_counts(name)
             # the parallel phase's shapes (the model axis's 6 and 4 heads)
             for where, r in parallel_checks.get(name, {}).items():
                 entry.setdefault("parallel", {})[where] = {
@@ -7493,6 +7822,7 @@ def main():
                                  for part, c in clip_ft_launches.items()},
             "export_launches": export_launches["attention_qkv_rows"],
             "parallel_launches": parallel_counts("attention_qkv_rows"),
+            "visualize_launches": visualize_counts("attention_qkv_rows"),
             **{k: rows[8][k] for k in keys},
             "shape": rows[8]["shape"], "dtype": rows[8]["dtype"], "nb": 8,
             **_attention_entry(rows[8], "attention_rows_wr_kernel"),
@@ -7514,6 +7844,7 @@ def main():
             "earlier_phases_launches": earlier_bwd,
             "export_launches": export_launches["attention_qkv_bwd"],
             "parallel_launches": parallel_counts("attention_qkv_bwd"),
+            "visualize_launches": visualize_counts("attention_qkv_bwd"),
             **{k: train_bwd[k] for k in keys},
             "shape": train_bwd["shape"], "dtype": train_bwd["dtype"],
             "attention_bwd_route": train_bwd["route"],

@@ -34,35 +34,39 @@ _lib = None
 _error = None
 
 
-def _target():
+def _target(src=SRC):
     h = hashlib.sha1()
-    with open(SRC, "rb") as f:
+    with open(src, "rb") as f:
         h.update(f.read())
     h.update(" ".join(CXX_FLAGS + LIBS).encode())
-    return os.path.join(BUILD_DIR, f"videodec-{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
-def _build():
-    """Compile the library if it is not built yet; returns its path."""
-    if not os.path.exists(SRC):
-        raise RuntimeError(f"{SRC} not found")
-    so = _target()
+def build_shared(src=SRC):
+    """Compile the C++ source ``src`` against FFmpeg's libraries (the
+    decoder's flags) into ``_build/`` if it is not built yet; returns the
+    library's path. Raises RuntimeError, saying why, where it does not
+    build."""
+    if not os.path.exists(src):
+        raise RuntimeError(f"{src} not found")
+    so = _target(src)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cxx = os.environ.get("CXX", "g++")
     try:
-        out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC, *LIBS],
+        out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, src, *LIBS],
                              capture_output=True, text=True,
                              timeout=BUILD_TIMEOUT_S)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"{cxx} could not build {SRC}: {e}") from e
+        raise RuntimeError(f"{cxx} could not build {src}: {e}") from e
     if out.returncode != 0:
         log = (out.stderr or out.stdout).strip()
         first = next((ln for ln in log.splitlines() if "error" in ln),
                      log[-600:])
-        raise RuntimeError(f"{cxx} failed on {SRC}: {first.strip()}")
+        raise RuntimeError(f"{cxx} failed on {src}: {first.strip()}")
     os.replace(tmp, so)
     return so
 
@@ -97,7 +101,7 @@ def get_lib():
     with _lock:
         if _lib is None and _error is None:
             try:
-                _lib = _bind(_build())
+                _lib = _bind(build_shared())
             except (RuntimeError, OSError) as e:
                 _error = str(e)
         if _lib is None:

@@ -23,6 +23,7 @@ from dist_tpu_torch.models.base.models import (
     BACKBONE_REGISTRY,
     BRANCH_REGISTRY,
     STEM_REGISTRY,
+    record_site,
 )
 from dist_tpu_torch.models.precision import island_dtype, maybe_bf16_input
 
@@ -89,6 +90,7 @@ class ConvBNSites(nn.Module):
         super().__init__()
         self.jax_names = {}
         self._relu = {}
+        self._site = {}
 
     def add_conv_bn(self, name, dim_in, features, kernel, stride=(1, 1, 1),
                     relu=True, groups=1, use_bn=True, jax=None):
@@ -97,6 +99,7 @@ class ConvBNSites(nn.Module):
             padding=tuple(k // 2 for k in kernel), groups=groups,
             bias=not use_bn))
         jax = jax or name
+        self._site[name] = jax.replace("/", ".")
         self.jax_names[name] = f"{jax}/conv"
         if use_bn:
             setattr(self, name + "_bn", BatchNorm(features, momentum=0.9))
@@ -108,7 +111,10 @@ class ConvBNSites(nn.Module):
         bn = getattr(self, name + "_bn", None)
         if bn is not None:
             x = bn(x)
-        return F.relu(x) if self._relu[name] else x
+        x = F.relu(x) if self._relu[name] else x
+        # the JAX package's ConvBN module's output
+        record_site(self, self._site[name], x)
+        return x
 
 
 def _r2plus1d_mid(k, din, dout):

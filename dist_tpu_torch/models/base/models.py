@@ -180,6 +180,73 @@ def _head_inside(module):
             or isinstance(getattr(module, "head", None), nn.Module))
 
 
+class _Capture:
+    """The outputs one forward records, under the names the JAX package's
+    ``capture_intermediates`` gives its modules: each module's dotted
+    path from the capture's root, a child renamed by its parent's
+    ``jax_names`` (``models/backbones/convert.py``), the root's output
+    under ``__call__``. A subtree that the JAX package runs under
+    ``nn.scan`` (a parent's ``jax_scanned``) records nothing, as its
+    stacked 6-D outputs are never dumped. 5-D outputs are stored in the
+    JAX layout ``(B, T, H, W, C)``: a module's ``(B, C, T, H, W)`` output
+    is permuted, one whose ``channels_last_output`` is set is copied as
+    it is. Each entry is the tuple of the module's calls' outputs."""
+
+    def __init__(self, root, skip=()):
+        self.records = {}
+        self.paths = {root: "__call__"}
+
+        def walk(mod, path):
+            renames = getattr(mod, "jax_names", {})
+            scanned = getattr(mod, "jax_scanned", ())
+            for name, child in mod.named_children():
+                if name in scanned or (mod is root and name in skip):
+                    continue
+                seg = renames.get(name, name).replace("/", ".")
+                self.paths[child] = f"{path}.{seg}" if path else seg
+                walk(child, self.paths[child])
+
+        walk(root, "")
+
+    def add(self, path, value, channels_last=False):
+        self.records.setdefault(path, []).append(
+            _jax_layout(value, channels_last))
+
+    def hook(self, module, args, out):
+        path = self.paths[module]
+        last = bool(getattr(module, "channels_last_output", False))
+        self.add(path, out, last)
+        for alias in getattr(module, "jax_output_aliases", ()):
+            self.add(f"{path}.{alias}", out, last)
+
+
+def _jax_layout(value, channels_last):
+    """A copy of ``value`` (a tensor, or tuples, lists and dicts of them)
+    with each 5-D tensor in the JAX layout."""
+    if isinstance(value, dict):
+        return {k: _jax_layout(v, channels_last) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return tuple(_jax_layout(v, channels_last) for v in value)
+    if torch.is_tensor(value):
+        if value.dim() == 5 and not channels_last:
+            value = value.permute(0, 2, 3, 4, 1)
+        return value.detach().clone(memory_format=torch.contiguous_format)
+    return value
+
+
+_CAPTURE: Optional[_Capture] = None
+
+
+def record_site(module, name, value):
+    """Record ``value`` as the output of ``module``'s JAX submodule
+    ``name``, a site that is no module of the port (a ConvBN site's
+    output after its ReLU), while :meth:`VideoModel.
+    forward_with_intermediates` runs; otherwise nothing."""
+    if _CAPTURE is not None and module in _CAPTURE.paths:
+        path = _CAPTURE.paths[module]
+        _CAPTURE.add(name if path == "__call__" else f"{path}.{name}", value)
+
+
 @dataclasses.dataclass
 class VideoModel:
     """A built model: the module, the weightless head beside it (None
@@ -231,6 +298,40 @@ class VideoModel:
         if self.head is None:
             return out, out
         return self.head(out, train=train)
+
+    def forward_with_intermediates(self, video, text_features=None):
+        """The eval forward with every submodule's output captured, the
+        counterpart of the JAX package's ``apply_with_intermediates``:
+        returns ``(preds, {name: outputs})``, the same predictions as
+        :meth:`apply` in eval mode. Forward hooks on every module of the
+        backbone (a ``BaseVideoModel``'s ``backbone``, else the module
+        without its ``head``) record its outputs under its JAX name
+        (:class:`_Capture`; a 6-D SSL batch is flattened first, and the
+        head runs after, as in the JAX package); the hooks only read."""
+        global _CAPTURE
+        if video.dim() == 6:
+            video = video.reshape((-1,) + tuple(video.shape[2:]))
+        if isinstance(self.module, BaseVideoModel):
+            capture = _Capture(self.module.backbone)
+        else:
+            capture = _Capture(self.module, skip=("head",))
+            if _head_inside(self.module):
+                # the root's output is the head's here: JAX's is the
+                # backbone's, which holds no 5-D map for a CLIP model
+                del capture.paths[self.module]
+        handles = [m.register_forward_hook(capture.hook)
+                   for m in capture.paths]
+        previous, _CAPTURE = _CAPTURE, capture
+        try:
+            with torch.no_grad():
+                preds, _ = self.apply({"video": video,
+                                       "text_features": text_features},
+                                      train=False)
+        finally:
+            _CAPTURE = previous
+            for h in handles:
+                h.remove()
+        return preds, {k: tuple(v) for k, v in capture.records.items()}
 
     def encode_text(self, tokens):
         if is_fsdp(self.module):

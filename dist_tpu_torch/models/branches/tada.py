@@ -60,6 +60,8 @@ class TAdaConv2d(Conv3d):
     no bias."""
 
     jax_leaf_prefix = "conv/"
+    # the JAX module returns its inner conv's output: captured as both
+    jax_output_aliases = ("conv",)
 
     def __init__(self, c_in, features, kernel, stride=(1, 1)):
         super().__init__(c_in, features, (1,) + tuple(kernel),

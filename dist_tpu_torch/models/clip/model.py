@@ -98,8 +98,13 @@ class Transformer(nn.Module):
     the pipe group that ``parallel/pipeline.py::check_model`` gives the
     tower as ``pipe``, with ``pipe_microbatches`` microbatches
     (``TPU.PIPE_MICROBATCHES``, 0: one per stage); without that group it
-    raises, as the JAX package asserts its mesh. The parameters and the
-    checkpoints are the same either way."""
+    raises, as the JAX package asserts its mesh. There a rank holds only
+    its stage's blocks (the others are ``parallel/pipeline.py::
+    HeldElsewhere``), with or without remat; the checkpoints hold every
+    block either way (``parallel/shards.py``)."""
+
+    # the stacked blocks the JAX package scans over
+    jax_scanned = ("resblocks",)
 
     def __init__(self, width, layers, heads, causal=False, remat=False,
                  pipe_stages=1, pipe_microbatches=0):

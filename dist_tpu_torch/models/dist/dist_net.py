@@ -101,6 +101,8 @@ class TemporalPatchStem(Conv3d):
     """The dense temporal patch stem: a (tp, p, p) conv with stride
     (1, p, p) and temporal padding tp//2, on channels-last video."""
 
+    channels_last_output = True
+
     def __init__(self, channels, t_patch, s_patch):
         super().__init__(3, channels, (t_patch, s_patch, s_patch),
                          stride=(1, s_patch, s_patch),
@@ -320,6 +322,11 @@ class DiSTNetwork(nn.Module):
     ladder's activations live one step at a time; the values and gradients
     are those without it. A fused TemporalNet then launches its forward
     kernel twice a step. Under ``no_grad`` it changes nothing."""
+
+    # the ladder the JAX package runs under nn.scan (its stacked outputs
+    # are never dumped as feature maps)
+    jax_scanned = ("temporal_nets", "integration2temporal_nets",
+                   "temporal2integration_nets", "integration_nets")
 
     def __init__(self, cfg, d_model, output_dim, fused_temporal=False,
                  remat=False):

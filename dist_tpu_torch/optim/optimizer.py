@@ -48,6 +48,9 @@ FROZEN = "frozen"
 BODY = "body_reduced"       # non-head params under TRAIN.LR_REDUCE+FINE_TUNE
 BN = "bn_group"             # bn/norm params (BN.WEIGHT_DECAY, lr_reduce)
 REDUCE_SCALE = 0.1
+# the order of the optimizer's parameter groups (an empty one is left
+# out): a pipe rank's checkpoint puts its groups in this order
+GROUP_ORDER = (TRAINABLE, NO_WD, BODY, BN)
 
 
 
@@ -232,7 +235,7 @@ def construct_optimizer(cfg, module, steps_per_epoch, start_epoch=0):
             members[labels[name]].append(p)
     groups = [{"params": members[k], "weight_decay": group_opts[k][0],
                "lr_mult": lr_mult * group_opts[k][1], "group": k}
-              for k in group_opts if members[k]]
+              for k in GROUP_ORDER if members[k]]
     if method == "lars":
         # the BN group skips the trust ratio (the reference's lars_exclude)
         exclude = bool(cfg.OPTIMIZER.get("BN_LARS_EXCLUDE", False))

@@ -223,7 +223,8 @@ def prepare_model(model):
     """Lay a freshly built ``model`` (a ``VideoModel``, its full weights
     loaded) out on this rank's mesh before its optimizer is made: the
     model axis's tensor-parallel slices (``parallel/tensor.py``), the
-    pipe axis's stage (``parallel/pipeline.py``) or, under ``TPU.FSDP``,
+    pipe axis's stage, this rank's blocks alone (``parallel/pipeline.py``)
+    or, under ``TPU.FSDP``,
     FSDP2's shards over the data axis (``parallel/fsdp.py``). Outside a
     group it changes nothing. Returns ``model``."""
     lay = layout()
@@ -243,7 +244,8 @@ def wrap_ddp(model):
     """Send the train step's forward of ``model`` (a ``VideoModel``)
     through ``DistributedDataParallel`` over the data group, whose
     all-reduce averages the trainable gradients across the data shards in
-    the backward; returns ``model``. A mesh of one data shard's model or
+    the backward (a pipe rank's: its own stage's, with the ranks of that
+    stage); returns ``model``. A mesh of one data shard's model or
     pipe ranks has nothing to average, and the module stays as it is; so
     does one under ``TPU.FSDP``, whose FSDP2 reduces the gradients itself
     (:func:`prepare_model`).
@@ -268,16 +270,11 @@ def wrap_ddp(model):
 
 
 def finish_gradients(model):
-    """After the train step's backward: the pipe stages' gradients, each
-    computed on its own stage's rank, on every rank of the pipe group
-    (``parallel/pipeline.py::sync_stage_grads``); under FSDP the data
-    mean of the gradients FSDP2 does not reduce
-    (``parallel/fsdp.py::reduce_replicated_grads``). Otherwise nothing."""
-    lay = layout()
+    """After the train step's backward: under FSDP the data mean of the
+    gradients FSDP2 does not reduce
+    (``parallel/fsdp.py::reduce_replicated_grads``). Otherwise nothing: a
+    pipe stage's gradients stay on its own rank, where DDP has averaged
+    them over the data group."""
     if getattr(model.module, "fsdp_replicated", None):
         from dist_tpu_torch.parallel import fsdp
-        fsdp.reduce_replicated_grads(model.module, lay)
-    if lay.pipe > 1:
-        from dist_tpu_torch.parallel import pipeline
-        pipeline.sync_stage_grads(
-            model.module.visual.transformer.resblocks, lay)
+        fsdp.reduce_replicated_grads(model.module, layout())

@@ -27,11 +27,14 @@ rank).
   output and the stages' disjoint tap chunks come back whole on every
   rank through one all-reduce each (:func:`replicate_sum`: identity
   backward, since every rank computes the rest of the model alike).
-- **Weights.** Every rank holds the whole model (the same full tensors
-  in the checkpoints); a stage computes only its own layers, and after
-  the backward each stage's gradients are broadcast from its rank to the
-  others of the group (:func:`sync_stage_grads`), so that every rank
-  steps the same weights.
+- **Weights.** Each rank holds only its own stage's blocks, as the JAX
+  package's ``shard_params`` shards the stacked tower on its layer axis
+  over ``pipe``: :func:`check_model` puts a weightless
+  :class:`HeldElsewhere` in the place of every other stage's block, so
+  that the optimizer, DDP and the EMA copy see only this stage's. A
+  stage's gradients live on its own rank; DDP averages them over the
+  data group. The checkpoints still hold every block, gathered from
+  each stage's rank (``parallel/shards.py``).
 
 The schedule is differentiable, so it serves training. Only
 ``ClipVisionTextTransformer`` takes it (``models/base/models.py``), and
@@ -40,6 +43,7 @@ not together with the model axis (``parallel/mesh.py``).
 
 import torch
 import torch.distributed as dist
+import torch.nn as nn
 
 from dist_tpu_torch.parallel.tensor import copy_to
 from dist_tpu_torch.utils.logging import get_logger
@@ -104,8 +108,10 @@ def pipeline_stack(layers, x, *, group, stage, stages, n_microbatches=0,
                    collect_taps=True, run_layer=None):
     """Run ``x`` (``(N, ...)``) through the ``L`` modules of ``layers``,
     pipelined over the ``stages`` ranks of ``group`` (this rank stage
-    ``stage``). ``run_layer(layer, x)`` runs one layer (default: a call;
-    a checkpointing one under remat).
+    ``stage``). Only this stage's layers, ``layers[stage L / S : (stage
+    + 1) L / S]`` by their layer numbers, run here; the others may be
+    :class:`HeldElsewhere`. ``run_layer(layer, x)`` runs one layer
+    (default: a call; a checkpointing one under remat).
 
     Returns ``(y, taps)``: ``y (N, ...)`` and ``taps (L, N, ...)`` (or
     None), both the sequential stack's, on every rank."""
@@ -114,6 +120,7 @@ def pipeline_stack(layers, x, *, group, stage, stages, n_microbatches=0,
     if n_layers % stages:
         raise ValueError(f"{n_layers} layers not divisible by pipe={stages}")
     per = n_layers // stages
+    # by layer number: a tap keeps its layer
     mine = [layers[i] for i in range(stage * per, (stage + 1) * per)]
     n = x.shape[0]
     m = microbatches(n, stages, n_microbatches)
@@ -160,10 +167,30 @@ def pipeline_stack(layers, x, *, group, stage, stages, n_microbatches=0,
     return y, replicate_sum(full, group)
 
 
+class HeldElsewhere(nn.Module):
+    """The place of a block that another pipe stage holds: no weights
+    here, and never run on this rank."""
+
+    def __init__(self, stage):
+        super().__init__()
+        self.stage = stage
+
+    def forward(self, x):
+        raise RuntimeError(f"this block is held by pipe stage {self.stage}")
+
+    def extra_repr(self):
+        return f"stage={self.stage}"
+
+
 def check_model(model, lay):
-    """Give the CLIP tower of ``model`` (a ``VideoModel``) this rank's
-    stage of the pipe group of ``lay``; raises for any other model and for
-    a tower whose layers the stages do not divide."""
+    """Give the CLIP tower of ``model`` (a ``VideoModel``, its full weights
+    loaded) this rank's stage of the pipe group of ``lay`` and drop every
+    other stage's blocks (:class:`HeldElsewhere` in their place, so that
+    each block keeps its layer number); raises for any other model and
+    for a tower whose layers the stages do not divide. Records on the
+    module, as ``pipe_stage``, what ``parallel/shards.py`` needs to write
+    and read the full tensors: the blocks' prefix, the stages' ranks and
+    the full state dict's keys, shapes and parameter order."""
     visual = getattr(model.module, "visual", None)
     tower = getattr(visual, "transformer", None)
     if tower is None or not hasattr(tower, "pipe"):
@@ -174,22 +201,15 @@ def check_model(model, lay):
         raise ValueError(f"{n} layers not divisible by pipe={lay.pipe}")
     tower.pipe = {"group": lay.pipe_group, "stage": lay.pipe_rank,
                   "stages": lay.pipe}
-
-
-def sync_stage_grads(layers, lay):
-    """Each stage's gradients of ``layers`` (the pipelined stack), from
-    its own rank, on every rank of the pipe group (one broadcast a
-    stage). A stage with no trainable parameter (its blocks frozen) sends
-    nothing; the stages after it still do."""
-    per = len(layers) // lay.pipe
-    for s in range(lay.pipe):
-        params = [p for i in range(s * per, (s + 1) * per)
-                  for p in layers[i].parameters() if p.requires_grad]
-        if not params:
-            continue
-        flat = torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).reshape(-1)
-                          for p in params])
-        dist.broadcast(flat, src=lay.pipe_ranks[s], group=lay.pipe_group)
-        for p, g in zip(params, flat.split([p.numel() for p in params])):
-            p.grad = g.view_as(p).clone()
+    module = model.module
+    per = n // lay.pipe
+    module.pipe_stage = {
+        "prefix": "visual.transformer.resblocks.", "per": per,
+        "stage": lay.pipe_rank, "stages": lay.pipe,
+        "group": lay.pipe_group, "ranks": tuple(lay.pipe_ranks),
+        "shapes": {k: (tuple(v.shape), v.dtype)
+                   for k, v in module.state_dict().items()},
+        "names": [k for k, _ in module.named_parameters()]}
+    for i in range(n):
+        if i // per != lay.pipe_rank:
+            tower.resblocks[i] = HeldElsewhere(i // per)

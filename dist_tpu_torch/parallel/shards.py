@@ -1,16 +1,25 @@
 """Full tensors in and out of a sharded module (``TPU.FSDP``'s ``DTensor``
 shards, ``parallel/fsdp.py``; the model axis's slices,
-``parallel/tensor.py``), so that a checkpoint written by any mode is the
-replicated run's file: full tensors, the reference's keys, in the torch
-layout, and the optimizer's state under its own ids. A file written
-under FSDP or tensor parallelism resumes in one process, and the other
-way round.
+``parallel/tensor.py``; the pipe axis's stage, ``parallel/pipeline.py``),
+so that a checkpoint written by any mode is the replicated run's file:
+full tensors, the reference's keys, in the torch layout, and the
+optimizer's state under its own ids. A file written under FSDP, tensor
+parallelism or the pipe axis resumes in one process, and the other way
+round.
+
+Under the pipe axis a rank holds only its stage's tower blocks: each
+stage's blocks, their optimizer state and their EMA copies come from
+that stage's rank (a broadcast over the pipe group), and the optimizer's
+ids are the ones a one-rank run gives the same parameters (its groups in
+``optim/optimizer.py::GROUP_ORDER``, each group's parameters in the full
+module's order). On load a rank keeps its own stage's blocks.
 
 Gathering is collective: every rank of the group calls in, in the same
 order, whatever rank then writes the file.
 """
 
 import torch
+import torch.distributed as dist
 
 
 def _dtensor():
@@ -23,7 +32,79 @@ def is_sharded(module):
     from dist_tpu_torch.parallel.fsdp import is_fsdp
     from dist_tpu_torch.parallel.tensor import tp_info
 
-    return tp_info(module) is not None or is_fsdp(module)
+    return (tp_info(module) is not None or is_fsdp(module)
+            or pipe_info(module) is not None)
+
+
+def pipe_info(module):
+    """The pipe stage ``parallel/pipeline.py::check_model`` recorded on
+    ``module``, or None."""
+    return getattr(module, "pipe_stage", None)
+
+
+def _stage_of(info, key):
+    """The pipe stage whose blocks hold the entry ``key`` (a state-dict
+    key or parameter name), or None for an entry every rank holds."""
+    prefix = info["prefix"]
+    if not key.startswith(prefix):
+        return None
+    return int(key[len(prefix):].split(".", 1)[0]) // info["per"]
+
+
+def _pipe_gather(info, tensors, device, extra=None):
+    """{key: tensor} of every stage's block entries of ``tensors`` (this
+    rank's, keyed by state-dict key or parameter name), each from its
+    stage's rank, on every rank of the pipe group, on ``device`` (the
+    module's); with each stage's ``extra`` (a picklable value) in stage
+    order. Collective."""
+    mine = {k: v for k, v in tensors.items()
+            if _stage_of(info, k) == info["stage"]}
+    meta = [None] * info["stages"]
+    dist.all_gather_object(
+        meta, ([(k, tuple(v.shape), v.dtype) for k, v in mine.items()],
+               extra), group=info["group"])
+    out = {}
+    for s, (entries, _) in enumerate(meta):
+        for k, shape, dtype in entries:
+            t = (mine[k].to(device).contiguous() if s == info["stage"]
+                 else torch.empty(shape, dtype=dtype, device=device))
+            dist.broadcast(t, src=info["ranks"][s], group=info["group"])
+            out[k] = t
+    return out, [e for _, e in meta]
+
+
+def _pipe_full(info, tensors, device):
+    """``tensors`` with every stage's block entries, in the full module's
+    key order."""
+    blocks, _ = _pipe_gather(info, tensors, device)
+    full = {k: v for k, v in tensors.items() if _stage_of(info, k) is None}
+    full.update(blocks)
+    order = {k: i for i, k in enumerate(info["shapes"])}
+    return dict(sorted(full.items(),
+                       key=lambda kv: order.get(kv[0], len(order))))
+
+
+def _pipe_order(info, module, optimizer):
+    """The one-rank run's groups, ``[(label, parameter names)]`` in
+    optimizer-id order, from every stage's groups. Collective."""
+    from dist_tpu_torch.optim.optimizer import GROUP_ORDER
+
+    names = {id(p): k for k, p in module.named_parameters()}
+    own = []
+    for g in optimizer.param_groups:
+        if "group" not in g:
+            raise ValueError("a pipe rank's optimizer needs labelled groups "
+                             "(optim/optimizer.py::construct_optimizer)")
+        own.append((g["group"], [names[id(p)] for p in g["params"]]))
+    every = [None] * info["stages"]
+    dist.all_gather_object(every, own, group=info["group"])
+    members = {}
+    for groups in every:
+        for label, group_names in groups:
+            members.setdefault(label, set()).update(group_names)
+    rank = {k: i for i, k in enumerate(info["names"])}
+    return [(g, sorted(members[g], key=rank.get))
+            for g in GROUP_ORDER if g in members]
 
 
 def _sharded_params(module):
@@ -64,6 +145,9 @@ def global_shapes(module):
     """{name: full shape} of ``module``'s state dict."""
     from dist_tpu_torch.parallel.tensor import full_shape
 
+    info = pipe_info(module)
+    if info is not None:
+        return {k: shape for k, (shape, _) in info["shapes"].items()}
     _sharded_params(module)
     return {k: full_shape(module, k, v.shape)
             for k, v in module.state_dict().items()}
@@ -74,12 +158,21 @@ def full_state_dict(module, tensors=None):
     each entry full, on the CPU."""
     _sharded_params(module)
     tensors = module.state_dict() if tensors is None else tensors
+    info = pipe_info(module)
+    if info is not None:
+        tensors = _pipe_full(info, {k: v.detach() for k, v in tensors.items()},
+                             _device(module))
     return {k: full(module, k, v).detach().cpu() for k, v in tensors.items()}
 
 
 def local_state_dict(module, tensors):
     """The full ``tensors`` (a state dict of ``module``'s keys) laid out
-    as the module's own, on its device."""
+    as the module's own, on its device; under the pipe axis without
+    the blocks of the other stages."""
+    info = pipe_info(module)
+    if info is not None:
+        return {k: v for k, v in tensors.items()
+                if _stage_of(info, k) in (None, info["stage"])}
     _sharded_params(module)
     own = module.state_dict()
     return {k: local(module, k, v, own[k]) if k in own else v
@@ -99,6 +192,9 @@ def _param_names(module, optimizer):
 
 def full_optimizer_state(module, optimizer):
     """``optimizer.state_dict()`` with each moment full, on the CPU."""
+    info = pipe_info(module)
+    if info is not None:
+        return _pipe_optimizer_state(info, module, optimizer)
     _sharded_params(module)
     sd = optimizer.state_dict()
     names = _param_names(module, optimizer)
@@ -115,6 +211,9 @@ def full_optimizer_state(module, optimizer):
 
 def load_optimizer_state(module, optimizer, sd):
     """``optimizer.load_state_dict`` of a state whose moments are full."""
+    info = pipe_info(module)
+    if info is not None:
+        return _load_pipe_optimizer_state(info, module, optimizer, sd)
     _sharded_params(module)
     names = _param_names(module, optimizer)
     params = dict(module.named_parameters())
@@ -128,3 +227,79 @@ def load_optimizer_state(module, optimizer, sd):
                     for k, v in entry.items()}
     optimizer.load_state_dict({"state": state,
                                "param_groups": sd["param_groups"]})
+
+
+def _device(module):
+    return next(module.parameters()).device
+
+
+def _cpu(v):
+    return v.detach().cpu() if torch.is_tensor(v) else v
+
+
+def _pipe_optimizer_state(info, module, optimizer):
+    """The one-rank run's ``optimizer.state_dict()`` from a pipe rank's:
+    every stage's entries, under the one-rank run's ids. Collective."""
+    groups_order = _pipe_order(info, module, optimizer)
+    order = [k for _, group in groups_order for k in group]
+    sd = optimizer.state_dict()
+    names = _param_names(module, optimizer)
+    own = {names[i]: entry for i, entry in sd["state"].items()}
+    # each entry's tensors travel as "<name>\0<field>", the rest beside
+    tensors, plain = {}, {}
+    for name, entry in own.items():
+        for field, v in entry.items():
+            if torch.is_tensor(v):
+                tensors[f"{name}\0{field}"] = v
+            else:
+                plain.setdefault(name, {})[field] = v
+    groups = {g["group"]: {k: v for k, v in g.items() if k != "params"}
+              for g in sd["param_groups"]}
+    mine = {k: v for k, v in plain.items()
+            if _stage_of(info, k) == info["stage"]}
+    blocks, extras = _pipe_gather(info, tensors, _device(module),
+                                  (mine, groups))
+    entries = {}
+    for key, v in {**{k: v for k, v in tensors.items()
+                      if _stage_of(info, k) is None}, **blocks}.items():
+        name, field = key.split("\0")
+        entries.setdefault(name, {})[field] = v
+    every_groups = {}
+    for stage_plain, stage_groups in extras:
+        for name, fields in stage_plain.items():
+            entries.setdefault(name, {}).update(fields)
+        for label, g in stage_groups.items():
+            every_groups.setdefault(label, g)
+    for name, fields in plain.items():
+        if _stage_of(info, name) is None:
+            entries.setdefault(name, {}).update(fields)
+    index = {k: i for i, k in enumerate(order)}
+    state = {index[name]: {k: _cpu(v) for k, v in fields.items()}
+             for name, fields in sorted(entries.items(),
+                                        key=lambda kv: index[kv[0]])}
+    param_groups, start = [], 0
+    for label, group in groups_order:
+        param_groups.append({**every_groups[label],
+                             "params": list(range(start, start + len(group)))})
+        start += len(group)
+    return {"state": state, "param_groups": param_groups}
+
+
+def _load_pipe_optimizer_state(info, module, optimizer, sd):
+    """``optimizer.load_state_dict`` of the one-rank run's state on a pipe
+    rank: this rank's entries under its own ids. Collective."""
+    order = [k for _, group in _pipe_order(info, module, optimizer)
+             for k in group]
+    names = _param_names(module, optimizer)
+    local = {k: i for i, k in enumerate(names)}
+    state = {local[order[int(i)]]: entry for i, entry in sd["state"].items()
+             if order[int(i)] in local}
+    saved = {g["group"]: g for g in sd["param_groups"]}
+    param_groups, start = [], 0
+    for g in optimizer.param_groups:
+        n = len(g["params"])
+        param_groups.append({**{k: v for k, v in saved[g["group"]].items()
+                                if k != "params"},
+                             "params": list(range(start, start + n))})
+        start += n
+    optimizer.load_state_dict({"state": state, "param_groups": param_groups})

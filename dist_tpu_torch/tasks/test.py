@@ -37,18 +37,34 @@ from dist_tpu_torch.utils import logging, misc
 from dist_tpu_torch.utils.checkpoint import load_test_checkpoint
 from dist_tpu_torch.utils.device import resolve_device
 from dist_tpu_torch.utils.meters import EpicKitchenMeter, TestMeter
+from dist_tpu_torch.utils.visualization import (
+    maybe_dump_first_batch,
+    visualization_enabled,
+)
 
 logger = logging.get_logger(__name__)
 
-_VIS_TODO = ("VISUALIZATION.ENABLE (utils/visualization.py) is not ported yet "
-             "(ROADMAP.md queue A: Tools that wait on the card's machine)")
-
-
 def _check_supported(cfg):
     check_shard_frames(cfg)
-    if cfg.VISUALIZATION.ENABLE:
-        raise NotImplementedError(_VIS_TODO)
     return bool(cfg.get("TPU") and cfg.TPU.get("SHARD_FRAMES"))
+
+
+def _dump_first_batch(cfg, model, loader):
+    """Under ``VISUALIZATION.FEATURE_MAPS`` the feature maps of the
+    loader's first batch (``utils/visualization.py``), as the JAX test
+    task dumps them before its loop."""
+    if not visualization_enabled(cfg):
+        return
+    text_features = compute_text_features(
+        model, getattr(loader.dataset, "text_tokens", None))
+    it = iter(loader)
+    try:
+        first = next(it)
+    finally:
+        it.close()
+    if maybe_dump_first_batch(cfg, model, {"video": first["video"],
+                                           "text_features": text_features}):
+        logger.info("VISUALIZATION.FEATURE_MAPS written for batch 0")
 
 
 def test(cfg, device=None, devices=None):
@@ -71,13 +87,16 @@ def test(cfg, device=None, devices=None):
     model = build_model(cfg, device=device)
     load_pretrained(cfg, model)
     load_test_checkpoint(cfg, model)
-    prepare_model(model)
-    if shard:
-        shard_frames(model, devices)
-    if cfg.LOG_MODEL_INFO:
-        misc.log_model_info(model.module)
     loader = build_loader(cfg, "test", device=device)
     try:
+        # the dump runs on the master rank alone, on the whole model: before
+        # the mesh lays it out, as in the JAX package
+        _dump_first_batch(cfg, model, loader)
+        prepare_model(model)
+        if shard:
+            shard_frames(model, devices)
+        if cfg.LOG_MODEL_INFO:
+            misc.log_model_info(model.module)
         dataset = loader.dataset
         num_views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
         if len(dataset) % num_views:

@@ -230,9 +230,9 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
 
     Every rank of a group calls in; rank 0 writes, then all meet at a
     barrier, so a synchronous save is committed when any rank returns.
-    A sharded state (``TPU.FSDP``, the model axis) is gathered to full
-    tensors first, on every rank (``parallel/shards.py``): the file is
-    the replicated run's."""
+    A sharded state (``TPU.FSDP``, the model axis, a pipe stage's blocks)
+    is gathered to full tensors first, on every rank
+    (``parallel/shards.py``): the file is the replicated run's."""
     async_save = bool(cfg.TRAIN.get("CHECKPOINT_ASYNC", False))
     if iter_in_epoch is None:
         epoch = cur_epoch + int(cfg.TRAIN.get("NUM_FOLDS", 1))
@@ -402,6 +402,7 @@ def _resume(cfg, state, path, dataset_len):
     state.step = int(blob["step"])
     if state.ema is not None:
         if "ema" in blob:
+            # laid out as the module (a pipe rank keeps its stage's blocks)
             device = state.model.device
             state.ema = shards.local_state_dict(
                 module, {k: v.to(device) for k, v in blob["ema"].items()})

@@ -1762,3 +1762,53 @@ def test_tiny_clip_ft_step_with_remat_equals_without_on_the_card():
     assert out[0][0] == out[1][0]
     for k, g in out[1][1].items():
         assert torch.equal(out[0][1][k], g), k
+
+
+def test_tiny_capture_on_the_card_equals_predict(tmp_path):
+    """The tiny DiST's feature-map capture (``VideoModel.
+    forward_with_intermediates``) on the card: its scores are
+    ``InferenceEngine.predict``'s on the same clips and label texts, bit
+    for bit; the hooks add no launch (K1 2 and K2 2, as a forward)."""
+    import os
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.serving.engine import InferenceEngine
+    from dist_tpu_torch.tools import visualize_features as vf
+
+    from dist_tpu_torch.tasks.state import _prep_video
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        repo, "configs/projects/dist/test/tiny_synth.yaml"),
+        ["TEST.BATCH_SIZE", "2", "TPU.FUSED_TEMPORAL_NET", "true",
+         "OUTPUT_DIR", str(tmp_path)], make_output_dir=False)
+    model, text = vf.load_model(cfg, "cuda")
+    video = vf.video_batch(cfg, device="cuda")
+    f0, k0 = att.fused_attention_qkv.launches, tn.fused_temporal_net.launches
+    preds, inter = model.forward_with_intermediates(
+        _prep_video(cfg, torch.from_numpy(video).cuda()), text)
+    torch.cuda.synchronize()
+    assert (att.fused_attention_qkv.launches - f0,
+            tn.fused_temporal_net.launches - k0) == (2, 2)
+    from dist_tpu_torch.utils.visualization import _iter_feature_maps
+    assert [(n, tuple(a.shape)) for n, a in _iter_feature_maps(inter)] == [
+        ("dist_net.temporal_stem", (2, 4, 4, 4, 32))]
+    engine = InferenceEngine(cfg, batch_size=2)
+    engine.text_features = text
+    want = engine.predict(video)
+    assert np.array_equal(preds.float().cpu().numpy(), want)
+
+
+def test_captured_map_jpeg_bytes_on_the_card_equal_the_cpus():
+    """A feature map rendered and JPEG-coded on the card gives the CPU
+    path's bytes (``utils/jpeg.py``: integer arithmetic; the rendering's
+    fp32 operations are IEEE on both)."""
+    from dist_tpu_torch.utils import jpeg
+    from dist_tpu_torch.utils.visualization import feature_map_image
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 8, 28, 28, 64), generator=gen, device="cuda") * 3
+    on_card = jpeg.encode(feature_map_image(x))
+    on_cpu = jpeg.encode(feature_map_image(x.cpu()))
+    assert torch.equal(feature_map_image(x).cpu(), feature_map_image(x.cpu()))
+    assert on_card == on_cpu and len(on_card) == 2

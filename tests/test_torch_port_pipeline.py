@@ -12,6 +12,14 @@ launcher.
   fine-tune's path, its blocks trained through the schedule), also with
   the first stage's block frozen by name, against one process at the
   same global batch.
+- Each rank holds its own stage's blocks alone: its parameter and AdamW
+  moment elements are the JAX package's per-device elements after
+  ``shard_params`` on its 8-device mesh of data 4 x pipe 2.
+- A checkpoint written under pipe 2 (EMA on) is the one-rank run's file:
+  the same keys, shapes and optimizer ids, its values within the steps'
+  limits; it resumes on a plain state which writes it again tensor for
+  tensor, and that file resumes on the pipe ranks, each keeping its own
+  stage, and is written again tensor for tensor.
 - What stays refused: pipe on a backbone other than CLIP's, pipe with a
   model axis, and a tower whose layers the stages do not divide."""
 
@@ -30,6 +38,11 @@ from dist_tpu_torch.parallel import launch, mesh, pipeline
 from tests import torch_parallel_ranks as R
 from tests.test_torch_port_ddp import STEP, TINY, _step_inputs
 from dist_tpu_torch.models.clip.convert import state_dict_from_jax
+from dist_tpu.config import load_config as jax_load_config
+from dist_tpu.optim import optimizer as jopt
+from dist_tpu.parallel.mesh import build_mesh, shard_params
+from dist_tpu.tasks import state as jstate
+from tests.test_torch_port_clip_ft import _variables as clip_ft_variables
 
 SPAWN_TIMEOUT_S = 300
 PIPE = ["TPU.MESH.PIPE", "2", "TPU.MESH.DATA", "2"]
@@ -47,6 +60,10 @@ FT_OPTS = ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear",
 # (microbatches, taps): 0 is one per stage; 3 does not divide a data
 # shard's 4 rows and is clamped to 2
 CASES = [(0, True), (4, True), (3, True), (2, False)]
+# the checkpoint round trips: the fine-tune with its EMA copy
+EMA = ["MODEL.EMA.ENABLE", "true", "MODEL.EMA.DECAY", "0.9"]
+# JAX's mesh for the per-device elements: 8 devices, data 4 x pipe 2
+JAX_PIPE = ["TPU.MESH.PIPE", "2"]
 STEPS = 2
 # fp32 in another order: the toy's outputs against JAX's scan (the JAX
 # pipeline test's), the model's scores and losses, and every gradient (of
@@ -55,6 +72,15 @@ TOY_RTOL, TOY_ATOL = 2e-5, 1e-5
 SCORE_ATOL = 1e-5
 LOSS_REL = 1e-5
 GRAD_REL = 1e-5
+# weights after AdamW steps in another summation order: an element whose
+# exact gradient is zero (the key bias: softmax ignores it) steps by
+# +-lr on rounding noise in either run, so two runs may differ there by
+# lr a step (BASE_LR 0.01 in FT_OPTS)
+ADAM_STEP_BOUND = 0.01 * STEPS
+# AdamW's moments after the steps, of their largest value: the second
+# step's gradient is taken at weights that differ already (5e-5 on the
+# CPU)
+MOMENT_REL = 1e-4
 
 
 def _toy():
@@ -133,19 +159,56 @@ def runs(repo_root, tmp_path_factory, few_threads):
     ft_batch = {"video": rng.integers(0, 256, (8, 4, 64, 64, 3),
                                       dtype=np.uint8),
                 "labels": rng.integers(0, 174, 8).astype(np.int64)}
+    ckpt_cfg = load_config(ft, FT_OPTS + EMA + PIPE, make_output_dir=False)
+    ckpt_plain = load_config(ft, FT_OPTS + EMA, make_output_dir=False)
+    out = str(tmp_path_factory.mktemp("pipe_ckpt"))
     w, b, x, z = _toy()
     group = launch.launch_task(cfg, R.group_runs, ([
         ("pipeline_toy", (w, b, x, z, CASES)),
         ("eval_scores", (cfg, weights, batch)),
         ("train_steps", (train_cfg, ft_weights, ft_batch, STEPS)),
-        ("train_steps", (frozen_train, ft_weights, ft_batch, STEPS))],),
+        ("train_steps", (frozen_train, ft_weights, ft_batch, STEPS)),
+        ("pipe_checkpoints", (ckpt_cfg, ckpt_plain, ft_weights, ft_batch,
+                              STEPS, out))],),
         device="cpu", timeout=SPAWN_TIMEOUT_S)
+    one_ckpt = R.train_steps(
+        load_config(ft, FT_OPTS + EMA, make_output_dir=False), ft_weights,
+        ft_batch, STEPS, os.path.join(out, "one"))["checkpoint"]
     return {"group": group, "jax_toy": _jax_toy(w, b, x, z),
+            "one_checkpoint": one_ckpt,
+            "jax_elements": _jax_elements(repo_root),
             "toy": R.pipeline_toy(w, b, x, z, CASES),
             "eval": R.eval_scores(plain, weights, batch),
             "steps": R.train_steps(plain_train, ft_weights, ft_batch, STEPS),
             "frozen_steps": R.train_steps(plain_frozen, ft_weights, ft_batch,
                                           STEPS)}
+
+
+def _jax_elements(repo_root):
+    """{stage: (parameter elements, AdamW moment elements)} of one device
+    of each pipe stage, after the JAX package's ``shard_params`` of the
+    fine-tune's train state on its 8-device mesh (data 4 x pipe 2)."""
+    jcfg = jax_load_config(os.path.join(repo_root, FT), FT_OPTS + JAX_PIPE,
+                           make_output_dir=False)
+    variables = jax.tree_util.tree_map(jnp.asarray, clip_ft_variables())
+    tx, _ = jopt.construct_optimizer(jcfg, variables, 4)
+    mesh = build_mesh(jcfg, devices=jax.devices())
+    with mesh:
+        state = shard_params(mesh, jstate.create_train_state(variables, tx))
+    assert mesh.shape["pipe"] == 2 and mesh.shape["data"] == 4
+
+    def on(leaves, device):
+        return sum(s.data.size for leaf in leaves
+                   for s in leaf.addressable_shards if s.device == device)
+
+    moments = [leaf for path, leaf in
+               jax.tree_util.tree_leaves_with_path(state.opt_state)
+               if any(getattr(p, "name", None) in ("mu", "nu") for p in path)]
+    assert moments
+    params = jax.tree_util.tree_leaves(state.variables)
+    return {stage: (on(params, mesh.devices[0, stage, 0]),
+                    on(moments, mesh.devices[0, stage, 0]))
+            for stage in (0, 1)}
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -221,6 +284,101 @@ def _steps_match(one, ranks):
         assert r["losses"] == ranks[0]["losses"]
         for k, v in r["weights"].items():
             np.testing.assert_array_equal(v, ranks[0]["weights"][k], k)
+
+
+def test_each_rank_holds_its_stage_as_jax_places_it(runs):
+    """Each rank's parameter and AdamW moment elements are the JAX
+    package's on a device of the same pipe stage, its blocks its own
+    stage's alone; the one-process run holds the whole tower."""
+    one = runs["steps"]
+    stage_elements = runs["jax_elements"]
+    assert stage_elements[0] == stage_elements[1]
+    for rank, ranks in enumerate(runs["group"]):
+        r = ranks[2]
+        stage = rank % 2
+        assert (r["local_params"], r["local_moments"]) == \
+            stage_elements[stage], rank
+        blocks = {k.split(".")[3] for k in r["held"][0]
+                  if k.startswith("visual.transformer.resblocks.")}
+        assert blocks == {str(stage)}, (rank, blocks)
+        assert r["total_params"] == one["total_params"]
+    per_block = (one["local_params"] - stage_elements[0][0])
+    assert per_block > 0 and one["local_params"] == one["total_params"]
+
+
+def _load(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _assert_same_file(a, b, exact, what):
+    """Two checkpoint payloads: the same keys, shapes, dtypes, optimizer
+    ids and groups; the values equal (``exact``) or within the steps'
+    limits (the weights and their EMA copies within ``ADAM_STEP_BOUND``,
+    the moments within ``MOMENT_REL`` of their largest value)."""
+    assert a["step"] == b["step"] and a["epoch"] == b["epoch"], what
+    for part in ("model_state", "ema"):
+        assert list(a[part]) == list(b[part]), (what, part)
+        for k, v in a[part].items():
+            w = b[part][k]
+            assert v.shape == w.shape and v.dtype == w.dtype, (what, k)
+            if exact:
+                assert torch.equal(v, w), (what, part, k)
+            elif v.is_floating_point():
+                np.testing.assert_allclose(
+                    v.numpy(), w.numpy(), rtol=0, err_msg=f"{what} {k}",
+                    atol=ADAM_STEP_BOUND)
+    oa, ob = a["optimizer_state"], b["optimizer_state"]
+    assert [{k: v for k, v in g.items()} for g in oa["param_groups"]] == \
+        [{k: v for k, v in g.items()} for g in ob["param_groups"]], what
+    assert sorted(oa["state"]) == sorted(ob["state"]), what
+    for i, entry in oa["state"].items():
+        assert sorted(entry) == sorted(ob["state"][i]), (what, i)
+        for field, v in entry.items():
+            w = ob["state"][i][field]
+            if exact or field == "step":
+                assert torch.equal(v, w), (what, i, field)
+            else:
+                np.testing.assert_allclose(
+                    v.numpy(), w.numpy(), rtol=0, err_msg=f"{what} {i}",
+                    atol=MOMENT_REL * float(w.abs().max()) + 1e-12)
+
+
+def test_pipe_checkpoint_is_the_one_rank_file(runs):
+    """The checkpoint written under pipe 2 holds every block, its moments
+    and EMA copies, under the one-rank run's keys and optimizer ids."""
+    pipe = _load(runs["group"][0][4]["pipe"]["checkpoint"])
+    one = _load(runs["one_checkpoint"])
+    assert any(k.startswith("visual.transformer.resblocks.1.")
+               for k in pipe["model_state"])
+    _assert_same_file(pipe, one, exact=False, what="pipe against one rank")
+
+
+def test_pipe_checkpoint_round_trips(runs):
+    """Pipe -> one rank -> file: tensor for tensor the pipe file; that
+    file -> pipe ranks -> file: tensor for tensor again; each pipe rank
+    resumed holds what it held after its steps, its own stage alone."""
+    rec = runs["group"][0][4]
+    pipe = _load(rec["pipe"]["checkpoint"])
+    _assert_same_file(_load(rec["plain_checkpoint"]), pipe, exact=True,
+                      what="pipe -> plain")
+    _assert_same_file(_load(rec["pipe_again_checkpoint"]), pipe, exact=True,
+                      what="plain -> pipe")
+    for ranks in runs["group"]:
+        r = ranks[4]
+        held, moments = r["pipe"]["held"]
+        got, got_moments = r["resumed_held"]
+        assert list(got) == list(held)
+        for k, v in held.items():
+            np.testing.assert_array_equal(got[k], v, k)
+            np.testing.assert_array_equal(got[k], pipe["model_state"][k]
+                                          .numpy(), k)
+        assert sorted(got_moments) == sorted(moments)
+        for k, fields in moments.items():
+            for f, v in fields.items():
+                np.testing.assert_array_equal(got_moments[k][f], v, k)
+        assert sorted(r["resumed_ema"]) == sorted(r["pipe"]["held_ema"])
+        for k, v in r["pipe"]["held_ema"].items():
+            np.testing.assert_array_equal(r["resumed_ema"][k], v, k)
 
 
 def test_what_stays_refused(repo_root):

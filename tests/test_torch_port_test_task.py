@@ -126,15 +126,13 @@ def test_run_list_logs_and_times_each_entry(runs):
 
 
 @pytest.mark.parametrize("opts,world,error,match", [
-    (["TPU.SHARD_FRAMES", "true"], 2, ValueError, "SHARD_FRAMES"),
-    (["VISUALIZATION.ENABLE", "true"], 1, NotImplementedError,
-     "ROADMAP.md queue A")])
+    (["TPU.SHARD_FRAMES", "true"], 2, ValueError, "SHARD_FRAMES")])
 def test_unported_test_options_are_refused(repo_root, monkeypatch, opts,
                                            world, error, match):
-    """Visualization is not ported; ``TPU.SHARD_FRAMES`` is one process
-    over its local devices and refuses a group of more than one rank, as
-    the JAX package asserts a single process (it runs in one:
-    ``test_torch_port_local_devices.py``)."""
+    """``TPU.SHARD_FRAMES`` is one process over its local devices and
+    refuses a group of more than one rank, as the JAX package asserts a
+    single process (it runs in one: ``test_torch_port_local_devices.py``).
+    Visualization is ported: ``test_torch_port_visualization.py``."""
     cfg = config.load_config(os.path.join(repo_root, TINY), opts,
                              make_output_dir=False)
     if world > 1:

@@ -133,6 +133,9 @@ def train_steps(cfg, weights, batch, steps, out_dir=None, evals=False):
         (v.to_local() if hasattr(v, "to_local") else v).numel()
         for s in optimizer.state.values() for k, v in s.items()
         if k in ("exp_avg", "exp_avg_sq"))
+    if shards.pipe_info(module) is not None:
+        out["held"] = _held(module, optimizer)
+        out["held_ema"] = None if state.ema is None else _numpy(state.ema)
     if out_dir is not None:
         from dist_tpu_torch.utils import checkpoint as cu
         cfg.OUTPUT_DIR = out_dir
@@ -175,6 +178,55 @@ def fsdp_group(cfg, plain_cfg, weights, batch, steps, out_dir):
     # (c) the pack cache under address reuse
     out["pack"] = {which: pack_evals(cfg, weights, batch, which)
                    for which in ("shipped", "cached")}
+    return out
+
+
+def _held(module, optimizer):
+    """{name: tensor} of the parameters this rank holds, and {name:
+    {field: tensor}} of their optimizer state, as numpy."""
+    names = {id(p): k for k, p in module.named_parameters()}
+    moments = {names[id(p)]: {f: v.detach().cpu().numpy().copy()
+                              for f, v in st.items() if torch.is_tensor(v)}
+               for p, st in optimizer.state.items()}
+    return _numpy(dict(module.named_parameters())), moments
+
+
+def pipe_checkpoints(cfg, plain_cfg, weights, batch, steps, out_dir):
+    """The pipe file's checkpoint round trips, in one group: (a)
+    ``train_steps`` under the pipe axis, its checkpoint written, and what
+    this rank holds after the steps; (b) that checkpoint resumed by a
+    fresh pipe state (what it then holds) and by a plain state (every
+    rank, no pipe) which writes it again; (c) the plain state's file
+    resumed by a pipe state and written again by it."""
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, ema_decay
+    from dist_tpu_torch.utils import checkpoint as cu
+
+    def fresh_pipe():
+        model = _model(cfg, weights)
+        opt, _ = construct_optimizer(cfg, model.module, 4)
+        return create_train_state(model, opt, ema_decay(cfg))
+
+    out = {"pipe": train_steps(cfg, weights, batch, steps,
+                               os.path.join(out_dir, "pipe"))}
+    # (b) pipe -> pipe, and pipe -> plain -> file
+    state = fresh_pipe()
+    state, _, _ = cu._resume(cfg, state, out["pipe"]["checkpoint"], -1)
+    out["resumed_held"] = _held(state.model.module, state.optimizer)
+    out["resumed_ema"] = _numpy(state.ema)
+    plain = build_model(plain_cfg, device="cpu")
+    opt, _ = construct_optimizer(plain_cfg, plain.module, 4)
+    pstate = create_train_state(plain, opt, ema_decay(plain_cfg))
+    pstate, _, _ = cu._resume(plain_cfg, pstate, out["pipe"]["checkpoint"],
+                              -1)
+    plain_cfg.OUTPUT_DIR = os.path.join(out_dir, "plain")
+    out["plain_checkpoint"] = cu.save_checkpoint(plain_cfg, pstate, 0)
+    # (c) plain file -> pipe -> file
+    state = fresh_pipe()
+    state, _, _ = cu._resume(cfg, state, out["plain_checkpoint"], -1)
+    cfg.OUTPUT_DIR = os.path.join(out_dir, "pipe_again")
+    out["pipe_again_checkpoint"] = cu.save_checkpoint(cfg, state, 0)
     return out
 
 
@@ -252,6 +304,10 @@ class ToyLayer(torch.nn.Module):
         return torch.tanh(x @ self.w + self.b) + x
 
 
+def zeros_or(grad, like):
+    return torch.zeros_like(like) if grad is None else grad
+
+
 def pipeline_toy(w, b, x, z, cases):
     """``pipeline_stack`` over this rank's pipe group on the toy stack
     (layers from ``w`` (L, D, D) and ``b`` (L, D)), this data shard's
@@ -283,11 +339,13 @@ def pipeline_toy(w, b, x, z, cases):
             y, t = c, torch.stack(t) if taps else None
         loss = (y ** 2).sum() + ((t * zs).sum() if taps else 0.0)
         loss.backward()
+        # a stage's gradients live on its own rank: the others' layers
+        # have none here, and the pipe group's sum is every layer's
+        gw = torch.stack([zeros_or(layer.w.grad, layer.w) for layer in layers])
+        gb = torch.stack([zeros_or(layer.b.grad, layer.b) for layer in layers])
         if lay.pipe > 1:
-            from dist_tpu_torch.parallel.pipeline import sync_stage_grads
-            sync_stage_grads(layers, lay)
-        gw = torch.stack([layer.w.grad for layer in layers])
-        gb = torch.stack([layer.b.grad for layer in layers])
+            torch.distributed.all_reduce(gw, group=lay.pipe_group)
+            torch.distributed.all_reduce(gb, group=lay.pipe_group)
         if lay.data > 1:
             torch.distributed.all_reduce(gw, group=lay.data_group)
             torch.distributed.all_reduce(gb, group=lay.data_group)

@@ -26,12 +26,13 @@
    answers requests of 1, 3 and 8 seeded random uint8 clips; checks the
    scores and that every request batch went through both kernels (launch
    counts zeroed just before, read just after).
-4. Agreement: for each of two weight seeds, one request of the served
-   model against the same model with the unfused TemporalNet on the card
-   and against the same weights on the CPU through the plain versions
-   (both bf16, as served), and the card against the CPU with both in
-   fp32, held to ``AGREEMENT_LIMITS``; controls (the unfused model with
-   one of K2's spatial taps dropped) must break those limits.
+4. Agreement: for each weight seed (``AGREEMENT_SEEDS``: one), one
+   request of the served model against the same model with the unfused
+   TemporalNet on the card and against the same weights on the CPU
+   through the plain versions (both bf16, as served), and the card
+   against the CPU with both in fp32, held to ``AGREEMENT_LIMITS``;
+   controls (the unfused model with one of K2's spatial taps dropped)
+   must break those limits.
 5. Multi-view test: the port's test run list, through the code of
    ``python -m dist_tpu_torch.run``, on the same config at full width
    with synthetic clips (``MULTIVIEW_OPTS``) and the served engine's
@@ -52,10 +53,11 @@
    and the launches per step (K1 12 in the frozen vision tower, K2 12,
    K3 12); K1's 12 text-tower launches at set-up are counted apart. Then
    times 3 steps with the unfused TemporalNet beside them.
-7. Train agreement: for two weight seeds, one step's dist_net gradients
-   and loss (mixup off) of the fused path against the unfused path (cuDNN
-   convs), both bf16 on the card at batch 32, and of the card against the
-   CPU plain versions, both fp32 at batch 2, held to
+7. Train agreement: for each weight seed (``AGREEMENT_SEEDS``), one
+   step's dist_net gradients and loss (mixup off) of the fused path
+   against the unfused path (cuDNN convs), both bf16 on the card at
+   batch 32, and of the card against the CPU plain versions, both fp32
+   at batch 2, held to
    ``TRAIN_AGREEMENT_LIMITS``; a control with one spatial tap of the first
    block dropped must break them.
 8. Train run: the run list of ``python -m dist_tpu_torch.run`` with
@@ -80,7 +82,7 @@
    of 1024, 257 tokens, 24 ladder steps over 64 dense and 32 sparse
    frames), one model built once: served by ``InferenceEngine`` at batch
    8 (requests of 1, 3 and 8 clips; K1 24 and K2 24 launches per request
-   batch; median latency and clips/s; for two weight seeds one batch-8
+   batch; median latency and clips/s; for each weight seed one batch-8
    request against the unfused TemporalNet on the card, held to
    ``L14_AGREEMENT_LIMITS``, which a control with a spatial tap dropped
    in every block must break), then trained with ``TPU.REMAT`` at the
@@ -172,7 +174,7 @@
    entries' model gives the trained model's scores bit for bit; a run
    preempted after one step and resumed lies within
    ``TADA_RESUME_FACTOR`` times two uninterrupted runs' difference).
-   Then with TF32 off: (d) for two weight seeds, 2 clips on the card
+   Then with TF32 off: (d) for each weight seed, 2 clips on the card
    against the CPU (``TADA_AGREEMENT_LIMITS``; a control with every
    route function bypassed must break them) and (e) one train step in
    float64 on both sides, its loss, running stats and worst gradient
@@ -191,7 +193,7 @@
    running stat moved. Then SlowFast's run list (``EPIC_RUN_OPTS``:
    train, val, test, the 10 x 3-view test on synthetic clips; every step's
    log line with the per-head errors, the tests' with the verb, noun and
-   action accuracies). Then with TF32 off: (c) for two weight seeds, 2
+   action accuracies). Then with TF32 off: (c) for each weight seed, 2
    clips on the card against the CPU (``EPIC_AGREEMENT_LIMITS``) and (d)
    for ``EPIC_TRAIN_AGREEMENT_SEEDS`` (one), one float64 train step's
    loss, running stats and worst gradient leaf
@@ -221,7 +223,7 @@
    (``VIT_RUN_OPTS``: 2 epochs of 2 steps, val, the test and the 10-view
    test of 2 videos at 128^2); (d) one step of the linear probe
    (``VIT_LFT``: only ``head.*`` moves, the backbone bit for bit); then
-   with TF32 off, for two weight seeds, (e) scores and features of 2
+   with TF32 off, for each weight seed, (e) scores and features of 2
    clips at 128^2 against the CPU (``VIT_AGREEMENT_LIMITS``) and (f) one
    float64 step at 112^2 (``FP64_STEP_LIMITS``); the ``qkv`` control
    (the fused projection read as ``[q | v | k]``) must break (e)'s limits
@@ -371,8 +373,25 @@
    ticks), the CLIP fine-tune's 2 train steps at batch 4 under each (K1
    and K1b 12 or 18 a step), against one rank in this process
    (``PARALLEL_LIMITS``); and the pod8 recipe under FSDP at world 2 (2 a
-   rank) against (a)'s first steps. Any error in a rank fails the
-   phase. The phase's seconds are printed.
+   rank) against (a)'s first steps. (e) ``TPU.FSDP`` composed with each
+   axis: four gloo ranks sharing ``cuda:0`` in one spawn, laid out as
+   data 2 x model 2 and as data 2 x pipe 2, FSDP2 over each data group;
+   on each mesh the flagship's eval of 8 clips (4 a data shard), plain
+   and with an EMA copy (another seed's weights), K1 24 and K2 24 a rank
+   under tp, K1 36 and K2 24 under pipe, held to (d)'s one-rank eval;
+   the CLIP fine-tune's 2 train steps at a global batch of 4 without
+   dropout, mixup and cutmix (``COMPOSED_FT_OPTS``; a data shard draws
+   them over its own rows), K1 and K1b 24 (tp) or 36 (pipe) a rank, the
+   first step held to one rank's in this process and every step to the
+   same mesh without FSDP (the same data split); under pipe 2
+   all-gathers and 2
+   reduce-scatters a step (the stage one FSDP unit); then each mesh's
+   checkpoint, read back by one rank in this process (its weights within
+   twice the steps' LRs of the one rank's). Each rank's bytes of
+   parameters and AdamW moments are half of (d)'s rank of the same model
+   slice or stage (``COMPOSED_SHARE``); FSDP's all-gathers and
+   reduce-scatters, step ms and peak bytes are printed. Any error in a
+   rank fails the phase. The phase's seconds are printed.
 
 The kernel checks (2) include K4, the multi-row attention, at nb = 2, 4
 and 8 in bf16 and nb = 8 in fp32 at (64, 197, 2304): two launches bit for
@@ -406,8 +425,9 @@ under ``zoo`` each zoo shape's numbers; ``tada_launches``,
 ``tal_launches`` those phases' (0), ``submission_launches`` the
 flagship's submission entry's, ``clip_ft_launches`` the clip_ft phase's
 by part, ``export_launches`` one call of the exported flagship's,
-``parallel_launches`` the parallel phase's by part and rank (under
-``parallel`` K1's numbers at the model axis's shapes);
+``parallel_launches`` the parallel phase's by part and rank, (e)'s as
+``e_<mesh>_<job>_rank<r>`` (under ``parallel`` K1's numbers at the
+model axis's shapes and at (e)'s);
 K4's from the tools phase
 at nb = 8, each nb's beside them; K1 and K4 with their attention route,
 blocks per SM and the ptxas registers and spill bytes of the instance the
@@ -439,9 +459,10 @@ TIMED_REPEATS = 10
 # the card's busy wait before a timed run: ~10 ms at the H100's ~2 GHz,
 # longer than the host takes to queue 20 launches
 HOLD_CYCLES = 20_000_000
-# weight seeds RANDOM_SEED + 0, 1 of every agreement; its limits were
-# set on seeds 0-2
-AGREEMENT_SEEDS = 2
+# weight seed RANDOM_SEED + 0 of every agreement (one seed since the
+# four-rank part of the parallel phase, to stay inside the time limit);
+# its limits were set on seeds 0-2
+AGREEMENT_SEEDS = 1
 AGREEMENT_CLIPS = 3                 # clips per agreement request
 # controls: TemporalNet blocks (from the first) with one spatial tap
 # dropped; applied in this order to one model, each on top of the last
@@ -639,7 +660,8 @@ BWD_BF16_LIMITS = {
 # through classify's model path over two towers on the card; (d) two gloo
 # ranks sharing the card: the model axis (tp 2) and the pipe axis (2
 # stages) on the flagship's eval forward and the CLIP fine-tune's train
-# steps against one rank, and FSDP at world 2 against (a)
+# steps against one rank, and FSDP at world 2 against (a); (e) four gloo
+# ranks sharing the card: FSDP composed with each axis on the same jobs
 PARALLEL_WORLD = 2
 PARALLEL_DEVICE = "cuda:0"
 PARALLEL_ENGINE_DEVICES = ["cuda:0", "cuda:0"]
@@ -648,6 +670,17 @@ PARALLEL_TRAIN_CLIPS = 4
 PARALLEL_TRAIN_STEPS = 2
 PARALLEL_FSDP_STEPS = 2
 PARALLEL_SPAWN_TIMEOUT_S = 420
+# (e) TPU.FSDP composed with the model axis and with the pipe axis: four
+# gloo ranks on the card, each mesh's data axis 2; the EMA eval's copy
+# is the model made from the eval's seed plus this
+PARALLEL_COMPOSED_DATA = 2
+PARALLEL_COMPOSED_WORLD = 4
+PARALLEL_EMA_SEED = 3
+# a composed rank's bytes of parameters and AdamW moments against the
+# plain model or pipe rank's of (d): FSDP2 over 2 data ranks holds half
+# of each weight with an even dim (all of the flagship's and the
+# fine-tune's) and the 0-d logit_scale whole
+COMPOSED_SHARE = {"expected": 0.5, "max_abs_diff": 1e-3}
 # FSDP against DDP at world 1: the same kernels on the same values (the
 # gathered weights are the shards' copies; the reduce-scatter of one rank
 # divides by 1), so the losses are predicted equal; the limit allows the
@@ -929,6 +962,13 @@ VIS_BENCH_VIDEOS = 8
 VIT_B16_BLOCK_PARAMS = 7087872
 CLIP_FT = "configs/projects/dist/vit_base_16_ssv2.yaml"
 CLIP_FT_OPTS = ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear"]
+# (e)'s fine-tune without the head's dropout, mixup and cutmix: a data
+# shard draws them over its own rows (ROADMAP.md C, "mixup pairs stay
+# inside a rank"), so with them on two data shards of 2 clips are not
+# one rank's batch of 4
+COMPOSED_FT_OPTS = [*CLIP_FT_OPTS, "VIDEO.HEAD.DROPOUT_RATE", "0.0",
+                    "AUGMENTATION.MIXUP.ENABLE", "false",
+                    "AUGMENTATION.CUTMIX.ENABLE", "false"]
 CLIP_FT_WARMUP = 2
 CLIP_FT_TIMED = 5
 CLIP_FT_REMAT_STEPS = 3
@@ -2125,8 +2165,8 @@ def _train_agree_one_seed(repo, tokens, seed):
 
 
 def train_agreement(repo, tokens):
-    """One step's dist_net gradients and loss, mixup off, for three weight
-    seeds: the fused path against the unfused one (bf16 on the card, batch
+    """One step's dist_net gradients and loss, mixup off, for each weight
+    seed: the fused path against the unfused one (bf16 on the card, batch
     32) and the card against the CPU (fp32, batch 2), held to
     ``TRAIN_AGREEMENT_LIMITS``; the control must break both."""
     import torch
@@ -2451,7 +2491,7 @@ def l14(repo, card):
     (a) served by ``InferenceEngine`` at batch 8: requests of 1, 3 and 8
         seeded clips (64, 224, 224, 3); K1 24 and K2 24 launches per
         request batch, K1 12 at set-up (the text tower); median latency of
-        batch-8 requests and clips/s; for two weight seeds, one batch-8
+        batch-8 requests and clips/s; for each weight seed, one batch-8
         request against the same weights with the unfused TemporalNet on
         the card, held to ``L14_AGREEMENT_LIMITS``, which the control (one
         spatial tap dropped in every block) must break.
@@ -2539,7 +2579,7 @@ def l14(repo, card):
         "text_setup_launches": setup,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
-    # the serving agreement, two weight seeds; the served model is seed 0
+    # the serving agreement, ``AGREEMENT_SEEDS``; the served model is seed 0
     _, tokens = resolve_label_texts(cfg, engine.num_classes)
     base = int(cfg.RANDOM_SEED)
     runs = []
@@ -3378,18 +3418,27 @@ def _parallel_clips(cfg, n, seed):
                          device="cuda", dtype=torch.int32).to(torch.uint8)
 
 
-def _parallel_eval(cfg, seed, naive_qkv=False):
+def _parallel_eval(cfg, seed, naive_qkv=False, ema_seed=None):
     """The eval step's scores of ``PARALLEL_EVAL_CLIPS`` seeded clips on
     this rank's mesh (the model laid out by ``prepare_model``; with
     ``naive_qkv`` the model axis's control, ``in_proj`` split in
-    contiguous rows), the launches of the eval alone and of the label
-    texts' set-up, and the vision tower's first block as this rank holds
-    it."""
+    contiguous rows), each data shard on its rows, gathered; with
+    ``ema_seed`` an EMA eval after it, the EMA copy the weights of the
+    model made from that seed, laid out as the module's. The launches of
+    the evals and of the label texts' set-up, FSDP's all-gathers and
+    reduce-scatters, and the vision tower's first block as this rank
+    holds it."""
     import torch
     from dist_tpu_torch.data.base_dataset import resolve_label_texts
     from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.parallel import collectives, shards
+    from dist_tpu_torch.parallel.fsdp import count_collectives
     from dist_tpu_torch.parallel.mesh import prepare_model
-    from dist_tpu_torch.tasks.state import compute_text_features, make_eval_step
+    from dist_tpu_torch.tasks.state import (
+        TrainState,
+        compute_text_features,
+        make_eval_step,
+    )
 
     model = build_model(cfg, _card(), seed=seed)
     if naive_qkv:       # the control: in_proj split in contiguous rows
@@ -3398,41 +3447,66 @@ def _parallel_eval(cfg, seed, naive_qkv=False):
         tensor.shard_model(model.module, layout(), _naive_qkv=True)
     else:
         prepare_model(model)
+    ema = None
+    if ema_seed is not None:
+        other = build_model(cfg, _card(), seed=ema_seed).module.state_dict()
+        ema = shards.local_state_dict(model.module, other)
+        del other
     _, tokens = resolve_label_texts(cfg, int(cfg.VIDEO.HEAD.NUM_CLASSES))
     counts = _zero_counts()
     text = compute_text_features(model, tokens)
     torch.cuda.synchronize()
     set_up = counts()
     video = _parallel_clips(cfg, PARALLEL_EVAL_CLIPS, seed + 1)
+    rank, world = collectives.data_rank(), collectives.data_size()
+    b = PARALLEL_EVAL_CLIPS // world
+    video = video[rank * b:(rank + 1) * b]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts = _zero_counts()
     t0 = time.perf_counter()
-    preds = make_eval_step(model, cfg)({"video": video,
-                                        "text_features": text})["preds"]
-    scores = preds.float().cpu().numpy()
+    with count_collectives() as gathered:
+        preds = make_eval_step(model, cfg)({"video": video,
+                                            "text_features": text})["preds"]
+        scores = collectives.all_gather_arrays(preds.float().cpu().numpy())[0]
     ms = (time.perf_counter() - t0) * 1e3
+    out = {"scores": scores, "ms": ms, "collectives": dict(gathered)}
+    if ema is not None:
+        t0 = time.perf_counter()
+        with count_collectives() as gathered:
+            preds = make_eval_step(model, cfg, use_ema=True)(
+                {"video": video, "text_features": text},
+                TrainState(model=model, optimizer=None, ema=ema))["preds"]
+            out["ema_scores"] = collectives.all_gather_arrays(
+                preds.float().cpu().numpy())[0]
+        out["ema_ms"] = (time.perf_counter() - t0) * 1e3
+        out["ema_collectives"] = dict(gathered)
     attn = _held_blocks(model)[0].attn
-    out = {"scores": scores, "ms": ms, "launches": counts(),
-           "set_up_launches": set_up, "heads": attn.num_heads,
-           "in_proj": list(attn.in_proj_weight.shape),
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           **_held(model)}
-    del model
+    out.update({"launches": counts(), "set_up_launches": set_up,
+                "heads": attn.num_heads,
+                "in_proj": list(attn.in_proj_weight.shape),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                **_held(model)})
+    del model, ema
     torch.cuda.empty_cache()
     return out
 
 
-def _parallel_train(cfg, seed):
+def _parallel_train(cfg, seed, ckpt_dir=None, keep_weights=False):
     """``PARALLEL_TRAIN_STEPS`` train steps of the CLIP fine-tune (its
     tower trained; ``CLIP_FT``) on this rank's mesh, each data shard on
     its rows of seeded batches of ``PARALLEL_TRAIN_CLIPS``: the mean
-    losses, host ms a step, the launches (K1 and K1b) and the vision
-    tower's first block as this rank holds it."""
+    losses, host ms a step, the launches (K1 and K1b), FSDP's all-gathers
+    and reduce-scatters a step, and the vision tower's first block as
+    this rank holds it; with ``ckpt_dir`` the checkpoint after the steps
+    written there (every rank calls in) and its seconds; with
+    ``keep_weights`` the weights after the steps on the host, the LR of
+    each step and the optimizer's entries."""
     import torch
     from dist_tpu_torch.models.base.models import build_model
     from dist_tpu_torch.optim.optimizer import construct_optimizer
     from dist_tpu_torch.parallel import collectives
+    from dist_tpu_torch.parallel.fsdp import count_collectives
     from dist_tpu_torch.parallel.mesh import prepare_model, wrap_ddp
     from dist_tpu_torch.tasks.state import (
         create_train_state,
@@ -3453,20 +3527,34 @@ def _parallel_train(cfg, seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts = _zero_counts(bwd=True)
-    losses, times = [], []
+    losses, times, gathers, lrs = [], [], [], []
     for batch in batches:
         b = batch["labels"].shape[0] // world
         rows = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
         t0 = time.perf_counter()
-        metrics = step(state, rows)
-        torch.cuda.synchronize()
+        with count_collectives() as gathered:
+            metrics = step(state, rows)
+            torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        gathers.append(dict(gathered))
+        lrs.append(max(g["lr"] for g in optimizer.param_groups))
         losses.append(collectives.all_reduce_mean(float(metrics["loss"]))[0])
     attn = _held_blocks(model)[0].attn
     out = {"losses": losses, "step_ms": times, "launches": counts(),
+           "collectives": gathers, "lrs": lrs,
            "heads": attn.num_heads, "in_proj": list(attn.in_proj_weight.shape),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            **_held(model, optimizer)}
+    if ckpt_dir is not None:
+        from dist_tpu_torch.utils import checkpoint as cu
+        cfg.OUTPUT_DIR = ckpt_dir
+        t0 = time.perf_counter()
+        out["checkpoint"] = cu.save_checkpoint(cfg, state, 0)
+        out["checkpoint_s"] = time.perf_counter() - t0
+    if keep_weights:
+        out["weights"] = {k: v.detach().cpu()
+                          for k, v in model.module.state_dict().items()}
+        out["optimizer_entries"] = len(optimizer.state)
     del model, state, optimizer, step
     torch.cuda.empty_cache()
     return out
@@ -3708,8 +3796,9 @@ def _parallel_ranks(repo, problems, fsdp_losses):
                                device=PARALLEL_DEVICE,
                                timeout=PARALLEL_SPAWN_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
-    # one rank, in this process
-    one = {"eval": _parallel_eval(_parallel_cfg(repo, FLAGSHIP), seed),
+    # one rank, in this process (with the EMA eval that (e) is held to)
+    one = {"eval": _parallel_eval(_parallel_cfg(repo, FLAGSHIP), seed,
+                                  ema_seed=seed + PARALLEL_EMA_SEED),
            "train": _parallel_train(_parallel_cfg(repo, CLIP_FT, *ft), seed)}
     rec = {"world": PARALLEL_WORLD, "backend": "gloo",
            "device": PARALLEL_DEVICE, "spawn_s": spawn_s,
@@ -3806,6 +3895,212 @@ def _parallel_ranks(repo, problems, fsdp_losses):
     launches = {f"{name}_rank{r}": ranks[r][name]["launches"]
                 for name in ("tp_eval", "pipe_eval", "tp_train", "pipe_train")
                 for r in (0, 1)}
+    return rec, launches, one, ranks
+
+
+def _read_back(repo, train, one, problems, axis):
+    """One rank in this process resumes the checkpoint that (e)'s four
+    ranks wrote after their steps (``train``: rank 0's record) into a
+    fine-tune state made from other weights: the step, the optimizer's
+    entries and every weight against the one-rank run's after the same
+    steps (``one``), within twice the LRs of the steps (AdamW moves an
+    element by at most about its LR a step, each run on its own) and a
+    rounding a step."""
+    import torch
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, ema_decay
+    from dist_tpu_torch.utils import checkpoint as cu
+
+    cfg = _parallel_cfg(repo, CLIP_FT, *COMPOSED_FT_OPTS, "TRAIN.BATCH_SIZE",
+                        str(PARALLEL_TRAIN_CLIPS))
+    model = build_model(cfg, _card(), seed=PARALLEL_EMA_SEED + 100)
+    optimizer, _ = construct_optimizer(cfg, model.module,
+                                       TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, optimizer, ema_decay(cfg))
+    t0 = time.perf_counter()
+    state, _, _ = cu._resume(cfg, state, train["checkpoint"], -1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.module.state_dict()
+    want = one["weights"]
+    diff = max(float((got[k].detach().float().cpu() - v.float()).abs().max())
+               for k, v in want.items())
+    largest = max(float(v.float().abs().max()) for v in want.values())
+    bound = (2 * sum(one["lrs"]) + 2 * len(one["lrs"])
+             * torch.finfo(torch.float32).eps * largest)
+    rec = {"file_bytes": os.path.getsize(train["checkpoint"]),
+           "write_s": train["checkpoint_s"], "load_s": load_s,
+           "step": state.step, "optimizer_entries": len(optimizer.state),
+           "one_rank_optimizer_entries": one["optimizer_entries"],
+           "keys_equal": sorted(got) == sorted(want),
+           "max_abs_weight_diff": diff, "limit": bound}
+    if state.step != PARALLEL_TRAIN_STEPS or not rec["keys_equal"] \
+            or rec["optimizer_entries"] != one["optimizer_entries"] \
+            or not diff <= bound:
+        problems.append(f"(e) {axis} checkpoint read back by one rank: {rec}")
+    del model, state, optimizer, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _parallel_composed(repo, problems, one, plain):
+    """(e) ``TPU.FSDP`` composed with the model axis and with the pipe
+    axis: four gloo ranks sharing ``cuda:0`` in one spawn, laid out as
+    data 2 x model 2 and as data 2 x pipe 2, FSDP2 over each data group.
+    On each mesh the flagship's eval of ``PARALLEL_EVAL_CLIPS`` clips,
+    plain and EMA, and the CLIP fine-tune's ``PARALLEL_TRAIN_STEPS`` train
+    steps at a global batch of ``PARALLEL_TRAIN_CLIPS``
+    (``COMPOSED_FT_OPTS``), then its checkpoint, which one rank in this
+    process reads back; the same steps on the same mesh without FSDP.
+    Within ``PARALLEL_LIMITS``: the evals and the first step's loss
+    against one rank's on the same seeds, weights and clips (the eval:
+    (d)'s, ``one``; the steps: one rank in this process); every step's
+    loss against the same mesh without FSDP, which splits the batch over
+    the data shards alike; each rank's bytes of parameters and AdamW
+    moments beside those of (d)'s plain model or pipe rank of the same
+    model slice or stage (``plain``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dist_tpu_torch.parallel import launch
+
+    seed = 0
+    data = PARALLEL_COMPOSED_DATA
+    composed = ["TPU.FSDP", "true", "TPU.MESH.DATA", str(data)]
+    axes = {"tp": ["TPU.MESH.MODEL", "2"], "pipe": ["TPU.MESH.PIPE", "2"]}
+    ft = [*COMPOSED_FT_OPTS, "TRAIN.BATCH_SIZE",
+          str(PARALLEL_TRAIN_CLIPS // data)]
+    # the fine-tune's one-rank steps at the global batch, its weights kept
+    one = {"eval": one["eval"], "train": _parallel_train(_parallel_cfg(
+        repo, CLIP_FT, *COMPOSED_FT_OPTS, "TRAIN.BATCH_SIZE",
+        str(PARALLEL_TRAIN_CLIPS)), seed, keep_weights=True)}
+    tmp = tempfile.mkdtemp(prefix="composed_ckpt_")
+    jobs = []
+    for axis, opts in axes.items():
+        jobs += [(f"{axis}_eval", FLAGSHIP, opts + composed, "_parallel_eval",
+                  (seed, False, seed + PARALLEL_EMA_SEED)),
+                 (f"{axis}_train", CLIP_FT, ft + opts + composed,
+                  "_parallel_train", (seed, os.path.join(tmp, axis))),
+                 # the same mesh without FSDP (DDP over the data group):
+                 # the same data split, so the same AdamW steps
+                 (f"{axis}_train_ddp", CLIP_FT,
+                  ft + opts + composed[2:], "_parallel_train", (seed,))]
+    group_cfg = _parallel_cfg(repo, FLAGSHIP, *axes["tp"], *composed,
+                              "DIST_BACKEND", "gloo")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.launch_task(group_cfg, _parallel_rank, (repo, jobs),
+                                   device=PARALLEL_DEVICE,
+                                   timeout=PARALLEL_SPAWN_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        read_back = {axis: _read_back(repo, ranks[0][f"{axis}_train"],
+                                      one["train"], problems, axis)
+                     for axis in axes}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(ranks) != PARALLEL_COMPOSED_WORLD:
+        problems.append(f"(e) {len(ranks)} ranks")
+    rec = {"world": len(ranks), "backend": "gloo", "device": PARALLEL_DEVICE,
+           "spawn_s": spawn_s, "read_back": read_back,
+           "label": "four ranks on one card: correctness, not scaling"}
+    layers = 12
+    for axis in axes:
+        limits = PARALLEL_LIMITS[axis]
+        stage_k1 = layers if axis == "tp" else layers // 2 * 3
+        heads = 6 if axis == "tp" else 12
+        name = f"{axis}_eval"
+        rs = [r[name] for r in ranks]
+        diff = {k: max(float(np.abs(r[k] - one["eval"][k]).max()) for r in rs)
+                for k in ("scores", "ema_scores")}
+        top = all(_top1_agree(r[k], one["eval"][k],
+                              2 * limits["max_abs_score_diff"])
+                  for r in rs for k in ("scores", "ema_scores"))
+        want = {"attention_qkv": 2 * stage_k1, "attention_qkv_rows": 0,
+                "temporal_net_fwd": 24, "temporal_net_bwd": 0}
+        bad = [r["launches"] for r in rs if r["launches"] != want]
+        if max(diff.values()) > limits["max_abs_score_diff"] or not top \
+                or bad or rs[0]["heads"] != heads:
+            problems.append(f"(e) {name}: score diffs {diff}, top-1 equal "
+                            f"{top}, launches {bad} != {want}, heads "
+                            f"{rs[0]['heads']}")
+        rec[name] = {
+            "layout": rs[0]["layout"], "max_abs_score_diff": diff["scores"],
+            "ema_max_abs_score_diff": diff["ema_scores"], "limits": limits,
+            "top1_equal_where_clear": top, "heads_a_rank": rs[0]["heads"],
+            "expected_launches": want, "ranks": [
+                {k: r[k] for k in (
+                    "launches", "set_up_launches", "collectives",
+                    "ema_collectives", "ms", "ema_ms", "peak_mem_bytes",
+                    "param_bytes", "param_elements")}
+                for r in rs]}
+        name = f"{axis}_train"
+        rs = [r[name] for r in ranks]
+        ddp = [r[f"{axis}_train_ddp"] for r in ranks]
+        # the first step against one rank (the same weights: the forward's
+        # rounding alone); every step against the same mesh without FSDP
+        # (after the first, AdamW's steps of near-zero gradients follow
+        # the data split's summation order, not one rank's)
+        first = max(abs(r["losses"][0] - one["train"]["losses"][0])
+                    / abs(one["train"]["losses"][0]) for r in rs)
+        rel = max(abs(a - b) / abs(b) for r in rs
+                  for a, b in zip(r["losses"], ddp[0]["losses"]))
+        one_rel = max(abs(a - b) / abs(b) for r in rs
+                      for a, b in zip(r["losses"], one["train"]["losses"]))
+        want = {"attention_qkv": stage_k1 * PARALLEL_TRAIN_STEPS,
+                "attention_qkv_rows": 0, "temporal_net_fwd": 0,
+                "temporal_net_bwd": 0,
+                "attention_qkv_bwd": stage_k1 * PARALLEL_TRAIN_STEPS}
+        bad = [r["launches"] for r in rs + ddp if r["launches"] != want]
+        # the pipelined stage is one unit, gathered once a step; with the
+        # root, two all-gathers and two reduce-scatters (the fine-tune's
+        # idle text tower's units run none)
+        staged = axis != "pipe" or all(
+            r["collectives"] == [{"all_gather": 2, "reduce_scatter": 2}]
+            * PARALLEL_TRAIN_STEPS for r in rs)
+        if first > limits["first_loss_rel_diff"] \
+                or rel > limits["loss_rel_diff"] or bad or not staged \
+                or any(r["losses"] != rs[0]["losses"] for r in rs + ddp):
+            problems.append(f"(e) {name}: loss rel {first}, {rel}, ranks "
+                            f"{[r['losses'] for r in rs]}, without FSDP "
+                            f"{[r['losses'] for r in ddp]}, launches {bad} "
+                            f"!= {want}, collectives "
+                            f"{[r['collectives'] for r in rs]}")
+        rec[name] = {
+            "layout": rs[0]["layout"], "losses": rs[0]["losses"],
+            "one_rank_losses": one["train"]["losses"],
+            "without_fsdp_losses": ddp[0]["losses"],
+            "first_loss_rel_diff": first, "loss_rel_diff": rel,
+            "one_rank_loss_rel_diff": one_rel,
+            "without_fsdp_step_ms": [r["step_ms"] for r in ddp],
+            "without_fsdp_peak_mem_bytes": [r["peak_mem_bytes"] for r in ddp],
+            "limits": limits, "heads_a_rank": rs[0]["heads"],
+            "expected_launches": want, "ranks": [
+                {k: r[k] for k in (
+                    "launches", "collectives", "step_ms", "peak_mem_bytes",
+                    "param_bytes", "moment_bytes", "grad_bytes")}
+                for r in rs]}
+        # each rank against (d)'s rank of the same model slice or stage
+        for job, kinds in ((f"{axis}_eval", ("param",)),
+                           (f"{axis}_train", ("param", "moment"))):
+            shares = []
+            for r, ranked in enumerate(ranks):
+                base = plain[r % 2][job]
+                share = {k: ranked[job][f"{k}_bytes"] / base[f"{k}_bytes"]
+                         for k in kinds}
+                shares.append({**share, **{f"plain_{k}_bytes":
+                                           base[f"{k}_bytes"] for k in kinds}})
+                if any(abs(v - COMPOSED_SHARE["expected"])
+                       > COMPOSED_SHARE["max_abs_diff"]
+                       for v in share.values()):
+                    problems.append(f"(e) {job} rank {r}: holds {share} of "
+                                    "(d)'s plain rank")
+            rec[job]["share_of_plain_rank"] = shares
+    launches = {f"e_{name}_rank{r}": ranks[r][name]["launches"]
+                for name in ranks[0] for r in range(len(ranks))}
     return rec, launches
 
 
@@ -3862,7 +4157,8 @@ def parallel_kernel_checks():
     """K1 and K1b at the shapes the model axis gives them (6 of the
     flagship's 12 heads a rank; the text tower's 4 of 8, causal): the
     served batch of 8, the fine-tune's train step at batch 4, the text
-    tower's prompts."""
+    tower's prompts; and at (e)'s, a data shard's half of those rows (the
+    pipe's microbatches: half of that, 12 heads)."""
     import torch
 
     bf16 = torch.bfloat16
@@ -3874,33 +4170,53 @@ def parallel_kernel_checks():
     bwd = {"tp_train": check_attention_bwd(
         "attention_bwd tp train bf16", PARALLEL_TRAIN_CLIPS * 8, 197, 6, 64,
         False, bf16, 62)}
+    # (e): a data shard's rows, the pipe's microbatches of them
+    shard = PARALLEL_COMPOSED_DATA
+    att["composed_tp_serving"] = check_attention(
+        "attention tp+fsdp serving bf16", PARALLEL_EVAL_CLIPS // shard * 8,
+        197, 6, 64, False, bf16, 63)
+    att["composed_pipe_serving"] = check_attention(
+        "attention pipe+fsdp serving bf16",
+        PARALLEL_EVAL_CLIPS // shard // 2 * 8, 197, 12, 64, False, bf16, 64)
+    bwd["composed_tp_train"] = check_attention_bwd(
+        "attention_bwd tp+fsdp train bf16", PARALLEL_TRAIN_CLIPS // shard * 8,
+        197, 6, 64, False, bf16, 65)
+    bwd["composed_pipe_train"] = check_attention_bwd(
+        "attention_bwd pipe+fsdp train bf16",
+        PARALLEL_TRAIN_CLIPS // shard // 2 * 8, 197, 12, 64, False, bf16, 66)
     return {"attention_qkv": att, "attention_qkv_bwd": bwd}
 
 
 def parallel(repo, card):
-    """Multi-GPU, the rest (PR 22), on the one card: (a) the pod8 recipe
-    under ``TPU.FSDP`` on an NCCL group of one rank against the ddp
-    phase's DDP steps; (b) the engine over two replicas of the flagship;
-    (c) ``TPU.SHARD_FRAMES`` through classify's model path; (d) two gloo
-    ranks sharing the card: the model and pipe axes (eval and the
-    fine-tune's train steps) and FSDP at world 2. Nothing here is
-    scaling: there is one card. Returns each part's launches and the
-    kernel checks."""
+    """Multi-GPU, the rest, on the one card: (a) the pod8
+    recipe under ``TPU.FSDP`` on an NCCL group of one rank against the
+    ddp phase's DDP steps; (b) the engine over two replicas of the
+    flagship; (c) ``TPU.SHARD_FRAMES`` through classify's model path; (d)
+    two gloo ranks sharing the card: the model and pipe axes (eval and
+    the fine-tune's train steps) and FSDP at world 2; (e) four gloo ranks
+    sharing the card: FSDP composed with the model axis and with the pipe
+    axis. Nothing here is scaling: there is one card. Returns each part's
+    launches and the kernel checks."""
     t0 = time.perf_counter()
     problems = []
     checks = parallel_kernel_checks()
     fsdp = _parallel_fsdp_world1(repo, problems)
     engine, engine_launches = _parallel_engine(repo, problems)
     frames, frames_launches = _parallel_shard_frames(repo, problems)
-    ranks, rank_launches = _parallel_ranks(repo, problems, fsdp["losses"])
+    ranks, rank_launches, one, plain = _parallel_ranks(repo, problems,
+                                                       fsdp["losses"])
+    composed, composed_launches = _parallel_composed(repo, problems, one,
+                                                     plain)
     rec = {"phase": "parallel", "nvidia_smi": card, "fsdp_nccl_world1": fsdp,
            "engine": engine, "shard_frames": frames, "gloo_world2": ranks,
+           "gloo_world4_fsdp_composed": composed,
            "seconds": time.perf_counter() - t0, "pass": not problems}
     emit(rec)
     if problems:
         raise AssertionError("parallel: " + "; ".join(problems))
     return {"fsdp_nccl_world1": fsdp["launches"], "engine": engine_launches,
-            "shard_frames": frames_launches, **rank_launches}, checks
+            "shard_frames": frames_launches, **rank_launches,
+            **composed_launches}, checks
 
 
 def _http(port, path, body=None):
@@ -3981,21 +4297,53 @@ def http_round_trip(repo):
             "bad_payload_status": bad_status}, problems
 
 
-def _run_tool(repo, args, env=None):
-    """Run ``python -m dist_tpu_torch.tools.<args>`` from the checkout:
-    (seconds, every stdout line parsed as JSON); raises on a non-zero exit
-    or a line that does not parse."""
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *args], cwd=repo,
-                         env={**os.environ, **(env or {})},
-                         capture_output=True, text=True,
-                         timeout=TOOL_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"{' '.join(args)} exited {out.returncode}: "
-                             f"{out.stderr[-3000:]}")
-    return seconds, [json.loads(ln) for ln in out.stdout.splitlines()
-                     if ln.strip()]
+def _run_tools(repo, tools):
+    """Run each ``(name, args, env)`` of ``tools`` as ``python -m
+    dist_tpu_torch.tools.<args>`` from the checkout, all at once: each is
+    a smoke run whose output is checked, so they share the card (their
+    times are not measurements). Returns {name: (seconds, every stdout
+    line parsed as JSON)}; raises on a non-zero exit, a line that does
+    not parse or ``TOOL_TIMEOUT_S``, and stops every tool it started."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tools_") as tmp:
+        running, done = {}, {}
+        try:
+            for name, args, env in tools:
+                out = open(os.path.join(tmp, f"{len(running)}.out"), "w+")
+                err = open(os.path.join(tmp, f"{len(running)}.err"), "w+")
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", *args], cwd=repo,
+                    env={**os.environ, **(env or {})}, stdout=out,
+                    stderr=err, text=True)
+                running[name] = (time.perf_counter(), proc, out, err, args)
+            deadline = time.perf_counter() + TOOL_TIMEOUT_S
+            while len(done) < len(running):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("tools still running at "
+                                         f"{TOOL_TIMEOUT_S} s")
+                for name, (t0, proc, out, err, args) in running.items():
+                    if name in done or proc.poll() is None:
+                        continue
+                    seconds = time.perf_counter() - t0
+                    out.seek(0)
+                    err.seek(0)
+                    if proc.returncode != 0:
+                        raise AssertionError(
+                            f"{' '.join(args)} exited {proc.returncode}: "
+                            f"{err.read()[-3000:]}")
+                    done[name] = (seconds, [json.loads(ln) for ln in
+                                            out.read().splitlines()
+                                            if ln.strip()])
+                time.sleep(0.2)
+        finally:
+            for _, proc, out, err, _ in running.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
+    return {name: done[name] for name, _, _ in tools}
 
 
 def tools(repo):
@@ -4035,19 +4383,16 @@ def tools(repo):
         if launches[name] == 0:
             problems.append(f"{name} not launched in the tools phase")
 
-    runs = {}
-    runs["microbench conv33"] = _run_tool(
-        repo, ["dist_tpu_torch.tools.microbench", "conv33"],
-        {"REPS": str(TOOLS_REPS)})
-    runs["bench"] = _run_tool(
-        repo, ["dist_tpu_torch.tools.bench"],
-        {"BENCH_ITERS": "5", "BENCH_OPTS": "TPU.FUSED_TEMPORAL_NET true"})
-    runs["bench_serving"] = _run_tool(
-        repo, ["dist_tpu_torch.tools.bench_serving", "--iters", "10",
-               "--load-seconds", "2", "TPU.FUSED_TEMPORAL_NET", "true"])
-    runs["profile_eval"] = _run_tool(
-        repo, ["dist_tpu_torch.tools.profile_eval", "full_eval",
-               "attn_kernel"], {"BENCH_ITERS": "10"})
+    runs = _run_tools(repo, [
+        ("microbench conv33", ["dist_tpu_torch.tools.microbench", "conv33"],
+         {"REPS": str(TOOLS_REPS)}),
+        ("bench", ["dist_tpu_torch.tools.bench"],
+         {"BENCH_ITERS": "5", "BENCH_OPTS": "TPU.FUSED_TEMPORAL_NET true"}),
+        ("bench_serving", ["dist_tpu_torch.tools.bench_serving", "--iters",
+                           "10", "--load-seconds", "2",
+                           "TPU.FUSED_TEMPORAL_NET", "true"], None),
+        ("profile_eval", ["dist_tpu_torch.tools.profile_eval", "full_eval",
+                          "attn_kernel"], {"BENCH_ITERS": "10"})])
     for name, (_, lines) in runs.items():
         if any("error" in r for r in lines):
             problems.append(f"{name}: {lines}")

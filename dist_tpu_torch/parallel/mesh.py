@@ -13,8 +13,11 @@ times the data axis.
 - **data**: the gradient's global mean, which XLA takes inside the jitted
   step, is ``DistributedDataParallel``'s all-reduce over the data group
   (:func:`wrap_ddp`); under ``TPU.FSDP`` it is FSDP2's reduce-scatter
-  (ZeRO-3: parameters, gradients and optimizer moments sharded over the
-  data axis, ``parallel/fsdp.py``).
+  over the data group (ZeRO-3: parameters, gradients and optimizer
+  moments sharded over the data axis, ``parallel/fsdp.py``), with or
+  without a model or pipe axis: FSDP2 then shards what those axes left
+  on the rank, as the JAX package's ``shard_params`` adds the data axis
+  to a leaf's model or pipe spec.
 - **model** (``TPU.MESH.MODEL``): Megatron tensor parallelism of the
   attention and MLP blocks (``parallel/tensor.py``).
 - **pipe** (``TPU.MESH.PIPE``): the GPipe schedule of the CLIP tower
@@ -22,8 +25,8 @@ times the data axis.
 
 ``TPU.MESH.DATA: -1`` means every rank left; an explicit size that does
 not tile the ranks raises, as ``build_mesh`` asserts, and so does a pipe
-axis together with a model axis. No axis falls back to a replicated run:
-a collective the backend refuses raises.
+axis together with a model axis (with or without ``TPU.FSDP``). No axis
+falls back to a replicated run: a collective the backend refuses raises.
 """
 
 import dataclasses
@@ -60,7 +63,7 @@ def data_axis_size(cfg, world):
     the ranks over pipe x model. Raises where the JAX package's
     ``build_mesh`` refuses the config: a pipe axis with a model axis, pipe
     x model not dividing the ranks, or an explicit ``TPU.MESH.DATA`` that
-    does not tile them."""
+    does not tile them. ``TPU.FSDP`` composes with either axis."""
     data, pipe, model = _mesh_shape_cfg(cfg)
     if pipe > 1 and model > 1:
         raise ValueError(
@@ -73,10 +76,6 @@ def data_axis_size(cfg, world):
         raise ValueError(
             f"TPU.MESH data={data} x pipe={pipe} x model={model} != {world} "
             "ranks; set DATA to -1 to use all ranks")
-    if fsdp_enabled(cfg) and (pipe > 1 or model > 1):
-        raise ValueError(
-            "TPU.FSDP shards over the data axis of a data-only mesh in the "
-            "port; with TPU.MESH.PIPE or MODEL > 1 set TPU.FSDP false")
     return world // (pipe * model)
 
 
@@ -222,11 +221,12 @@ def init_distributed(cfg, device=None, rank=None, world_size=None,
 def prepare_model(model):
     """Lay a freshly built ``model`` (a ``VideoModel``, its full weights
     loaded) out on this rank's mesh before its optimizer is made: the
-    model axis's tensor-parallel slices (``parallel/tensor.py``), the
-    pipe axis's stage, this rank's blocks alone (``parallel/pipeline.py``)
-    or, under ``TPU.FSDP``,
-    FSDP2's shards over the data axis (``parallel/fsdp.py``). Outside a
-    group it changes nothing. Returns ``model``."""
+    model axis's tensor-parallel slices (``parallel/tensor.py``) or the
+    pipe axis's stage, this rank's blocks alone (``parallel/pipeline.py``);
+    then, under ``TPU.FSDP``, FSDP2's shards over the data axis of what
+    the rank holds (``parallel/fsdp.py``): the JAX package's order, the
+    data axis added to a leaf's model or pipe spec. Outside a group it
+    changes nothing. Returns ``model``."""
     lay = layout()
     if lay.model > 1:
         from dist_tpu_torch.parallel import tensor
@@ -272,9 +272,11 @@ def wrap_ddp(model):
 def finish_gradients(model):
     """After the train step's backward: under FSDP the data mean of the
     gradients FSDP2 does not reduce
-    (``parallel/fsdp.py::reduce_replicated_grads``). Otherwise nothing: a
-    pipe stage's gradients stay on its own rank, where DDP has averaged
-    them over the data group."""
+    (``parallel/fsdp.py::reduce_replicated_grads``: CLIP's 0-d
+    ``logit_scale``, whose gradient every model or pipe rank of a data
+    shard computes alike, so it is averaged over the data group alone).
+    Otherwise nothing: a pipe stage's gradients stay on its own rank,
+    where DDP or FSDP2 has averaged them over the data group."""
     if getattr(model.module, "fsdp_replicated", None):
         from dist_tpu_torch.parallel import fsdp
         fsdp.reduce_replicated_grads(model.module, layout())

@@ -38,7 +38,13 @@ rank).
 
 The schedule is differentiable, so it serves training. Only
 ``ClipVisionTextTransformer`` takes it (``models/base/models.py``), and
-not together with the model axis (``parallel/mesh.py``).
+not together with the model axis (``parallel/mesh.py``). Under
+``TPU.FSDP`` the stage's blocks are one FSDP2 unit sharded over the data
+group, gathered once at the stage's entry and kept across the ticks
+(``parallel/fsdp.py``); every rank of a data group holds the same stage
+and runs the same ticks, so the data group's all-gathers and
+reduce-scatters and the pipe group's handoffs come in one order on every
+rank.
 """
 
 import torch

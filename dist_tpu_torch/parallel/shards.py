@@ -14,6 +14,14 @@ ids are the ones a one-rank run gives the same parameters (its groups in
 ``optim/optimizer.py::GROUP_ORDER``, each group's parameters in the full
 module's order). On load a rank keeps its own stage's blocks.
 
+Under ``TPU.FSDP`` with a model or pipe axis a tensor is gathered in the
+reverse of the order it was laid out in: first over the data group (the
+``DTensor``'s shards; the ranks of one data group hold the same
+stage and the same model slice, so they call in for the same tensors in
+the same order), then over the model group or across the pipe stages. A
+full tensor is laid out in the order it was sharded: the model axis's
+slice or this stage's entries, then FSDP2's shard of it.
+
 Gathering is collective: every rank of the group calls in, in the same
 order, whatever rank then writes the file.
 """
@@ -116,29 +124,56 @@ def _sharded_params(module):
         reshard(module)
 
 
+def _over_data(t):
+    """``t`` whole over the data group: a ``DTensor``'s shards gathered
+    (collective), any other tensor itself. FSDP2's ``Shard(dim)`` over a
+    mesh of one dim holds ``torch.chunk``'s pieces; they are gathered, each
+    padded to the first's length, by ``all_gather_into_tensor`` over the
+    mesh's process group, as FSDP2 gathers (``DTensor.full_tensor``'s
+    functional collectives crash gloo on CUDA tensors: a segmentation
+    fault in torch 2.11 on the H100)."""
+    if not isinstance(t, _dtensor()):
+        return t
+    (placement,) = t.placements
+    local = t.to_local()
+    if not placement.is_shard():
+        return local
+    dim = placement.dim
+    group = t.device_mesh.get_group()
+    world = dist.get_world_size(group)
+    n = t.shape[dim]
+    chunk = -(-n // world)
+    local = local.movedim(dim, 0)
+    if local.shape[0] < chunk:
+        local = torch.cat([local, local.new_zeros(
+            (chunk - local.shape[0],) + tuple(local.shape[1:]))])
+    out = local.new_empty((world * chunk,) + tuple(local.shape[1:]))
+    dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+    return out[:n].movedim(0, dim).contiguous()
+
+
 def full(module, name, t):
     """The full tensor of ``t``: the parameter (or a tensor laid out as
-    it) ``name`` of ``module``. Collective where it is sharded."""
+    it) ``name`` of ``module``, gathered over the data group, then over
+    the model group. Collective where it is sharded."""
     from dist_tpu_torch.parallel.tensor import gather_full
 
-    if isinstance(t, _dtensor()):
-        t = t.full_tensor()
-    return gather_full(module, name, t)
+    return gather_full(module, name, _over_data(t))
 
 
 def local(module, name, value, like):
     """This rank's piece of the full tensor ``value`` of ``name``, laid
-    out as ``like`` (the module's own tensor): a ``DTensor`` of its
-    placements, or the model axis's slice."""
+    out as ``like`` (the module's own tensor): the model axis's slice,
+    then, for a ``DTensor``, FSDP2's shard of it."""
     from dist_tpu_torch.parallel.tensor import local_slice
 
-    dt = _dtensor()
-    if isinstance(like, dt):
+    value = local_slice(module, name, value)
+    if isinstance(like, _dtensor()):
         from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(value.to(like.device, like.dtype),
                                  like.device_mesh, like.placements,
                                  src_data_rank=None)
-    return local_slice(module, name, value)
+    return value
 
 
 def global_shapes(module):
@@ -160,7 +195,8 @@ def full_state_dict(module, tensors=None):
     tensors = module.state_dict() if tensors is None else tensors
     info = pipe_info(module)
     if info is not None:
-        tensors = _pipe_full(info, {k: v.detach() for k, v in tensors.items()},
+        tensors = _pipe_full(info, {k: _over_data(v.detach())
+                                    for k, v in tensors.items()},
                              _device(module))
     return {k: full(module, k, v).detach().cpu() for k, v in tensors.items()}
 
@@ -171,8 +207,8 @@ def local_state_dict(module, tensors):
     the blocks of the other stages."""
     info = pipe_info(module)
     if info is not None:
-        return {k: v for k, v in tensors.items()
-                if _stage_of(info, k) in (None, info["stage"])}
+        tensors = {k: v for k, v in tensors.items()
+                   if _stage_of(info, k) in (None, info["stage"])}
     _sharded_params(module)
     own = module.state_dict()
     return {k: local(module, k, v, own[k]) if k in own else v
@@ -209,22 +245,30 @@ def full_optimizer_state(module, optimizer):
     return {"state": state, "param_groups": sd["param_groups"]}
 
 
+def _local_entries(module):
+    """A function that lays out one optimizer entry of full moments
+    (``(name, entry)``) as the parameter ``name`` of ``module`` is laid
+    out; the entry's other fields pass as they are."""
+    _sharded_params(module)
+    params = dict(module.named_parameters())
+    shapes = global_shapes(module)
+
+    def laid_out(name, entry):
+        return {k: (local(module, name, v, params[name])
+                    if torch.is_tensor(v) and tuple(v.shape) == shapes[name]
+                    else v) for k, v in entry.items()}
+    return laid_out
+
+
 def load_optimizer_state(module, optimizer, sd):
     """``optimizer.load_state_dict`` of a state whose moments are full."""
     info = pipe_info(module)
     if info is not None:
         return _load_pipe_optimizer_state(info, module, optimizer, sd)
-    _sharded_params(module)
     names = _param_names(module, optimizer)
-    params = dict(module.named_parameters())
-    shapes = global_shapes(module)
-    state = {}
-    for i, entry in sd["state"].items():
-        name = names[int(i)]
-        state[i] = {k: (local(module, name, v, params[name])
-                        if torch.is_tensor(v)
-                        and tuple(v.shape) == shapes[name] else v)
-                    for k, v in entry.items()}
+    laid_out = _local_entries(module)
+    state = {i: laid_out(names[int(i)], entry)
+             for i, entry in sd["state"].items()}
     optimizer.load_state_dict({"state": state,
                                "param_groups": sd["param_groups"]})
 
@@ -245,12 +289,13 @@ def _pipe_optimizer_state(info, module, optimizer):
     sd = optimizer.state_dict()
     names = _param_names(module, optimizer)
     own = {names[i]: entry for i, entry in sd["state"].items()}
-    # each entry's tensors travel as "<name>\0<field>", the rest beside
+    # each entry's tensors travel as "<name>\0<field>", the rest beside;
+    # a moment sharded over the data group whole first
     tensors, plain = {}, {}
     for name, entry in own.items():
         for field, v in entry.items():
             if torch.is_tensor(v):
-                tensors[f"{name}\0{field}"] = v
+                tensors[f"{name}\0{field}"] = _over_data(v)
             else:
                 plain.setdefault(name, {})[field] = v
     groups = {g["group"]: {k: v for k, v in g.items() if k != "params"}
@@ -290,10 +335,10 @@ def _load_pipe_optimizer_state(info, module, optimizer, sd):
     rank: this rank's entries under its own ids. Collective."""
     order = [k for _, group in _pipe_order(info, module, optimizer)
              for k in group]
-    names = _param_names(module, optimizer)
-    local = {k: i for i, k in enumerate(names)}
-    state = {local[order[int(i)]]: entry for i, entry in sd["state"].items()
-             if order[int(i)] in local}
+    ids = {k: i for i, k in enumerate(_param_names(module, optimizer))}
+    laid_out = _local_entries(module)
+    state = {ids[order[int(i)]]: laid_out(order[int(i)], entry)
+             for i, entry in sd["state"].items() if order[int(i)] in ids}
     saved = {g["group"]: g for g in sd["param_groups"]}
     param_groups, start = [], 0
     for g in optimizer.param_groups:

@@ -23,7 +23,12 @@ holds ``[q_r; k_r; v_r]`` and the attention kernel (K1, and K1b in
 training) runs on ``(B, L, 3 D / tp)`` with ``heads / tp`` heads. A
 block whose heads (or hidden width) the model axis does not divide stays
 replicated. The checkpoints hold the full tensors
-(:func:`gather_full`), in the reference's layout.
+(:func:`gather_full`), in the reference's layout. Under ``TPU.FSDP``
+FSDP2 shards the slices over the data group and keeps the parameters'
+names, which :func:`tp_info`'s specs are keyed by; :func:`gather_full`
+and :func:`local_slice` take the slice whole over the data group
+(``parallel/shards.py`` gathers a ``DTensor`` first and distributes the
+slice last).
 """
 
 import torch

@@ -8,8 +8,11 @@ repeats to pad the last batch is counted once). A dual verb/noun head
 top-100 actions of the verb x noun outer product, under each video's path
 relative to the data root. A single head writes the generic JSON,
 version 0.1, each video's class scores under its number. In a
-data-parallel group each rank scores its shard of the views, the ranks
-gather every rank's scores, and rank 0 alone writes the file.
+group the model is laid out on the mesh as the test task lays it out
+(``parallel/mesh.py::prepare_model``: the model axis's slices, the pipe
+axis's stage, ``TPU.FSDP``'s shards); each data shard scores its shard
+of the views (its model or pipe ranks the same views together), the
+gathers go over the data axis, and rank 0 alone writes the file.
 """
 
 import json
@@ -20,6 +23,7 @@ import numpy as np
 from dist_tpu_torch.data.builder import build_loader
 from dist_tpu_torch.models.base.models import build_model
 from dist_tpu_torch.parallel.collectives import all_gather_arrays, is_master_proc
+from dist_tpu_torch.parallel.mesh import prepare_model
 from dist_tpu_torch.tasks.state import (
     compute_text_features,
     load_pretrained,
@@ -135,6 +139,7 @@ def submission_test(cfg, device=None):
     model = build_model(cfg, device=device)
     load_pretrained(cfg, model)
     load_test_checkpoint(cfg, model)
+    prepare_model(model)
     loader = build_loader(cfg, "submission", device=device)
     num_views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     try:

@@ -230,9 +230,10 @@ def save_checkpoint(cfg, state, cur_epoch, iter_in_epoch=None,
 
     Every rank of a group calls in; rank 0 writes, then all meet at a
     barrier, so a synchronous save is committed when any rank returns.
-    A sharded state (``TPU.FSDP``, the model axis, a pipe stage's blocks)
-    is gathered to full tensors first, on every rank
-    (``parallel/shards.py``): the file is the replicated run's."""
+    A sharded state (``TPU.FSDP``, the model axis, a pipe stage's blocks,
+    or ``TPU.FSDP`` with either axis) is gathered to full tensors first,
+    on every rank (``parallel/shards.py``): the file is the replicated
+    run's."""
     async_save = bool(cfg.TRAIN.get("CHECKPOINT_ASYNC", False))
     if iter_in_epoch is None:
         epoch = cur_epoch + int(cfg.TRAIN.get("NUM_FOLDS", 1))

@@ -1812,3 +1812,89 @@ def test_captured_map_jpeg_bytes_on_the_card_equal_the_cpus():
     on_cpu = jpeg.encode(feature_map_image(x.cpu()))
     assert torch.equal(feature_map_image(x).cpu(), feature_map_image(x.cpu()))
     assert on_card == on_cpu and len(on_card) == 2
+
+
+def test_tiny_fsdp_composed_with_model_and_pipe_on_four_gloo_ranks(tmp_path):
+    """``TPU.FSDP`` with the model axis (data 2 x model 2, the tiny DiST
+    128 wide, so that the axis splits heads) and with the pipe axis (data
+    2 x pipe 2, the tiny CLIP fine-tune, its tower trained through the
+    schedule) on four gloo ranks sharing ``cuda:0``, in fp32: two train
+    steps and the evals after them, plain and EMA, against the same mesh
+    without FSDP, within the CPU test's tolerances
+    (``tests/test_torch_port_fsdp_axes.py``: losses rel 1e-5, gradients
+    1e-5 of each leaf's largest value, scores 1e-5); under the pipe the
+    stage gathered and reduced once a step."""
+    import os
+    import sys
+
+    from dist_tpu_torch.config import load_config
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.parallel import launch
+
+    # the ranks' functions by a top-level name, which the spawned ranks
+    # import through this process's path (another ``tests`` package may
+    # come first on the card's machine)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_parallel_ranks as R
+
+    repo = os.path.dirname(here)
+    common = ["TRAIN.MIXED_PRECISION", "false", "AUGMENTATION.MIXUP.ENABLE",
+              "false", "AUGMENTATION.CUTMIX.ENABLE", "false",
+              "MODEL.EMA.ENABLE", "true", "MODEL.EMA.DECAY", "0.9",
+              "DIST_BACKEND", "gloo", "TPU.MESH.DATA", "2"]
+    wide = (os.path.join(repo, "configs/projects/dist/test/tiny_synth.yaml"),
+            common + ["VIDEO.BACKBONE.META_ARCH_NAME", R.WIDE,
+                      "VIDEO.BACKBONE.DIST.INTEGRATION_DIM", "128",
+                      "VIDEO.BACKBONE.DIST.TEMPORAL_DIM", "16",
+                      "TPU.FUSED_TEMPORAL_NET", "true", "TPU.MESH.MODEL", "2"])
+    fine = (os.path.join(repo, "configs/projects/dist/vit_base_16_ssv2.yaml"),
+            common + ["VIDEO.HEAD.NAME", "ClipVideoHeadLinear",
+                      "VIDEO.BACKBONE.META_ARCH_NAME", "ViT-Test",
+                      "DATA.NUM_INPUT_FRAMES", "4", "DATA.TRAIN_CROP_SIZE",
+                      "64", "DATA.TEST_SCALE", "64", "DATA.TEST_CROP_SIZE",
+                      "64", "VIDEO.HEAD.DROPOUT_RATE", "0",
+                      "OPTIMIZER.WARMUP_EPOCHS", "0", "OPTIMIZER.BASE_LR",
+                      "0.01", "TPU.MESH.PIPE", "2"])
+    R.register_wide()
+    rng = np.random.default_rng(11)
+    jobs, cfgs = [], {}
+    for axis, (path, opts) in (("tp", wide), ("pipe", fine)):
+        plain = load_config(path, opts, make_output_dir=False)
+        cfg = load_config(path, opts + ["TPU.FSDP", "true"],
+                          make_output_dir=False)
+        weights = {k: v.numpy() for k, v in build_model(
+            plain, device="cpu", seed=2).module.state_dict().items()}
+        t, crop = int(plain.DATA.NUM_INPUT_FRAMES), int(
+            plain.DATA.TRAIN_CROP_SIZE)
+        classes = int(plain.VIDEO.HEAD.NUM_CLASSES)
+        batch = {"video": rng.integers(0, 256, (8, t, crop, crop, 3),
+                                       dtype=np.uint8),
+                 "labels": rng.integers(0, classes, 8).astype(np.int64)}
+        if axis == "tp":
+            batch["text_features"] = rng.standard_normal(
+                (classes, 32)).astype(np.float32)
+        cfgs[axis] = cfg
+        jobs += [(c, "train_steps", (c, weights, batch, 2, None, True))
+                 for c in (plain, cfg)]
+    ranks = launch.launch_task(cfgs["tp"], R.mesh_runs, (jobs,),
+                               device="cuda:0", timeout=600)
+    assert len(ranks) == 4
+    for i, axis in enumerate(("tp", "pipe")):
+        for r in ranks:
+            want, got = r[2 * i], r[2 * i + 1]
+            np.testing.assert_allclose(got["losses"], want["losses"],
+                                       rtol=1e-5)
+            assert want["grads"]
+            for k, g in want["grads"].items():
+                np.testing.assert_allclose(
+                    got["grads"][k], g, rtol=0, err_msg=k,
+                    atol=1e-5 * float(np.abs(g).max()) + 1e-12)
+            for a, b in zip(got["evals"] + got["ema_evals"],
+                            want["evals"] + want["ema_evals"]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+            assert got["local_params"] < 0.6 * want["local_params"]
+            if axis == "pipe":
+                assert got["collectives"] == \
+                    [{"all_gather": 2, "reduce_scatter": 2}] * 2

@@ -21,7 +21,8 @@ launcher.
   tensor, and that file resumes on the pipe ranks, each keeping its own
   stage, and is written again tensor for tensor.
 - What stays refused: pipe on a backbone other than CLIP's, pipe with a
-  model axis, and a tower whose layers the stages do not divide."""
+  model axis (with ``TPU.FSDP`` too), and a tower whose layers the stages
+  do not divide."""
 
 import os
 
@@ -383,7 +384,8 @@ def test_pipe_checkpoint_round_trips(runs):
 
 def test_what_stays_refused(repo_root):
     """Pipe on a non-CLIP backbone (as JAX's ``build_model`` asserts),
-    pipe with a model axis (as ``build_mesh`` asserts), and a model built
+    pipe with a model axis (as ``build_mesh`` asserts), with or without
+    ``TPU.FSDP``, and a model built
     with a pipe axis run outside a group of that pipe axis."""
     tada = load_config(os.path.join(
         repo_root, "configs/projects/tada/k400/tada2d_8x8.yaml"),
@@ -395,6 +397,11 @@ def test_what_stays_refused(repo_root):
                        make_output_dir=False)
     with pytest.raises(ValueError, match="not composed"):
         mesh.data_axis_size(both, 4)
+    both_fsdp = load_config(os.path.join(repo_root, TINY),
+                            ["TPU.MESH.PIPE", "2", "TPU.MESH.MODEL", "2",
+                             "TPU.FSDP", "true"], make_output_dir=False)
+    with pytest.raises(ValueError, match="not composed"):
+        mesh.data_axis_size(both_fsdp, 8)
     cfg = load_config(os.path.join(repo_root, TINY), ["TPU.MESH.PIPE", "2"],
                       make_output_dir=False)
     model = build_model(cfg, device="cpu")

@@ -12,7 +12,12 @@ across to a ``.pyth`` for the port.
   with the supervision-level fields, the same video names, verb and
   noun scores within ``SCORE_ATOL``, every action of the verb x noun
   product (35 < 100) within ``SCORE_ATOL`` of the product's scale.
-- Without a card the task raises, as every entry point does."""
+- Without a card the task raises, as every entry point does.
+- On the mesh: two gloo ranks spawned once for the file, the tiny DiST
+  128 wide (``torch_parallel_ranks.WIDE``: the model axis splits heads)
+  under ``TPU.MESH.MODEL 2`` and under ``TPU.FSDP true TPU.MESH.DATA 2``:
+  the results file of one process, each rank holding half of every
+  weight the model axis splits or FSDP shards."""
 
 import json
 import os
@@ -32,6 +37,9 @@ from dist_tpu_torch.config import config
 from dist_tpu_torch.models.backbones.convert import state_dict_from_jax
 from dist_tpu_torch.models.base.models import build_backbone_on_meta
 from dist_tpu_torch.tasks.submission import submission_test
+from dist_tpu_torch.models.base.models import build_model
+from dist_tpu_torch.parallel import launch
+from tests import torch_parallel_ranks as R
 from tests.test_torch_port_resnet3d import jax_variables
 from tests.test_torch_port_test_task import _jax_run_module
 
@@ -140,3 +148,103 @@ def test_submission_needs_a_card_or_the_cpu(repo_root):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError):
         submission_test(cfg)
+
+
+# the tiny DiST 128 wide on the mesh, 2 synthetic videos of 10 x 3 views
+MESH_OPTS = ["VIDEO.BACKBONE.META_ARCH_NAME", R.WIDE,
+             "VIDEO.BACKBONE.DIST.INTEGRATION_DIM", "128",
+             "VIDEO.BACKBONE.DIST.TEMPORAL_DIM", "16",
+             "TRAIN.MIXED_PRECISION", "false", "TASK_TYPE", "submission",
+             "SUBMISSION.ENABLE", "true", "TEST.NUM_SAMPLES_LIMIT", "2",
+             "TEST.BATCH_SIZE", "10", "LOG_MODEL_INFO", "false"]
+MODES = {"tp": ["TPU.MESH.MODEL", "2"],
+         "fsdp": ["TPU.FSDP", "true", "TPU.MESH.DATA", "2"]}
+# fp32 in another summation order (the model axis's sums, FSDP's
+# gathered weights): a view's score, as the parallel tests' SCORE_ATOL;
+# a video sums its 30 views
+VIEW_ATOL = 1e-5
+SPAWN_TIMEOUT_S = 600
+# the weights the model axis splits (its path suffixes)
+SPLIT = (r"\.attn\.(in_proj_weight|in_proj_bias|out_proj\.weight)$"
+         r"|\.(mlp|ffn)\.(c_fc\.weight|c_fc\.bias|c_proj\.weight)$")
+
+
+@pytest.fixture(scope="module")
+def on_the_mesh(repo_root, tmp_path_factory):
+    """The one process's results file, and each mode's at world 2 with
+    what each rank held (one spawn for both modes)."""
+    import shutil
+
+    path = os.path.join(repo_root, "configs/projects/dist/test/tiny_synth.yaml")
+    out = tmp_path_factory.mktemp("submission_mesh")
+    R.register_wide()
+    plain = config.load_config(path, MESH_OPTS, make_output_dir=False)
+    ckpt = str(out / "weights.pyth")
+    torch.save(build_model(plain, device="cpu", seed=5).module.state_dict(),
+               ckpt)
+
+    def cfg(mode, opts):
+        os.makedirs(out / mode)
+        return config.load_config(path, MESH_OPTS + opts + [
+            "TEST.CHECKPOINT_FILE_PATH", ckpt, "OUTPUT_DIR", str(out / mode)],
+            make_output_dir=False)
+
+    cfgs = {mode: cfg(mode, opts) for mode, opts in MODES.items()}
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ranks = launch.launch_task(
+            cfgs["tp"], R.mesh_runs,
+            ([(c, "submission_run", (c,)) for c in cfgs.values()],),
+            device="cpu", timeout=SPAWN_TIMEOUT_S)
+        one = submission_test(cfg("one", []), device="cpu")
+    finally:
+        torch.set_num_threads(before)
+    with open(one) as f:
+        want = json.load(f)
+    got = {}
+    for i, mode in enumerate(MODES):
+        with open(ranks[0][i]["path"]) as f:
+            got[mode] = json.load(f)
+    yield {"want": want, "got": got,
+           "ranks": {mode: [r[i] for r in ranks]
+                     for i, mode in enumerate(MODES)}}
+    shutil.rmtree(out, ignore_errors=True)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_submission_on_the_mesh_matches_one_process(on_the_mesh, mode):
+    """The results file at world 2 is the one process's: the same videos,
+    each video's 30-view score sums within ``VIEW_ATOL`` a view."""
+    want, got = on_the_mesh["want"], on_the_mesh["got"][mode]
+    assert {k: v for k, v in got.items() if k != "results"} == \
+        {k: v for k, v in want.items() if k != "results"}
+    assert sorted(got["results"]) == sorted(want["results"]) == ["0", "1"]
+    for v, entry in want["results"].items():
+        np.testing.assert_allclose(got["results"][v]["scores"],
+                                   entry["scores"], rtol=0,
+                                   atol=30 * VIEW_ATOL)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_submission_lays_the_model_out_on_the_mesh(on_the_mesh, mode):
+    """Each rank holds half of every weight the rule splits (the model
+    axis) or shards (FSDP: every weight but the 0-d ``logit_scale``), and
+    the rest whole; the two ranks' halves make the weight."""
+    import re
+
+    r0, r1 = on_the_mesh["ranks"][mode]
+    split = 0
+    for name, shape in r0["shapes"].items():
+        n = int(np.prod(shape))
+        halved = (re.search(SPLIT, name) is not None if mode == "tp"
+                  else len(shape) > 0)
+        if not halved:
+            assert r0["held"][name] == r1["held"][name] == n, name
+            continue
+        split += 1
+        if mode == "tp" or any(d % 2 == 0 for d in shape):
+            assert r0["held"][name] == r1["held"][name] == n // 2, name
+        else:      # no dim halves: FSDP2's two chunks of dim 0
+            assert r0["held"][name] + r1["held"][name] == n, name
+    assert split

@@ -5,7 +5,9 @@
 functions live here, apart from the test files, so that a rank imports
 torch and the port and never JAX. Each also runs in the test's own
 process, outside any group, for the one-process reference. Each returns
-plain numpy and Python values, which pickle back to the test."""
+plain numpy and Python values, which pickle back to the test. They run
+on the CPU, or, where there is a card (the card tests), on the card the
+rank is bound to (:func:`_device`)."""
 
 import os
 
@@ -28,8 +30,13 @@ def register_wide():
         32, 64, 2, 128, 16, 77, 49408, 128, 2, 2)
 
 
+def _own(t):
+    """What this rank holds of ``t``: a ``DTensor``'s local shard."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _numpy(tensors):
-    return {k: v.detach().float().cpu().numpy().copy()
+    return {k: _own(v).detach().float().cpu().numpy().copy()
             for k, v in tensors.items()}
 
 
@@ -45,12 +52,20 @@ def _plain(obj):
     return obj
 
 
+def _device():
+    """The card this process is bound to where there is one, else the
+    CPU."""
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def _model(cfg, weights):
     from dist_tpu_torch.models.base.models import build_model
     from dist_tpu_torch.parallel.mesh import prepare_model
 
     register_wide()
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, device=_device())
     model.module.load_state_dict({k: torch.from_numpy(v)
                                   for k, v in weights.items()})
     return prepare_model(model)
@@ -61,12 +76,12 @@ def _rows(batch, key):
     rank, world = C.data_rank(), C.data_size()
     b = len(batch[key]) // world
     return torch.from_numpy(np.ascontiguousarray(
-        batch[key][rank * b:(rank + 1) * b]))
+        batch[key][rank * b:(rank + 1) * b])).to(_device())
 
 
 def _text(batch):
     t = batch.get("text_features")
-    return None if t is None else torch.from_numpy(t)
+    return None if t is None else torch.from_numpy(t).to(_device())
 
 
 def train_steps(cfg, weights, batch, steps, out_dir=None, evals=False):
@@ -80,6 +95,7 @@ def train_steps(cfg, weights, batch, steps, out_dir=None, evals=False):
     parameters and optimizer moments this rank holds."""
     from dist_tpu_torch.optim.optimizer import construct_optimizer
     from dist_tpu_torch.parallel import shards
+    from dist_tpu_torch.parallel.fsdp import count_collectives
     from dist_tpu_torch.parallel.mesh import wrap_ddp
     from dist_tpu_torch.tasks.state import (
         create_train_state,
@@ -108,18 +124,20 @@ def train_steps(cfg, weights, batch, steps, out_dir=None, evals=False):
                 for p in g["params"]:
                     grads[names[id(p)]] = p.grad
     hook = optimizer.register_step_pre_hook(keep)
-    out = {"losses": [], "evals": [], "ema_evals": []}
+    out = {"losses": [], "evals": [], "ema_evals": [], "collectives": []}
     for i in range(steps):
-        metrics = step(state, tb)
+        with count_collectives() as counts:
+            metrics = step(state, tb)
+        out["collectives"].append(dict(counts))
         out["losses"].append(C.all_reduce_mean(float(metrics["loss"]))[0])
         if i == 0:
             out["first_weights"] = _numpy(shards.full_state_dict(model.module))
         if evals:
             ev = {"video": tb["video"], "text_features": tb["text_features"]}
             out["evals"].append(C.all_gather_arrays(
-                eval_step(ev)["preds"].float().numpy())[0])
+                eval_step(ev)["preds"].float().cpu().numpy())[0])
             out["ema_evals"].append(C.all_gather_arrays(
-                ema_step(ev, state)["preds"].float().numpy())[0])
+                ema_step(ev, state)["preds"].float().cpu().numpy())[0])
     hook.remove()
     module = model.module
     out["grads"] = _numpy(shards.full_state_dict(module, grads))
@@ -133,6 +151,15 @@ def train_steps(cfg, weights, batch, steps, out_dir=None, evals=False):
         (v.to_local() if hasattr(v, "to_local") else v).numel()
         for s in optimizer.state.values() for k, v in s.items()
         if k in ("exp_avg", "exp_avg_sq"))
+    # by parameter: the elements of it and of its two moments held here
+    params = dict(module.named_parameters())
+    out["local_leaves"] = {k: _own(p).numel() for k, p in params.items()}
+    out["local_moment_leaves"] = {
+        names[id(p)]: sum(_own(v).numel() for f, v in st.items()
+                          if f in ("exp_avg", "exp_avg_sq"))
+        for p, st in optimizer.state.items()}
+    out["pack_every_call"] = [m.pack_every_call for m in module.modules()
+                              if hasattr(m, "pack_every_call")]
     if shards.pipe_info(module) is not None:
         out["held"] = _held(module, optimizer)
         out["held_ema"] = None if state.ema is None else _numpy(state.ema)
@@ -181,11 +208,78 @@ def fsdp_group(cfg, plain_cfg, weights, batch, steps, out_dir):
     return out
 
 
+def round_trips(cfg, axis_cfg, plain_cfg, weights, path, out_dir):
+    """The checkpoint at ``path`` (written under ``cfg``'s mesh) resumed
+    and written again by a plain state (every rank whole, no sharding)
+    and by a state of ``axis_cfg`` (the same mesh without ``TPU.FSDP``);
+    each of their files resumed and written again by a state of
+    ``cfg``. Returns the four files' paths."""
+    from dist_tpu_torch.models.base.models import build_model
+    from dist_tpu_torch.optim.optimizer import construct_optimizer
+    from dist_tpu_torch.tasks.state import create_train_state, ema_decay
+    from dist_tpu_torch.utils import checkpoint as cu
+
+    def again(c, source, name):
+        if c is plain_cfg:
+            model = build_model(c, device="cpu")
+        else:
+            model = _model(c, weights)
+        opt, _ = construct_optimizer(c, model.module, 4)
+        state = create_train_state(model, opt, ema_decay(c))
+        state, _, _ = cu._resume(c, state, source, -1)
+        c.OUTPUT_DIR = os.path.join(out_dir, name)
+        return cu.save_checkpoint(c, state, 0)
+
+    files = {"plain": again(plain_cfg, path, "plain"),
+             "axis": again(axis_cfg, path, "axis")}
+    files["from_plain"] = again(cfg, files["plain"], "from_plain")
+    files["from_axis"] = again(cfg, files["axis"], "from_axis")
+    return files
+
+
+def composed(cfg, axis_cfg, plain_cfg, weights, batch, steps, out_dir):
+    """``TPU.FSDP`` with a model or pipe axis (``cfg``): ``train_steps``
+    with its evals and checkpoint, then that checkpoint's
+    :func:`round_trips`."""
+    out = train_steps(cfg, weights, batch, steps,
+                      os.path.join(out_dir, "composed"), evals=True)
+    out["round_trips"] = round_trips(cfg, axis_cfg, plain_cfg, weights,
+                                     out["checkpoint"], out_dir)
+    return out
+
+
+def submission_run(cfg):
+    """The submission task on this rank's mesh (``cfg`` names the
+    checkpoint and ``OUTPUT_DIR``): the results file's path (rank 0
+    writes it) and, as the task scores with it, each parameter's full
+    shape and the elements this rank holds of it."""
+    from dist_tpu_torch.parallel import shards
+    from dist_tpu_torch.tasks import submission
+
+    register_wide()
+    shapes, held = {}, {}
+    forward = submission.submission_forward
+
+    def record(cfg, model, *args):
+        full = shards.global_shapes(model.module)
+        for k, p in model.module.named_parameters():
+            shapes[k] = tuple(full[k])
+            held[k] = _own(p).numel()
+        return forward(cfg, model, *args)
+
+    submission.submission_forward = record
+    try:
+        path = submission.submission_test(cfg, device="cpu")
+    finally:
+        submission.submission_forward = forward
+    return {"path": path, "shapes": shapes, "held": held}
+
+
 def _held(module, optimizer):
     """{name: tensor} of the parameters this rank holds, and {name:
     {field: tensor}} of their optimizer state, as numpy."""
     names = {id(p): k for k, p in module.named_parameters()}
-    moments = {names[id(p)]: {f: v.detach().cpu().numpy().copy()
+    moments = {names[id(p)]: {f: _own(v).detach().cpu().numpy().copy()
                               for f, v in st.items() if torch.is_tensor(v)}
                for p, st in optimizer.state.items()}
     return _numpy(dict(module.named_parameters())), moments
@@ -281,7 +375,7 @@ def eval_scores(cfg, weights, batch, naive_qkv=False):
         model = _model(cfg, weights)
     ev = {"video": _rows(batch, "video"), "text_features": _text(batch)}
     return C.all_gather_arrays(make_eval_step(model, cfg)(ev)["preds"]
-                               .float().numpy())[0]
+                               .float().cpu().numpy())[0]
 
 
 def group_runs(runs):
@@ -290,6 +384,21 @@ def group_runs(runs):
     import sys
     mod = sys.modules[__name__]
     return [getattr(mod, name)(*args) for name, args in runs]
+
+
+def mesh_runs(runs):
+    """Each ``(config, function name, args)`` of ``runs`` in turn, in one
+    group, the ranks laid out as that config's mesh first
+    (``parallel/mesh.py::set_layout``): their results in order."""
+    import sys
+
+    from dist_tpu_torch.parallel.mesh import set_layout
+    mod = sys.modules[__name__]
+    out = []
+    for cfg, name, args in runs:
+        set_layout(cfg)
+        out.append(getattr(mod, name)(*args))
+    return out
 
 
 class ToyLayer(torch.nn.Module):
